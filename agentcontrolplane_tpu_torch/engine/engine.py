@@ -18,10 +18,16 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   host reads the block's tokens once per block and commits them.
 - Pages are freed at finish and on cancel; queued requests past their
   deadline fail fast; ``max_queue`` sheds load.
+- **int8 serving** (the reference's knobs): ``quantize="int8"`` /
+  ``quantize_weights`` serves int8 layer matrices (``ops/quant.py``), and
+  ``quantize_kv`` an int8 page pool with f32 scale twins, walked by the
+  int8 page-walk kernel. Both legitimately relax greedy byte identity with
+  the unquantized engine (``engine/accuracy.py`` gates them instead); both
+  off keeps the unquantized path exactly, with no scale storage.
 
 Left out for now (each is in ROADMAP): preemption, the prefix cache,
 chunked prefill and the megastep, speculative decoding, parked slots,
-dedup, the host KV tier, int8, the flight recorder and fault sites,
+dedup, the host KV tier, the flight recorder and fault sites,
 multi-host, and constrained decoding (``json_only`` / ``forced_prefix``
 raise ``ValueError`` at submit).
 """
@@ -52,6 +58,7 @@ from ..models.llama import (
     prefill_paged_batch,
 )
 from ..ops.paged import TRASH_PAGE, PageAllocator
+from ..ops.quant import QUANTIZABLE, QuantizedTensor, quantize_stacked
 from ..ops.sampling import sample
 from .tokenizer import ByteTokenizer, Tokenizer
 from .weights import random_params
@@ -165,6 +172,15 @@ class Engine:
         page_size: int = 16,
         kv_pages: int = 0,  # total pages (0 = every slot can hold max_ctx)
         max_queue: int = 0,  # 0 = unbounded
+        quantize: Optional[str] = None,  # "int8" = weight-only int8 serving
+        # alias for quantize="int8", matching the reference's knob names
+        # (--quantize-weights on the port's CLI)
+        quantize_weights: bool = False,
+        # int8 KV pages with per-row-per-head f32 scales: commits quantize,
+        # the int8 page walk dequantizes, so the pool holds ~1.94x the tokens
+        # per byte at head_dim 128; relaxes greedy byte identity (gated by
+        # engine/accuracy.py). Off keeps the unquantized pools exactly.
+        quantize_kv: bool = False,
         seed: int = 0,
     ):
         self.device = resolve_device(device)
@@ -192,10 +208,30 @@ class Engine:
         self.max_pages_per_seq = self.max_ctx // page_size
         self.num_pages = kv_pages or (max_slots * self.max_pages_per_seq + 1)
 
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantization {quantize!r}")
+        if quantize_weights:
+            quantize = "int8"
+        self.quantize = quantize
+        self.quantize_kv = bool(quantize_kv)
+
         t0 = time.monotonic()
-        self.params = params if params is not None else random_params(config, seed, self.device)
+        if params is None:
+            # quantized random init never holds the whole bf16 model
+            params = random_params(config, seed, self.device, quantize=quantize)
+        elif quantize == "int8":
+            # quantize matrix by matrix, dropping each original as its int8
+            # replacement lands (in place in the layer dict), so the peak is
+            # the given params plus one matrix; quantized leaves are kept
+            layers = params["layers"]
+            for key in QUANTIZABLE:
+                if not isinstance(layers[key], QuantizedTensor):
+                    layers[key] = quantize_stacked(layers[key])
+        self.params = params
+        # bytes held by weights: int8 values plus f32 scales for quantized
+        # matrices, so this is the served footprint
         self.weight_bytes = sum(
-            t.numel() * t.element_size()
+            t.nbytes if isinstance(t, QuantizedTensor) else t.numel() * t.element_size()
             for t in [*self.params["layers"].values(),
                       *(v for k, v in self.params.items() if k != "layers")]
         )
@@ -226,7 +262,8 @@ class Engine:
         """(Re)build the page pools and the host bookkeeping — shared by
         __init__ and crash recovery."""
         self.cache = init_paged_cache(
-            self.config, self.num_pages, self.page_size, device=self.device
+            self.config, self.num_pages, self.page_size, device=self.device,
+            quantize_kv=self.quantize_kv,
         )
         self._allocator = PageAllocator(self.num_pages)
         self._slot_pages: dict[int, list[int]] = {}
@@ -371,6 +408,8 @@ class Engine:
                 "layers": self.config.n_layers,
                 "vocab": self.config.vocab_size,
                 "dtype": str(self.config.dtype).replace("torch.", ""),
+                "quantize": self.quantize,
+                "quantize_kv": self.quantize_kv,
                 "weight_bytes": self.weight_bytes,
             },
             "device": str(self.device),
@@ -392,6 +431,14 @@ class Engine:
                 "free": self._allocator.free_count,
                 "page_size": self.page_size,
                 "table_uploads": self.table_uploads,
+            },
+            "memory": {
+                # int8 KV cache: at a fixed byte budget the pool holds ~1.94x
+                # the tokens (head_dim 128)
+                "quantized_kv": {
+                    "enabled": self.quantize_kv,
+                    "pages": self._allocator.allocated_count if self.quantize_kv else 0,
+                },
             },
         }
 

@@ -12,6 +12,13 @@ names and argument order. Differences that are PyTorch idiom:
   ``index_put_`` on the page pool (no pool-sized copy per step); the
   programs mutate ``pages`` and return the same dict.
 
+int8 serving rides the reference's seams: layer matrices may be
+``ops.quant.QuantizedTensor`` (every matmul of the block goes through
+``quant.matmul``), and a quantized cache is the same dict with int8
+``"k"``/``"v"`` plus f32 scale twins ``"ks"``/``"vs"`` — every commit goes
+through :func:`_kv_commit` (quantize on commit, the same index for values
+and scales) and decode attention reads the scales beside the pages.
+
 The decode write discipline is the reference's: pages are read-only inside
 the layer loop, the new token attends through a self term, one commit
 follows the loop, and inactive lanes write to ``TRASH_PAGE``. Decode
@@ -31,6 +38,8 @@ from ..ops.attention import blocked_causal_attention, causal_attention
 from ..ops.cuda.paged_attention import paged_decode_attention_cache_plus_new
 from ..ops.norms import rms_norm
 from ..ops.paged import TRASH_PAGE, init_kv_pages
+from ..ops.quant import kv_quantize, quantize_stacked
+from ..ops.quant import matmul as mm
 from ..ops.rope import apply_rope
 
 
@@ -177,12 +186,20 @@ def check_supported(config: LlamaConfig) -> None:
         )
 
 
-def init_params(config: LlamaConfig, generator: torch.Generator, device=None) -> dict:
+def init_params(
+    config: LlamaConfig, generator: torch.Generator, device=None, quantize: Optional[str] = None
+) -> dict:
     """Random init made on ``device`` from ``generator`` (serving with
     random weights); layout and scales mirror the reference's init. Each
     tensor is drawn directly in the model dtype, so peak memory is the
-    weights themselves (about 16 GB for llama3-8b in bf16)."""
+    weights themselves (about 16 GB for llama3-8b in bf16). With
+    ``quantize="int8"`` each stacked layer matrix is quantized as soon as it
+    is drawn and its bf16 original dropped before the next draw: the same
+    values as quantizing the bf16 init afterwards, at a peak of the int8
+    model plus one stacked matrix."""
     check_supported(config)
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantization {quantize!r}")
     c = config
     d, hd = c.dim, c.head_dim
     device = device if device is not None else generator.device
@@ -190,6 +207,10 @@ def init_params(config: LlamaConfig, generator: torch.Generator, device=None) ->
     def normal(shape, scale):
         t = torch.randn(shape, generator=generator, device=device, dtype=c.dtype)
         return t.mul_(scale)
+
+    def matrix(shape, scale):
+        w = normal(shape, scale)
+        return w if quantize is None else quantize_stacked(w)
 
     def ones(shape):
         return torch.ones(shape, device=device, dtype=c.dtype)
@@ -201,13 +222,13 @@ def init_params(config: LlamaConfig, generator: torch.Generator, device=None) ->
         "layers": {
             "ln1": ones((L, d)),
             "ln2": ones((L, d)),
-            "wq": normal((L, d, c.n_heads * hd), scale),
-            "wk": normal((L, d, c.n_kv_heads * hd), scale),
-            "wv": normal((L, d, c.n_kv_heads * hd), scale),
-            "wo": normal((L, c.n_heads * hd, d), scale),
-            "w1": normal((L, d, c.ffn_dim), scale),  # gate_proj
-            "w3": normal((L, d, c.ffn_dim), scale),  # up_proj
-            "w2": normal((L, c.ffn_dim, d), c.ffn_dim**-0.5),  # down_proj
+            "wq": matrix((L, d, c.n_heads * hd), scale),
+            "wk": matrix((L, d, c.n_kv_heads * hd), scale),
+            "wv": matrix((L, d, c.n_kv_heads * hd), scale),
+            "wo": matrix((L, c.n_heads * hd, d), scale),
+            "w1": matrix((L, d, c.ffn_dim), scale),  # gate_proj
+            "w3": matrix((L, d, c.ffn_dim), scale),  # up_proj
+            "w2": matrix((L, c.ffn_dim, d), c.ffn_dim**-0.5),  # down_proj
         },
         "norm": ones((d,)),
     }
@@ -217,7 +238,8 @@ def init_params(config: LlamaConfig, generator: torch.Generator, device=None) ->
 
 
 def _layer(params: dict, i: int) -> dict:
-    """One layer's weights as views of the stacked tensors."""
+    """One layer's weights as views of the stacked tensors (a
+    ``QuantizedTensor`` indexes its values and scales together)."""
     return {name: w[i] for name, w in params["layers"].items()}
 
 
@@ -252,21 +274,22 @@ def _attn_mlp(
     attn_fn,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shared block body: returns (output, k, v) where k/v are this layer's
-    new key/value tensors (for the commit). Matmuls are plain ``x @ W``:
-    the bf16 path of the reference's ``ops.quant.matmul``."""
+    new key/value tensors (for the commit). The seven matmuls go through
+    ``quant.matmul``: ``x @ W`` for dense weights, ``(x @ q) * scale`` for
+    int8 ones."""
     c = config
     B, T, D = x.shape
     h = rms_norm(x, layer["ln1"], c.norm_eps)
-    q = (h @ layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
-    k = (h @ layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
-    v = (h @ layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+    q = mm(h, layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
+    k = mm(h, layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+    v = mm(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
     scaling = _rope_scaling(c)
     q = apply_rope(q, positions, c.rope_theta, scaling=scaling)
     k = apply_rope(k, positions, c.rope_theta, scaling=scaling)
     attn = attn_fn(q, k, v)
-    x = x + attn.reshape(B, T, c.n_heads * c.head_dim) @ layer["wo"]
+    x = x + mm(attn.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
     h = rms_norm(x, layer["ln2"], c.norm_eps)
-    y = (F.silu(h @ layer["w1"]) * (h @ layer["w3"])) @ layer["w2"]
+    y = mm(F.silu(mm(h, layer["w1"])) * mm(h, layer["w3"]), layer["w2"])
     return x + y, k, v
 
 
@@ -293,16 +316,40 @@ def forward(
 
 
 # ---------------------------------------------------------------------------
+# Serving: KV quantization seam
+# ---------------------------------------------------------------------------
+
+
+def _kv_commit(pages: dict, new_k: torch.Tensor, new_v: torch.Tensor, setter) -> dict:
+    """Commit fresh K/V through ``setter(array, values)`` — the SAME
+    in-place index applied to the value pools ([..., H_kv, d]) and, for a
+    quantized cache, to the scale twins ([..., H_kv]); quantization happens
+    here, once per program, on the already-stacked commit."""
+    if "ks" in pages:
+        qk, sk = kv_quantize(new_k)
+        qv, sv = kv_quantize(new_v)
+        for name, val in (("k", qk), ("v", qv), ("ks", sk), ("vs", sv)):
+            setter(pages[name], val)
+    else:
+        for name, val in (("k", new_k), ("v", new_v)):
+            setter(pages[name], val.to(pages[name].dtype))
+    return pages
+
+
+# ---------------------------------------------------------------------------
 # Serving: paged KV cache
 # ---------------------------------------------------------------------------
 
 
 def init_paged_cache(
-    config: LlamaConfig, num_pages: int, page_size: int, device="cuda"
+    config: LlamaConfig, num_pages: int, page_size: int, device="cuda",
+    quantize_kv: bool = False,
 ) -> dict:
+    """Page pools in the model dtype — or int8 plus f32 scale twins with
+    ``quantize_kv``."""
     return init_kv_pages(
         config.n_layers, num_pages, page_size, config.n_kv_heads, config.head_dim,
-        config.dtype, device=device,
+        config.dtype, device=device, quantize=quantize_kv,
     )
 
 
@@ -347,14 +394,17 @@ def _commit_whole_pages(
     page_ids: torch.Tensor,  # [B, T // P] int
 ) -> dict:
     """Whole-page commit: row block j of prompt b lands in page
-    ``page_ids[b, j]`` of every layer, in place."""
+    ``page_ids[b, j]`` of every layer, in place. The blocks reshape covers
+    the scale twins too (values [L, B, T, H, d] and scales [L, B, T, H]
+    both split T into pages)."""
     L, B, T = new_k.shape[:3]
     P = pages["k"].shape[2]
     flat_ids = page_ids.reshape(-1).long()
-    for name, new in (("k", new_k), ("v", new_v)):
-        blocks = new.reshape(L, B * (T // P), P, *new.shape[3:])
-        pages[name][:, flat_ids] = blocks.to(pages[name].dtype)
-    return pages
+
+    def setter(arr, val):
+        arr[:, flat_ids] = val.reshape(L, B * (T // P), P, *val.shape[3:])
+
+    return _kv_commit(pages, new_k, new_v, setter)
 
 
 def decode_step_paged(
@@ -368,22 +418,28 @@ def decode_step_paged(
 ) -> tuple[dict, torch.Tensor]:
     """One decode step for all slots against the paged cache. Each layer
     calls the paged decode-attention kernel (cache-plus-new form) over the
-    read-only pages; one commit after the loop writes every layer's new
-    K/V at (page(slot), offset(slot)), inactive lanes to the trash page.
-    Returns (pages, logits [S, V])."""
+    read-only pages — the int8 walk, with the layer's scale twins, when the
+    cache is quantized; the new token's self term uses its full-precision
+    k/v. One commit after the loop writes every layer's new K/V at
+    (page(slot), offset(slot)), inactive lanes to the trash page,
+    quantizing it for an int8 cache. Returns (pages, logits [S, V])."""
     c = config
     check_supported(c)
     S = tokens.shape[0]
     positions = seq_lens.long()[:, None]
     x = _embed(params, tokens[:, None], c)
+    quantized = "ks" in pages
     new_k, new_v = [], []
     for i in range(c.n_layers):
         k_pages_l, v_pages_l = pages["k"][i], pages["v"][i]
+        scales_l = (
+            {"k_scales": pages["ks"][i], "v_scales": pages["vs"][i]} if quantized else {}
+        )
 
         def attn(q, k, v):
             out = paged_decode_attention_cache_plus_new(
                 q[:, 0].contiguous(), k_pages_l, v_pages_l, block_tables, seq_lens,
-                k[:, 0].contiguous(), v[:, 0].contiguous(),
+                k[:, 0].contiguous(), v[:, 0].contiguous(), **scales_l,
             )
             return out[:, None]
 
@@ -399,7 +455,10 @@ def decode_step_paged(
     target = block_tables.long()[torch.arange(S, device=lens.device), page_idx]
     target = torch.where(active, target, TRASH_PAGE)
     offset = lens % P
-    for name, new in (("k", new_k), ("v", new_v)):
-        pages[name][:, target, offset] = torch.stack(new).to(pages[name].dtype)
+
+    def setter(arr, val):
+        arr[:, target, offset] = val
+
+    _kv_commit(pages, torch.stack(new_k), torch.stack(new_v), setter)
     x = rms_norm(x[:, 0], _final_norm_w(params, c), c.norm_eps)
     return pages, _head_logits(x, params, c)

@@ -27,7 +27,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "acp_torch_kernels"
 # library name -> source file in csrc/
-SOURCES = {"paged_attention": "paged_attention.cu"}
+SOURCES = {
+    "paged_attention": "paged_attention.cu",
+    "paged_attention_int8": "paged_attention_int8.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -8,7 +8,8 @@ no aiohttp:
 - ``POST /v1/chat/completions`` — non-streaming chat completion; tool calls
   are parsed from the generated text by ``engine/toolparse.py``;
 - ``GET /healthz`` — liveness;
-- ``GET /v1/engine`` — ``Engine.stats()``.
+- ``GET /v1/engine`` — ``Engine.stats()`` (with the int8 knobs under
+  ``model.quantize``/``model.quantize_kv`` and ``memory.quantized_kv``).
 
 Constrained requests (``response_format: json_object``, or a ``tool_choice``
 that forces a call) answer 400: the torch engine has no constrained

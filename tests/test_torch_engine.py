@@ -177,3 +177,84 @@ def test_default_device_is_cuda_and_raises_without_it():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve("tiny", port=0)
+
+
+# -- int8 serving ------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def int8_engines():
+    weights = _weights()
+    jax_engine = JaxEngine(
+        config=JCFG, params=jax.tree_util.tree_map(jax.numpy.asarray, weights),
+        tokenizer=JaxByteTokenizer(), mesh=make_mesh({"tp": 1}, devices=jax.devices()[:1]),
+        kv_layout="paged", prefix_cache_entries=0, quantize_kv=True, quantize_weights=True,
+        **KW,
+    )
+    port = Engine(TCFG, params_from_jax(weights, TCFG, device="cpu"), device="cpu",
+                  quantize_kv=True, quantize_weights=True, **KW)
+    jax_engine.start()
+    port.start()
+    yield jax_engine, port
+    jax_engine.stop()
+    port.stop()
+
+
+def test_int8_greedy_streams_byte_identical_to_jax_engine(int8_engines, engines):
+    """int8 weights and an int8 KV cache on both sides: the streams equal
+    the reference's int8 engine byte for byte, and (the legitimate break)
+    differ from the unquantized streams somewhere."""
+    jax_engine, port = int8_engines
+    jf = [jax_engine.submit(p, JaxSampling(max_tokens=m)) for p, m in BATCH]
+    tf = [port.submit(p, SamplingParams(max_tokens=m)) for p, m in BATCH]
+    ref = [f.result(timeout=300) for f in jf]
+    ours = [f.result(timeout=300) for f in tf]
+    for (prompt, _), r, o in zip(BATCH, ref, ours):
+        assert o.tokens == r.tokens, prompt
+        assert o.text == r.text and o.finish_reason == r.finish_reason, prompt
+    _, dense_port = engines
+    dense = [dense_port.submit(p, SamplingParams(max_tokens=m)).result(timeout=300)
+             for p, m in BATCH]
+    assert [d.tokens for d in dense] != [o.tokens for o in ours]
+    assert port.stats()["kv_pages"]["free"] == port.num_pages - 1
+
+
+def test_int8_stats_and_storage(int8_engines, engines):
+    jax_engine, port = int8_engines
+    _, dense = engines
+    s, js = port.stats(), jax_engine.stats()
+    for key in ("quantize", "quantize_kv"):
+        assert s["model"][key] == js["model"][key]
+    assert s["model"]["quantize"] == "int8" and s["model"]["quantize_kv"] is True
+    assert s["memory"]["quantized_kv"] == {"enabled": True, "pages": 0}
+    assert set(port.cache) == {"k", "v", "ks", "vs"} and port.cache["k"].dtype == torch.int8
+    # weight bytes count int8 values plus f32 scales, as the reference does
+    assert s["model"]["weight_bytes"] == js["model"]["weight_bytes"]
+    assert s["model"]["weight_bytes"] < dense.stats()["model"]["weight_bytes"]
+    # both knobs off: no scale storage and the unquantized stats
+    d = dense.stats()
+    assert set(dense.cache) == {"k", "v"} and dense.cache["k"].dtype == torch.float32
+    assert d["model"]["quantize"] is None and d["model"]["quantize_kv"] is False
+    assert d["memory"]["quantized_kv"] == {"enabled": False, "pages": 0}
+
+
+def test_quantized_pages_counted_while_serving(int8_engines):
+    _, port = int8_engines
+    with port.hold_admission():
+        fut = port.submit("w" * 20, SamplingParams(max_tokens=30))
+    while port.stats()["active_slots"] == 0 and not fut.done():
+        time.sleep(0.0005)
+    pages = port.stats()["memory"]["quantized_kv"]["pages"]
+    fut.result(timeout=120)
+    assert pages in (0, 7)  # 20 + 30 tokens = 7 pages of 8 (0: finished first)
+    assert port.stats()["memory"]["quantized_kv"]["pages"] == 0
+
+
+def test_quantize_knob_validation():
+    with pytest.raises(ValueError, match="unsupported quantization"):
+        Engine(TCFG, params_from_jax(_weights(), TCFG, device="cpu"), device="cpu",
+               quantize="int4", **KW)
+    eng = Engine(TCFG, params_from_jax(_weights(), TCFG, device="cpu"), device="cpu",
+                 quantize="int8", **KW)
+    assert eng.quantize == "int8" and not eng.quantize_kv
+    assert set(eng.cache) == {"k", "v"}

@@ -36,6 +36,8 @@ def test_scan_covers_the_port_and_catches_offenders():
     for expected in (
         "agentcontrolplane_tpu_torch/models/llama.py",
         "agentcontrolplane_tpu_torch/ops/cuda/paged_attention.py",
+        "agentcontrolplane_tpu_torch/ops/quant.py",
+        "agentcontrolplane_tpu_torch/engine/accuracy.py",
         "agentcontrolplane_tpu_torch/engine/engine.py",
         "agentcontrolplane_tpu_torch/server/rest.py",
         "chip_smoke.py",

@@ -141,3 +141,123 @@ def test_unported_families_are_refused():
         tl.check_supported(gemma)
     with pytest.raises(NotImplementedError):
         tl.init_params(tl.PRESETS["moe-tiny"], torch.Generator().manual_seed(0))
+
+
+# -- int8 serving ------------------------------------------------------------
+#
+# The reference runs its model programs under jax.jit, which is also what
+# fixes its quantizer's rounding (ops/quant.py in the port says why), so
+# the JAX side runs jitted here. Two sides' f32 K/V differ in the last
+# bits, so an int8 value may land one step apart where x / scale sits on a
+# rounding half: allowed (and counted); scales within 1e-6 relative.
+
+from functools import partial
+
+from agentcontrolplane_tpu.ops import quant as jq
+from agentcontrolplane_tpu_torch.ops import quant as tq
+
+SCALE_RTOL = 1e-6
+
+
+def _compare_int8_pools(ours: dict, ref: dict, skip_trash: bool = True) -> int:
+    """Hold the port's int8 pools against the reference's; returns how
+    many int8 values differ (each by exactly one step)."""
+    lo = 1 if skip_trash else 0
+    differing = 0
+    for name in ("k", "v"):
+        a = ours[name][:, lo:].numpy().astype(np.int32)
+        b = np.asarray(ref[name])[:, lo:].astype(np.int32)
+        assert np.abs(a - b).max() <= 1, name
+        differing += int((a != b).sum())
+    for name in ("ks", "vs"):
+        np.testing.assert_allclose(ours[name][:, lo:].numpy(), np.asarray(ref[name])[:, lo:],
+                                   rtol=SCALE_RTOL, atol=0)
+    return differing
+
+
+def test_int8_prefill_and_decode_match_jax_on_quantized_pages(params):
+    jp, tp = params
+    tokens, lengths, page_ids = _prefill_inputs()
+    j_prefill = jax.jit(partial(jl.prefill_paged_batch, config=JCFG))
+    j_pages, j_logits = j_prefill(
+        jp, jl.init_paged_cache(JCFG, NUM_PAGES, P, quantize_kv=True), jnp.asarray(tokens),
+        jnp.asarray(lengths), jnp.asarray(page_ids),
+    )
+    t_pages = tl.init_paged_cache(TCFG, NUM_PAGES, P, device="cpu", quantize_kv=True)
+    assert t_pages["k"].dtype == torch.int8 and t_pages["ks"].dtype == torch.float32
+    t_pages, t_logits = tl.prefill_paged_batch(
+        tp, t_pages, *map(torch.from_numpy, (tokens, lengths, page_ids)), TCFG
+    )
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), **TOL)
+    differing = _compare_int8_pools(t_pages, j_pages)
+    print(f"int8 prefill: {differing} int8 values one step apart")
+
+    # decode from the prefilled int8 state: both sides walk the same pages
+    start = {n: np.array(a) for n, a in j_pages.items()}
+    tokens, seq_lens, tables, active = _decode_inputs()
+    seq_lens = np.array([5, 16, 3, 11], np.int32)
+    tables = np.array([[3, 0, 0, 0], [5, 6, 8, 0], [10, 0, 0, 0], [1, 9, 0, 0]], np.int32)
+    j_decode = jax.jit(partial(jl.decode_step_paged, config=JCFG, use_pallas=False))
+    j_pages2, j_logits2 = j_decode(
+        jp, {n: jnp.asarray(a) for n, a in start.items()},
+        *map(jnp.asarray, (tokens, seq_lens, tables, active)),
+    )
+    t_start = {n: torch.from_numpy(a.copy()) for n, a in start.items()}
+    t_pages2, t_logits2 = tl.decode_step_paged(
+        tp, t_start, *map(torch.from_numpy, (tokens, seq_lens, tables, active)), TCFG
+    )
+    np.testing.assert_allclose(t_logits2.numpy(), np.asarray(j_logits2), **TOL)
+    differing = _compare_int8_pools(t_pages2, j_pages2)
+    print(f"int8 decode: {differing} int8 values one step apart")
+    # active lanes committed a quantized row with its scale; the inactive
+    # lane's page is untouched (its write went to the trash page)
+    for s in np.flatnonzero(active):
+        page, off = tables[s, seq_lens[s] // P], seq_lens[s] % P
+        assert not np.array_equal(t_pages2["ks"][:, page, off].numpy(), start["ks"][:, page, off])
+    inactive = np.flatnonzero(~active)[0]
+    page = tables[inactive, seq_lens[inactive] // P]
+    for n in ("k", "v", "ks", "vs"):
+        np.testing.assert_array_equal(t_pages2[n][:, page].numpy(), start[n][:, page])
+
+
+def test_int8_prefill_then_decode_reproduces_int8_forward_closely(params):
+    """The int8 slice end to end at the model level: int8 weights and an
+    int8 cache, prefill then token-by-token decode, against the dense
+    int8-weight forward (which reads unquantized K/V): close, not equal —
+    quantizing the cache is the one legitimate difference."""
+    _jp, tp = params
+    qp = tq.quantize_params(tp)
+    seq = np.random.default_rng(3).integers(0, 512, 21).astype(np.int32)
+    full = tl.forward(qp, torch.from_numpy(seq[None]), TCFG)[0].numpy()
+    plen = 13
+    tokens = np.zeros((1, 16), np.int32)
+    tokens[0, :plen] = seq[:plen]
+    pages = tl.init_paged_cache(TCFG, NUM_PAGES, P, device="cpu", quantize_kv=True)
+    table = np.array([[2, 4, 6, 0]], np.int32)
+    pages, logits = tl.prefill_paged_batch(
+        qp, pages, torch.from_numpy(tokens), torch.tensor([plen]),
+        torch.from_numpy(table[:, :2]), TCFG,
+    )
+    np.testing.assert_allclose(logits[0].numpy(), full[plen - 1], **TOL)  # no cache read yet
+    worst = 0.0
+    for pos in range(plen, len(seq)):
+        pages, logits = tl.decode_step_paged(
+            qp, pages, torch.tensor([seq[pos]]), torch.tensor([pos], dtype=torch.int32),
+            torch.from_numpy(table), torch.tensor([True]), TCFG,
+        )
+        worst = max(worst, float(np.abs(logits[0].numpy() - full[pos]).max()))
+        assert logits[0].argmax().item() == full[pos].argmax()
+    assert 0.0 < worst < 0.05
+
+
+def test_int8_weight_forward_matches_jax(params):
+    jp, _tp = params
+    jqp = jax.jit(jq.quantize_params)(jp)
+    tqp = params_from_jax(jax.tree_util.tree_map(np.asarray, jqp), TCFG, device="cpu")
+    assert isinstance(tqp["layers"]["w2"], tq.QuantizedTensor)
+    tokens = np.random.default_rng(1).integers(0, 512, (2, 24)).astype(np.int32)
+    ref = np.asarray(jax.jit(partial(jl.forward, config=JCFG))(jqp, jnp.asarray(tokens)))
+    ours = tl.forward(tqp, torch.from_numpy(tokens), TCFG).numpy()
+    np.testing.assert_allclose(ours, ref, **TOL)
+    dense = tl.forward(params[1], torch.from_numpy(tokens), TCFG).numpy()
+    assert np.abs(ours - dense).max() > 1e-4  # int8 weights are a different function

@@ -140,3 +140,31 @@ def test_tool_call_completion_parsed_by_toolparse():
     assert json.loads(call["function"]["arguments"]) == {"city": "Paris"}
     # the tool schema was rendered into the system turn of the prompt
     assert '"name": "get_weather"' in eng.prompts[0]
+
+
+def test_int8_engine_stats_served_and_cli_flags(monkeypatch):
+    """``serve --quantize-weights --quantize-kv`` reaches the engine, and
+    ``/v1/engine`` shows the int8 knobs and the quantized-KV block."""
+    from agentcontrolplane_tpu_torch import __main__ as cli
+    from agentcontrolplane_tpu_torch.server import rest
+
+    seen = {}
+    monkeypatch.setattr(rest, "serve", lambda preset, **kw: seen.update(kw, preset=preset))
+    assert cli.main(["serve", "--preset", "tiny", "--device", "cpu", "--quantize-weights",
+                     "--quantize-kv"]) == 0
+    assert seen["quantize_weights"] is True and seen["quantize_kv"] is True
+    cli.main(["serve", "--preset", "tiny", "--device", "cpu"])
+    assert seen["quantize_weights"] is False and seen["quantize_kv"] is False
+
+    eng = Engine(CFG, random_params(CFG, 0, "cpu"), device="cpu", max_slots=2, max_ctx=64,
+                 prefill_buckets=(32, 64), decode_block_size=4, page_size=8,
+                 quantize_weights=True, quantize_kv=True)
+    server, base = _serve(eng)
+    try:
+        status, stats = _call(base, "/v1/engine")
+        assert status == 200
+        assert stats["model"]["quantize"] == "int8" and stats["model"]["quantize_kv"] is True
+        assert stats["memory"]["quantized_kv"] == {"enabled": True, "pages": 0}
+    finally:
+        server.shutdown()
+        server.server_close()
