@@ -6,13 +6,22 @@
 //
 // Replaces the TPU Pallas kernel agentcontrolplane_tpu/ops/pallas/
 // paged_attention.py (_kernel/_paged_state, :56-275, through the single
-// pl.pallas_call at :265) in both of its forms:
-//   with_self = 1: paged_decode_attention_cache_plus_new + _fold_self_term
-//                  (:298-345) — the walk over the read-only pages, then one
-//                  more online-softmax fold of the unwritten token's
-//                  k_new/v_new; seq_lens EXCLUDE the new token.
-//   with_self = 0: paged_decode_attention (:278-295) — the walk, normalized
+// pl.pallas_call at :265) in its three epilogue forms (`mode`):
+//   kCachePlusNew (1): paged_decode_attention_cache_plus_new +
+//                  _fold_self_term (:298-345) — the walk over the read-only
+//                  pages, then one more online-softmax fold of the unwritten
+//                  token's k_new/v_new; seq_lens EXCLUDE the new token.
+//   kClassic (0):  paged_decode_attention (:278-295) — the walk, normalized
 //                  as acc / max(l, 1e-30); seq_lens INCLUDE the token.
+//   kState (2):    _paged_state itself (:189-275) as the context-parallel
+//                  wrapper runs it (:399-460): the walk over this rank's
+//                  [P_local] rows of every page, whose local row r of page
+//                  j sits at global position j * global_page_size +
+//                  pos_base + r (:94-98, :164-166), written UNNORMALIZED as
+//                  f32 acc [S, H, d], m [S, H], l [S, H] for the sp ranks to
+//                  merge. A rank that holds no valid row of a lane writes
+//                  m = -1e30 (the reference's NEG_INF, never -inf, so the
+//                  merge's exp(m - max m) stays finite), l = 0 and acc = 0.
 // and in both of its page types: KV = T (quantized=False) or KV = int8_t
 // (quantized=True, :82-93, :116-126, :153-158, operands :240-253), where
 // each row also carries one f32 scale per KV head in [NP, P, H_kv] twins.
@@ -53,7 +62,15 @@
 // - Groups merge by shuffles, warps through shared memory, with the same
 //   max/sum algebra; warp 0 runs the epilogue and writes in q's dtype.
 // - No atomics: results are deterministic run to run.
-// - seq_len == 0 walks nothing: mode 1 returns v_new, mode 0 zeros.
+// - seq_len == 0 walks nothing: mode 1 returns v_new, mode 0 zeros, mode 2
+//   the empty state.
+// - Context parallelism changes only which rows are valid: with
+//   G = global_page_size (= P unless the pool holds a slice of each page)
+//   the walk covers ceil(seq_len / G) pages, every local row of all but the
+//   last is valid, and the last page's first
+//   clamp(seq_len - (n_pages - 1) * G - pos_base, 0, P) rows are. So the
+//   valid rows stay a prefix of the walk's row order, and the loop below is
+//   the same for every form.
 
 #pragma once
 
@@ -66,6 +83,9 @@
 namespace acp {
 
 constexpr float kNegInf = -1e30f;
+constexpr int kClassic = 0;
+constexpr int kCachePlusNew = 1;
+constexpr int kState = 2;
 constexpr int kWarps = 8;  // a power of two (the warp merge halves it)
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 4;  // token rows in flight per lane group per step
@@ -153,9 +173,12 @@ paged_decode_kernel(const T* __restrict__ q,               // [S, H, D]
                     const int* __restrict__ seq_lens,      // [S]
                     const T* __restrict__ k_new,           // [S, H_kv, D] or null
                     const T* __restrict__ v_new,           // [S, H_kv, D] or null
-                    T* __restrict__ out,                   // [S, H, D]
+                    T* __restrict__ out,                   // [S, H, D] (modes 0, 1)
+                    float* __restrict__ acc_out,           // [S, H, D] (mode 2)
+                    float* __restrict__ m_out,             // [S, H] (mode 2)
+                    float* __restrict__ l_out,             // [S, H] (mode 2)
                     int H, int H_kv, int P, int max_pages, int n_rep,
-                    int with_self) {
+                    int pos_base, int global_page_size, int mode) {
   constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   constexpr int VEC = VecWidth<T>::N;
   constexpr int LANES = (D / VEC) < 32 ? (D / VEC) : 32;  // lanes per row
@@ -200,13 +223,21 @@ paged_decode_kernel(const T* __restrict__ q,               // [S, H, D]
     for (int e = 0; e < EPL; ++e) acc[r][e] = 0.0f;
   }
 
+  // rows at or past seq_len (the masked tail of the last page, and every
+  // row of a page slice that starts past it) are never loaded
   const int seq_len = seq_lens[s];
-  int n_pages = (seq_len + P - 1) / P;
-  if (n_pages > max_pages) n_pages = max_pages;
-  if (n_pages < 0) n_pages = 0;
-  const int n_rows = n_pages * P;
-  // rows past seq_len (the masked tail of the last page) are never loaded
-  const int n_valid = seq_len < n_rows ? seq_len : n_rows;
+  const int G = global_page_size;
+  const int n_pages = seq_len > 0 ? (seq_len + G - 1) / G : 0;
+  int n_valid;
+  if (n_pages == 0) {
+    n_valid = 0;
+  } else if (n_pages > max_pages) {
+    n_valid = max_pages * P;  // every row of the walked pages precedes seq_len
+  } else {
+    int rem = seq_len - (n_pages - 1) * G - pos_base;
+    rem = rem < 0 ? 0 : (rem > P ? P : rem);
+    n_valid = (n_pages - 1) * P + rem;
+  }
   const int* table = block_tables + static_cast<int64_t>(s) * max_pages;
   const int64_t row_stride = static_cast<int64_t>(H_kv) * D;
 
@@ -362,9 +393,31 @@ paged_decode_kernel(const T* __restrict__ q,               // [S, H, D]
   }
   if (warp != 0) return;
 
+  if (mode == kState) {
+    // the unnormalized state, in f32, for the sp ranks' merge
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) {
+      if (r >= n_rep) continue;
+      const int64_t h = static_cast<int64_t>(s) * H + kv * n_rep + r;
+      if (lane < LANES) {
+        float* arow = acc_out + h * D;
+#pragma unroll
+        for (int vv = 0; vv < VPL; ++vv)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) arow[col(vv, j)] = acc[r][vv * VEC + j];
+      }
+      if (lane == 0) {
+        m_out[h] = m[r];
+        l_out[h] = l[r];
+      }
+    }
+    return;
+  }
+
   // epilogue: optional self-term fold, normalization, store in q's dtype.
   // The new token's k/v are full precision (not yet written), so no scale
   // applies to them.
+  const bool with_self = mode == kCachePlusNew;
   float kn[EPL], vn[EPL];
   if (with_self) {
     const int64_t nrow = (static_cast<int64_t>(s) * H_kv + kv) * D;
@@ -421,8 +474,12 @@ struct Args {
   const int* seq_lens;
   const void* k_new;
   const void* v_new;
-  void* out;
-  int S, H, H_kv, P, max_pages, with_self;
+  void* out;       // modes 0, 1
+  float* acc_out;  // mode 2
+  float* m_out;
+  float* l_out;
+  int S, H, H_kv, P, max_pages;
+  int pos_base, global_page_size, mode;
   cudaStream_t stream;
 };
 
@@ -433,7 +490,8 @@ cudaError_t launch(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k_pages),
       static_cast<const KV*>(a.v_pages), a.k_scales, a.v_scales, a.block_tables, a.seq_lens,
       static_cast<const T*>(a.k_new), static_cast<const T*>(a.v_new), static_cast<T*>(a.out),
-      a.H, a.H_kv, a.P, a.max_pages, a.H / a.H_kv, a.with_self);
+      a.acc_out, a.m_out, a.l_out, a.H, a.H_kv, a.P, a.max_pages, a.H / a.H_kv, a.pos_base,
+      a.global_page_size, a.mode);
   return cudaGetLastError();
 }
 
@@ -459,9 +517,14 @@ cudaError_t dispatch_d(int d, const Args& a) {
   }
 }
 
-// Shape checks shared by the two C entry points.
+// Shape checks shared by the C entry points.
 inline bool valid_shape(int S, int H, int H_kv, int P, int max_pages) {
   return S > 0 && H_kv > 0 && H % H_kv == 0 && H / H_kv <= 8 && P > 0 && max_pages > 0;
+}
+
+// The state form's slice: pos_base + P rows must fit in one global page.
+inline bool valid_slice(int P, int pos_base, int global_page_size) {
+  return pos_base >= 0 && global_page_size >= P && pos_base + P <= global_page_size;
 }
 
 }  // namespace acp

@@ -25,6 +25,14 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   the unquantized engine (``engine/accuracy.py`` gates them instead); both
   off keeps the unquantized path exactly, with no scale storage.
 
+- **Parallel serving** (the reference's ``mesh=``): with ``group`` (a
+  ``parallel.mesh.ServingGroup``) each rank's engine holds its slices of
+  the model and of every page, and the ranks run in lockstep on the frame
+  stream of ``engine/coordination.py``: rank 0 (the leader) takes
+  submissions and every decision that reads a clock, and publishes them as
+  one frame per loop iteration; followers refuse ``submit`` and replay the
+  frames. Sampling generators are seeded identically on every rank.
+
 Left out for now (each is in ROADMAP): preemption, the prefix cache,
 chunked prefill and the megastep, speculative decoding, parked slots,
 dedup, the host KV tier, the flight recorder and fault sites,
@@ -60,6 +68,8 @@ from ..models.llama import (
 from ..ops.paged import TRASH_PAGE, PageAllocator
 from ..ops.quant import QUANTIZABLE, QuantizedTensor, quantize_stacked
 from ..ops.sampling import sample
+from ..parallel.mesh import ServingGroup, check_serving_config
+from .coordination import FrameChannel, deserialize_request
 from .tokenizer import ByteTokenizer, Tokenizer
 from .weights import random_params
 
@@ -182,6 +192,10 @@ class Engine:
         # engine/accuracy.py). Off keeps the unquantized pools exactly.
         quantize_kv: bool = False,
         seed: int = 0,
+        # tp x sp serving over torch.distributed ranks: this rank's group;
+        # params, if given, are already this rank's slices
+        # (params_from_jax(..., group=) or parallel.mesh.shard_params)
+        group: Optional[ServingGroup] = None,
     ):
         self.device = resolve_device(device)
         if isinstance(config, str):
@@ -192,6 +206,7 @@ class Engine:
         self.max_slots = max_slots
         self.max_ctx = min(max_ctx, config.max_seq_len)
         self.page_size = page_size
+        check_serving_config(config, group, page_size, self.max_ctx)
         if self.max_ctx % page_size:
             raise ValueError(f"page_size {page_size} must divide max_ctx {self.max_ctx}")
         # every prompt fits one bucket (chunked prefill is not ported): the
@@ -207,6 +222,12 @@ class Engine:
         self.max_queue = max(0, max_queue)
         self.max_pages_per_seq = self.max_ctx // page_size
         self.num_pages = kv_pages or (max_slots * self.max_pages_per_seq + 1)
+        self.group = group
+        # lockstep frame stream across the group's ranks (None on one rank)
+        self._channel = (
+            FrameChannel(group) if group is not None and group.world_size > 1 else None
+        )
+        self._follower = self._channel is not None and not self._channel.leader
 
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantization {quantize!r}")
@@ -217,8 +238,19 @@ class Engine:
 
         t0 = time.monotonic()
         if params is None:
-            # quantized random init never holds the whole bf16 model
-            params = random_params(config, seed, self.device, quantize=quantize)
+            # quantized random init never holds the whole bf16 model; with a
+            # group each rank keeps only its slices
+            params = random_params(config, seed, self.device, quantize=quantize, group=group)
+        elif quantize == "int8" and group is not None and group.tp > 1:
+            # a row slice's per-channel scale is the FULL matrix's: int8
+            # must be applied before the model is cut to the ranks
+            unquantized = [k for k in QUANTIZABLE
+                           if not isinstance(params["layers"][k], QuantizedTensor)]
+            if unquantized:
+                raise ValueError(
+                    f"tp={group.tp} int8 serving needs params quantized before slicing; "
+                    f"{unquantized} are not (quantize_params, then shard_params)"
+                )
         elif quantize == "int8":
             # quantize matrix by matrix, dropping each original as its int8
             # replacement lands (in place in the layer dict), so the peak is
@@ -245,7 +277,11 @@ class Engine:
 
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._waiting: deque[_Request] = deque()
+        # cancel() adds rids here (any thread); _applied holds the cancels
+        # every rank applies — the same set on one rank, the leader's
+        # published ones under coordination
         self._cancelled: set[str] = set()
+        self._applied: set[str] = self._cancelled if self._channel is None else set()
         self._thread: Optional[threading.Thread] = None
         self._stopping = False
         self._crashed = False
@@ -253,6 +289,9 @@ class Engine:
         self._admission_held = 0
         self._admission_lock = threading.Lock()
         self._outstanding: set = set()  # undone futures; failed on crash
+        # (rid, tokens, finish_reason) of the latest finished requests, in
+        # finish order — what lockstep ranks must agree on
+        self.finished: deque[tuple[str, tuple, str]] = deque(maxlen=4096)
         self.decode_steps = 0
         self.tokens_generated = 0
         self.table_uploads = 0
@@ -263,8 +302,9 @@ class Engine:
         __init__ and crash recovery."""
         self.cache = init_paged_cache(
             self.config, self.num_pages, self.page_size, device=self.device,
-            quantize_kv=self.quantize_kv,
+            quantize_kv=self.quantize_kv, group=self.group,
         )
+        self.pool_bytes = sum(t.numel() * t.element_size() for t in self.cache.values())
         self._allocator = PageAllocator(self.num_pages)
         self._slot_pages: dict[int, list[int]] = {}
         self._block_tables = np.full(
@@ -294,20 +334,42 @@ class Engine:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop the loop. On a follower this waits for the leader's stop
+        frame: the follower's loop must leave in lockstep with the leader."""
+        if self._follower:
+            self.join(timeout=60)
+            return
         with self._restart_lock:
             self._crashed = False
             if self._thread is None:
                 return
-            self._stopping = True
+            if self._channel is None:
+                self._stopping = True
+            # a leader must leave through _admit, which publishes the stop
+            # frame that ends its followers' loops
             self._queue.put(None)
             self._thread.join(timeout=60)
             self._thread = None
 
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the engine loop to end (a follower's ends with the
+        leader's stop frame). True when it has ended."""
+        t = self._thread
+        if t is not None:
+            t.join(timeout=timeout)
+            if t.is_alive():
+                return False
+        self._thread = None
+        return True
+
     def ensure_running(self) -> bool:
         """Crash recovery: if the engine loop died on an exception (not a
         stop()), rebuild the pools and bookkeeping and restart it. True when
-        the engine is running."""
+        the engine is running. A crashed rank of a group stays down: its
+        peers cannot be brought back into lockstep from here."""
         with self._restart_lock:
+            if self._crashed and self._channel is not None:
+                return False
             if self._crashed:
                 if self._thread is not None:
                     self._thread.join(timeout=60)
@@ -355,6 +417,14 @@ class Engine:
             deadline=(time.monotonic() + timeout_s) if timeout_s else None,
         )
         req.future.rid = req.rid  # type: ignore[attr-defined]  # cancel() keys on it
+        if self._follower:
+            # a locally submitted request would break lockstep: followers
+            # only replay the leader's frame stream
+            req.future.set_exception(RuntimeError(
+                "coordinated follower engines do not accept submissions "
+                "(submit through rank 0's engine)"
+            ))
+            return req.future
         if self._thread is None or self._stopping:
             req.future.set_exception(RuntimeError("engine is not running"))
             return req.future
@@ -413,6 +483,13 @@ class Engine:
                 "weight_bytes": self.weight_bytes,
             },
             "device": str(self.device),
+            "mesh": self.group.axes() if self.group is not None else {"tp": 1},
+            # this rank's share: its weight slices and its slice of the pool
+            "rank": {
+                "index": self.group.rank if self.group is not None else 0,
+                "weight_bytes": self.weight_bytes,
+                "pool_bytes": self.pool_bytes,
+            },
             "kv_layout": "paged",
             "max_slots": self.max_slots,
             "max_ctx": self.max_ctx,
@@ -477,54 +554,108 @@ class Engine:
             self._finish(slot, "stop")
 
     def _admit(self, block: bool) -> bool:
-        """Move queued requests into free slots (prefill), strictly FIFO."""
-        may_block = block and not self._waiting
-        while True:
-            try:
-                req = self._queue.get(timeout=0.05) if may_block else self._queue.get_nowait()
-            except queue.Empty:
-                break
-            may_block = False
-            if req is None:
+        """Move queued requests into free slots (prefill), strictly FIFO.
+
+        In a group the request stream is the only input to admission that
+        differs between ranks, so the leader publishes what it drained and
+        the cancels it decided as one frame, and followers replay it: every
+        rank then runs the same admission on the same state."""
+        if self._follower:
+            frame = self._channel.recv()
+            if frame["stop"]:
                 self._stopping = True
                 return False
-            self._waiting.append(req)
-        if self._cancelled:
+            self._waiting.extend(deserialize_request(d) for d in frame["reqs"])
+            self._applied.update(frame["cancels"])
+            held = frame["hold"]
+        else:
+            drained: list[_Request] = []
+            saw_stop = False
+            may_block = block and not self._waiting
+            while True:
+                try:
+                    req = self._queue.get(timeout=0.05) if may_block else self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                may_block = False
+                if req is None:
+                    saw_stop = True
+                    break
+                drained.append(req)
+            # read once: it drives both the frame and this rank's decision
+            held = bool(self._admission_held)
+            if self._channel is not None:
+                self._publish(drained, saw_stop, held)
+            self._waiting.extend(drained)
+            if saw_stop:
+                self._stopping = True
+                return False
+        if self._applied:
             kept: deque[_Request] = deque()
             for r in self._waiting:
-                if r.rid in self._cancelled:
-                    self._cancelled.discard(r.rid)
+                if r.rid in self._applied:
+                    self._applied.discard(r.rid)
                     r.future.cancel()
                 else:
                     kept.append(r)
             self._waiting = kept
             # drop rids that raced their request's finish (snapshot first:
-            # cancel() adds from other threads)
-            snapshot = set(self._cancelled)
+            # on one rank cancel() adds from other threads); in a group
+            # in-transit rids never reach _applied, so the rule is the same
+            # on every rank
+            snapshot = set(self._applied)
             live = {r.rid for r in self._waiting}
             live.update(sl.request.rid for sl in self._slots.values())
-            with self._queue.mutex:
-                live.update(r.rid for r in self._queue.queue if r is not None)
-            self._cancelled -= snapshot - live
-        self._expire_deadlines()
-        if self._admission_held:
+            if self._channel is None:
+                with self._queue.mutex:
+                    live.update(r.rid for r in self._queue.queue if r is not None)
+            self._applied -= snapshot - live
+        if self._channel is None:
+            self._expire_deadlines()
+        if held:
             if not self._slots:
                 time.sleep(0.002)
             return False
         return self._fill_slots()
 
+    def _publish(self, drained: list, saw_stop: bool, held: bool) -> None:
+        """Leader: decide this iteration's cancels and publish the frame.
+        Deadlines expire here, before the cancel snapshot, so an expired
+        request leaves every rank's queue in this frame. Only cancels of
+        requests already in the replicated stream (or in this frame) are
+        published; one racing its own still-queued request waits for the
+        frame that carries the request."""
+        self._expire_deadlines()
+        snapshot = set(self._cancelled)
+        live = {r.rid for r in self._waiting}
+        live.update(sl.request.rid for sl in self._slots.values())
+        live.update(r.rid for r in drained)
+        pending = snapshot & live
+        with self._queue.mutex:
+            transit = {r.rid for r in self._queue.queue if r is not None}
+        self._cancelled -= pending
+        self._cancelled -= snapshot - (transit | live)
+        self._channel.publish(drained, sorted(pending), stop=saw_stop, hold=held)
+        self._applied.update(pending)
+
     def _expire_deadlines(self) -> None:
+        """Fail queued requests whose deadline passed. On one rank they
+        leave the queue here; in a group only the leader reads the clock,
+        and the expired rids ride the next frame's cancels."""
         now = time.monotonic()
-        expired = [r for r in self._waiting if r.deadline is not None and now > r.deadline]
+        expired = [r for r in self._waiting
+                   if r.deadline is not None and now > r.deadline and not r.future.done()]
         if not expired:
+            return
+        for r in expired:
+            r.future.set_exception(
+                DeadlineExceededError("deadline expired while queued (never admitted)")
+            )
+        if self._channel is not None:
+            self._cancelled.update(r.rid for r in expired)
             return
         gone = {id(r) for r in expired}
         self._waiting = deque(r for r in self._waiting if id(r) not in gone)
-        for r in expired:
-            if not r.future.done():
-                r.future.set_exception(
-                    DeadlineExceededError("deadline expired while queued (never admitted)")
-                )
 
     def _pages_needed(self, req: _Request) -> int:
         """Pages for the whole generation: the prompt plus max_tokens,
@@ -596,7 +727,7 @@ class Engine:
             temps[i], top_ks[i], top_ps[i] = s.temperature, s.top_k, s.top_p
         self.cache, logits = prefill_paged_batch(
             self.params, self.cache, self._upload(tokens), self._upload(lengths),
-            self._upload(page_ids), self.config,
+            self._upload(page_ids), self.config, group=self.group,
         )
         firsts = sample(
             logits, self._gen, self._upload(temps), self._upload(top_ks), self._upload(top_ps)
@@ -663,7 +794,8 @@ class Engine:
         steps = []
         for _ in range(self.decode_block_size):
             self.cache, logits = decode_step_paged(
-                self.params, self.cache, tokens, seq_lens, d["block_tables"], active, self.config
+                self.params, self.cache, tokens, seq_lens, d["block_tables"], active, self.config,
+                group=self.group,
             )
             nxt = sample(logits, self._gen, d["temps"], d["top_ks"], d["top_ps"])
             nxt = torch.where(active, nxt, tokens)
@@ -708,10 +840,10 @@ class Engine:
             self._finish(slot, done)
 
     def _apply_cancels(self) -> None:
-        if not self._cancelled:
+        if not self._applied:
             return
         for slot, sl in list(self._slots.items()):
-            if sl.request.rid in self._cancelled:
+            if sl.request.rid in self._applied:
                 self._finish(slot, "cancelled")
 
     def _finish(self, slot: int, reason: str) -> None:
@@ -720,7 +852,7 @@ class Engine:
             return
         req = sl.request
         self._state_dirty = True  # the lane must be re-uploaded inactive
-        self._cancelled.discard(req.rid)
+        self._applied.discard(req.rid)
         self._seq_lens[slot] = 0
         self._last_tokens[slot] = 0
         heapq.heappush(self._free, slot)
@@ -729,6 +861,7 @@ class Engine:
         gen = sl.generated
         if gen and gen[-1] in self.tokenizer.stop_tokens:
             gen = gen[:-1]
+        self.finished.append((req.rid, tuple(gen), reason))
         now = time.monotonic()
         result = GenerationResult(
             text=self.tokenizer.decode(gen),

@@ -24,6 +24,19 @@ the layer loop, the new token attends through a self term, one commit
 follows the loop, and inactive lanes write to ``TRASH_PAGE``. Decode
 attention goes through ``ops.cuda.paged_attention`` — the hand-written
 kernel on CUDA tensors, its plain version on CPU tensors.
+
+Parallel serving (the reference's mesh-aware programs): every program takes
+an optional ``group`` (``parallel.mesh.ServingGroup``) and then runs on the
+rank's slices — H/tp query and H_kv/tp KV heads, the rank's ffn columns and
+vocab slice, and a pool holding rows ``[sp_rank * P/sp, (sp_rank + 1) *
+P/sp)`` of every page. The tp group sums the partial products after ``wo``
+and ``w2``, the masked local embedding lookup, and the vocab slices of the
+logits (placed into a zero ``[.., V]`` buffer, so the sum is exact); decode
+attention runs the sharded wrappers, which merge the sp ranks' states.
+Activations are replicated across sp ranks, so prefill needs no sp
+collective (it attends only to the prompt's own keys) and each sp rank
+commits its rows of each page. Without a group every program is the
+single-card path unchanged.
 """
 
 from __future__ import annotations
@@ -35,12 +48,17 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import blocked_causal_attention, causal_attention
-from ..ops.cuda.paged_attention import paged_decode_attention_cache_plus_new
+from ..ops.cuda.paged_attention import (
+    paged_decode_attention_cache_plus_new,
+    paged_decode_attention_cache_plus_new_sharded,
+)
 from ..ops.norms import rms_norm
 from ..ops.paged import TRASH_PAGE, init_kv_pages
-from ..ops.quant import kv_quantize, quantize_stacked
+from ..ops import quant
+from ..ops.quant import QuantizedTensor, kv_quantize
 from ..ops.quant import matmul as mm
 from ..ops.rope import apply_rope
+from ..parallel.mesh import ServingGroup, local_heads, param_slice, vocab_range
 
 
 @dataclass(frozen=True)
@@ -187,16 +205,20 @@ def check_supported(config: LlamaConfig) -> None:
 
 
 def init_params(
-    config: LlamaConfig, generator: torch.Generator, device=None, quantize: Optional[str] = None
+    config: LlamaConfig, generator: torch.Generator, device=None, quantize: Optional[str] = None,
+    group: Optional[ServingGroup] = None,
 ) -> dict:
     """Random init made on ``device`` from ``generator`` (serving with
-    random weights); layout and scales mirror the reference's init. Each
-    tensor is drawn directly in the model dtype, so peak memory is the
-    weights themselves (about 16 GB for llama3-8b in bf16). With
-    ``quantize="int8"`` each stacked layer matrix is quantized as soon as it
-    is drawn and its bf16 original dropped before the next draw: the same
-    values as quantizing the bf16 init afterwards, at a peak of the int8
-    model plus one stacked matrix."""
+    random weights); layout and scales mirror the reference's init. Every
+    leaf is drawn in one seeded order, each stacked matrix one layer at a
+    time, directly in the model dtype, and only this rank's slice of each
+    draw is kept (``group``; the whole draw without one). So every rank of
+    a tp group holds its part of the SAME model a single card draws from
+    the same seed, and no rank ever holds the whole model: the peak is the
+    kept slices plus one drawn layer matrix (or the vocabulary matrix, 1.05
+    GB for llama3-8b). With ``quantize="int8"`` each drawn layer matrix is
+    quantized whole (per output channel) before it is sliced — the values
+    of quantizing the full bf16 model."""
     check_supported(config)
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantization {quantize!r}")
@@ -208,9 +230,31 @@ def init_params(
         t = torch.randn(shape, generator=generator, device=device, dtype=c.dtype)
         return t.mul_(scale)
 
-    def matrix(shape, scale):
-        w = normal(shape, scale)
-        return w if quantize is None else quantize_stacked(w)
+    def top(name, shape, scale):
+        return param_slice(name, normal(shape, scale), group, layer=False).clone(
+            memory_format=torch.contiguous_format)
+
+    def matrix(name, shape, scale):
+        out = None
+        for i in range(L):
+            w = normal(shape, scale)
+            if quantize is not None:
+                w = quant.quantize(w)
+            w = param_slice(name, w, group, layer=True)
+            if out is None:
+                if isinstance(w, QuantizedTensor):
+                    out = QuantizedTensor(
+                        q=torch.empty((L, *w.q.shape), dtype=torch.int8, device=device),
+                        scale=torch.empty((L, *w.scale.shape), dtype=torch.float32,
+                                          device=device),
+                    )
+                else:
+                    out = torch.empty((L, *w.shape), dtype=c.dtype, device=device)
+            if isinstance(w, QuantizedTensor):
+                out.q[i], out.scale[i] = w.q, w.scale
+            else:
+                out[i] = w
+        return out
 
     def ones(shape):
         return torch.ones(shape, device=device, dtype=c.dtype)
@@ -218,22 +262,22 @@ def init_params(
     L = c.n_layers
     scale = d**-0.5
     params = {
-        "embed": normal((c.vocab_size, d), scale),
+        "embed": top("embed", (c.vocab_size, d), scale),
         "layers": {
             "ln1": ones((L, d)),
             "ln2": ones((L, d)),
-            "wq": matrix((L, d, c.n_heads * hd), scale),
-            "wk": matrix((L, d, c.n_kv_heads * hd), scale),
-            "wv": matrix((L, d, c.n_kv_heads * hd), scale),
-            "wo": matrix((L, c.n_heads * hd, d), scale),
-            "w1": matrix((L, d, c.ffn_dim), scale),  # gate_proj
-            "w3": matrix((L, d, c.ffn_dim), scale),  # up_proj
-            "w2": matrix((L, c.ffn_dim, d), c.ffn_dim**-0.5),  # down_proj
+            "wq": matrix("wq", (d, c.n_heads * hd), scale),
+            "wk": matrix("wk", (d, c.n_kv_heads * hd), scale),
+            "wv": matrix("wv", (d, c.n_kv_heads * hd), scale),
+            "wo": matrix("wo", (c.n_heads * hd, d), scale),
+            "w1": matrix("w1", (d, c.ffn_dim), scale),  # gate_proj
+            "w3": matrix("w3", (d, c.ffn_dim), scale),  # up_proj
+            "w2": matrix("w2", (c.ffn_dim, d), c.ffn_dim**-0.5),  # down_proj
         },
         "norm": ones((d,)),
     }
     if not c.tie_embeddings:
-        params["lm_head"] = normal((d, c.vocab_size), scale)
+        params["lm_head"] = top("lm_head", (d, c.vocab_size), scale)
     return params
 
 
@@ -252,45 +296,70 @@ def _rope_scaling(c: LlamaConfig):
     )
 
 
-def _embed(params: dict, tokens: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(c.dtype)
+def _tp_sum(group: Optional[ServingGroup], t: torch.Tensor) -> torch.Tensor:
+    return t if group is None else group.tp_sum(t)
+
+
+def _embed(params: dict, tokens: torch.Tensor, c: LlamaConfig,
+           group: Optional[ServingGroup] = None) -> torch.Tensor:
+    """Embedding rows; over tp each rank looks up the tokens in its vocab
+    slice (zeros elsewhere) and the tp sum assembles them exactly."""
+    if group is None or group.tp == 1:
+        return params["embed"][tokens.long()].to(c.dtype)
+    lo, hi = vocab_range(c, group)
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < hi - lo)
+    x = params["embed"][local.clamp(0, hi - lo - 1)].to(c.dtype)
+    return group.tp_sum(torch.where(inside[..., None], x, x.new_zeros(())))
 
 
 def _final_norm_w(params: dict, c: LlamaConfig) -> torch.Tensor:
     return params["norm"]
 
 
-def _head_logits(x: torch.Tensor, params: dict, c: LlamaConfig) -> torch.Tensor:
-    """lm_head projection -> float32 logits."""
+def _head_logits(x: torch.Tensor, params: dict, c: LlamaConfig,
+                 group: Optional[ServingGroup] = None) -> torch.Tensor:
+    """lm_head projection -> float32 logits; over tp each rank computes its
+    vocab columns into a zero [.., V] buffer and the tp sum gives every rank
+    the full logits, exactly."""
     head = params["embed"].T if c.tie_embeddings else params["lm_head"]
-    return (x @ head.to(c.dtype)).float()
+    logits = (x @ head.to(c.dtype)).float()
+    if group is None or group.tp == 1:
+        return logits
+    lo, hi = vocab_range(c, group)
+    full = logits.new_zeros((*logits.shape[:-1], c.vocab_size))
+    full[..., lo:hi] = logits
+    return group.tp_sum(full)
 
 
 def _attn_mlp(
     x: torch.Tensor,  # [B, T, D]
-    layer: dict,  # one layer's weights
+    layer: dict,  # one layer's weights (this rank's slices)
     config: LlamaConfig,
     positions: torch.Tensor,  # [B, T]
     attn_fn,
+    group: Optional[ServingGroup] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shared block body: returns (output, k, v) where k/v are this layer's
-    new key/value tensors (for the commit). The seven matmuls go through
-    ``quant.matmul``: ``x @ W`` for dense weights, ``(x @ q) * scale`` for
-    int8 ones."""
+    new key/value tensors (for the commit) over this rank's heads. The
+    seven matmuls go through ``quant.matmul``: ``x @ W`` for dense weights,
+    ``(x @ q) * scale`` for int8 ones. Over tp the row-sliced ``wo`` and
+    ``w2`` products are partial sums, summed over the tp group."""
     c = config
     B, T, D = x.shape
+    H, H_kv = local_heads(c, group)
     h = rms_norm(x, layer["ln1"], c.norm_eps)
-    q = mm(h, layer["wq"]).reshape(B, T, c.n_heads, c.head_dim)
-    k = mm(h, layer["wk"]).reshape(B, T, c.n_kv_heads, c.head_dim)
-    v = mm(h, layer["wv"]).reshape(B, T, c.n_kv_heads, c.head_dim)
+    q = mm(h, layer["wq"]).reshape(B, T, H, c.head_dim)
+    k = mm(h, layer["wk"]).reshape(B, T, H_kv, c.head_dim)
+    v = mm(h, layer["wv"]).reshape(B, T, H_kv, c.head_dim)
     scaling = _rope_scaling(c)
     q = apply_rope(q, positions, c.rope_theta, scaling=scaling)
     k = apply_rope(k, positions, c.rope_theta, scaling=scaling)
     attn = attn_fn(q, k, v)
-    x = x + mm(attn.reshape(B, T, c.n_heads * c.head_dim), layer["wo"])
+    x = x + _tp_sum(group, mm(attn.reshape(B, T, H * c.head_dim), layer["wo"]))
     h = rms_norm(x, layer["ln2"], c.norm_eps)
     y = mm(F.silu(mm(h, layer["w1"])) * mm(h, layer["w3"]), layer["w2"])
-    return x + y, k, v
+    return x + _tp_sum(group, y), k, v
 
 
 def forward(
@@ -298,6 +367,7 @@ def forward(
     tokens: torch.Tensor,  # [B, T] int
     config: LlamaConfig,
     positions: Optional[torch.Tensor] = None,  # [B, T]; default arange
+    group: Optional[ServingGroup] = None,
 ) -> torch.Tensor:
     """Full-sequence causal forward -> logits [B, T, V] (float32)."""
     c = config
@@ -305,14 +375,14 @@ def forward(
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, device=tokens.device).expand(B, T)
-    x = _embed(params, tokens, c)
+    x = _embed(params, tokens, c, group)
     for i in range(c.n_layers):
         x, _, _ = _attn_mlp(
             x, _layer(params, i), c, positions,
-            lambda q, k, v: causal_attention(q, k, v, positions),
+            lambda q, k, v: causal_attention(q, k, v, positions), group,
         )
     x = rms_norm(x, _final_norm_w(params, c), c.norm_eps)
-    return _head_logits(x, params, c)
+    return _head_logits(x, params, c, group)
 
 
 # ---------------------------------------------------------------------------
@@ -343,12 +413,15 @@ def _kv_commit(pages: dict, new_k: torch.Tensor, new_v: torch.Tensor, setter) ->
 
 def init_paged_cache(
     config: LlamaConfig, num_pages: int, page_size: int, device="cuda",
-    quantize_kv: bool = False,
+    quantize_kv: bool = False, group: Optional[ServingGroup] = None,
 ) -> dict:
     """Page pools in the model dtype — or int8 plus f32 scale twins with
-    ``quantize_kv``."""
+    ``quantize_kv``. With a ``group`` the rank's pool: its H_kv/tp heads and
+    page_size/sp rows of every page ([L, NP, P/sp, H_kv/tp, d])."""
+    _, H_kv = local_heads(config, group)
+    sp = group.sp if group is not None else 1
     return init_kv_pages(
-        config.n_layers, num_pages, page_size, config.n_kv_heads, config.head_dim,
+        config.n_layers, num_pages, page_size // sp, H_kv, config.head_dim,
         config.dtype, device=device, quantize=quantize_kv,
     )
 
@@ -360,31 +433,34 @@ def prefill_paged_batch(
     lengths: torch.Tensor,  # [B] int
     page_ids: torch.Tensor,  # [B, T // P] int (TRASH_PAGE beyond each prompt)
     config: LlamaConfig,
+    group: Optional[ServingGroup] = None,
 ) -> tuple[dict, torch.Tensor]:
     """B prompts forward in one pass, each writing K/V into its own pages.
     Rows' trash-page writes may collide — unordered garbage into the
-    never-read page 0. Returns (pages, last-token logits [B, V])."""
+    never-read page 0. Returns (pages, last-token logits [B, V]). With a
+    ``group`` this rank computes its heads and commits its rows of each
+    page; no sp collective is needed (activations are replicated)."""
     c = config
     check_supported(c)
     B, T = tokens.shape
     ar = torch.arange(T, device=tokens.device)
     lengths = lengths.long()
     positions = torch.where(ar[None, :] < lengths[:, None], ar[None, :], -1)
-    x = _embed(params, tokens, c)
+    x = _embed(params, tokens, c, group)
     new_k, new_v = [], []
     for i in range(c.n_layers):
         x, k, v = _attn_mlp(
             x, _layer(params, i), c, positions,
-            lambda q, k, v: blocked_causal_attention(q, k, v, positions),
+            lambda q, k, v: blocked_causal_attention(q, k, v, positions), group,
         )
         new_k.append(k)
         new_v.append(v)
     # prompt attention never reads the pages, so one commit after the loop
     # writes every layer's blocks
-    _commit_whole_pages(pages, torch.stack(new_k), torch.stack(new_v), page_ids)
+    _commit_whole_pages(pages, torch.stack(new_k), torch.stack(new_v), page_ids, group)
     x = rms_norm(x, _final_norm_w(params, c), c.norm_eps)
     last = x[torch.arange(B, device=x.device), lengths - 1]  # [B, D]
-    return pages, _head_logits(last, params, c)
+    return pages, _head_logits(last, params, c, group)
 
 
 def _commit_whole_pages(
@@ -392,17 +468,23 @@ def _commit_whole_pages(
     new_k: torch.Tensor,  # [L, B, T, H_kv, d]
     new_v: torch.Tensor,
     page_ids: torch.Tensor,  # [B, T // P] int
+    group: Optional[ServingGroup] = None,
 ) -> dict:
     """Whole-page commit: row block j of prompt b lands in page
     ``page_ids[b, j]`` of every layer, in place. The blocks reshape covers
     the scale twins too (values [L, B, T, H, d] and scales [L, B, T, H]
-    both split T into pages)."""
+    both split T into pages). An sp rank writes only its rows
+    ``[sp_rank * P/sp, (sp_rank + 1) * P/sp)`` of each block."""
     L, B, T = new_k.shape[:3]
-    P = pages["k"].shape[2]
+    P_local = pages["k"].shape[2]
+    sp = group.sp if group is not None else 1
+    P = P_local * sp
+    lo = group.sp_rank * P_local if sp > 1 else 0
     flat_ids = page_ids.reshape(-1).long()
 
     def setter(arr, val):
-        arr[:, flat_ids] = val.reshape(L, B * (T // P), P, *val.shape[3:])
+        blocks = val.reshape(L, B * (T // P), P, *val.shape[3:])
+        arr[:, flat_ids] = blocks[:, :, lo : lo + P_local]
 
     return _kv_commit(pages, new_k, new_v, setter)
 
@@ -415,6 +497,7 @@ def decode_step_paged(
     block_tables: torch.Tensor,  # [S, max_pages] int32
     active: torch.Tensor,  # [S] bool
     config: LlamaConfig,
+    group: Optional[ServingGroup] = None,
 ) -> tuple[dict, torch.Tensor]:
     """One decode step for all slots against the paged cache. Each layer
     calls the paged decode-attention kernel (cache-plus-new form) over the
@@ -422,12 +505,17 @@ def decode_step_paged(
     cache is quantized; the new token's self term uses its full-precision
     k/v. One commit after the loop writes every layer's new K/V at
     (page(slot), offset(slot)), inactive lanes to the trash page,
-    quantizing it for an int8 cache. Returns (pages, logits [S, V])."""
+    quantizing it for an int8 cache. Returns (pages, logits [S, V]).
+
+    With a ``group`` attention runs the sharded wrappers over this rank's
+    heads and rows (sp > 1: the state walk and the sp merge), and the new
+    row is written only by the sp rank that holds ``offset // (P/sp)``, at
+    ``offset % (P/sp)``; every other rank sends it to the trash page."""
     c = config
     check_supported(c)
     S = tokens.shape[0]
     positions = seq_lens.long()[:, None]
-    x = _embed(params, tokens[:, None], c)
+    x = _embed(params, tokens[:, None], c, group)
     quantized = "ks" in pages
     new_k, new_v = [], []
     for i in range(c.n_layers):
@@ -437,28 +525,35 @@ def decode_step_paged(
         )
 
         def attn(q, k, v):
-            out = paged_decode_attention_cache_plus_new(
-                q[:, 0].contiguous(), k_pages_l, v_pages_l, block_tables, seq_lens,
-                k[:, 0].contiguous(), v[:, 0].contiguous(), **scales_l,
-            )
+            args = (q[:, 0].contiguous(), k_pages_l, v_pages_l, block_tables, seq_lens,
+                    k[:, 0].contiguous(), v[:, 0].contiguous())
+            if group is None:
+                out = paged_decode_attention_cache_plus_new(*args, **scales_l)
+            else:
+                out = paged_decode_attention_cache_plus_new_sharded(group, *args, **scales_l)
             return out[:, None]
 
-        x, k, v = _attn_mlp(x, _layer(params, i), c, positions, attn)
+        x, k, v = _attn_mlp(x, _layer(params, i), c, positions, attn, group)
         new_k.append(k[:, 0])
         new_v.append(v[:, 0])
-    P = pages["k"].shape[2]
+    P_local = pages["k"].shape[2]
+    sp = group.sp if group is not None else 1
+    P = P_local * sp
     max_pages = block_tables.shape[1]
     lens = seq_lens.long()
     # inactive lanes may carry a stale seq_len at the context edge: clamp
     # the page index (the reference's gather clamps out-of-range indices)
     page_idx = torch.clamp_max(lens // P, max_pages - 1)
     target = block_tables.long()[torch.arange(S, device=lens.device), page_idx]
-    target = torch.where(active, target, TRASH_PAGE)
     offset = lens % P
+    if sp > 1:  # only the rank holding the row writes it
+        active = active & (offset // P_local == group.sp_rank)
+        offset = offset % P_local
+    target = torch.where(active, target, TRASH_PAGE)
 
     def setter(arr, val):
         arr[:, target, offset] = val
 
     _kv_commit(pages, torch.stack(new_k), torch.stack(new_v), setter)
     x = rms_norm(x[:, 0], _final_norm_w(params, c), c.norm_eps)
-    return pages, _head_logits(x, params, c)
+    return pages, _head_logits(x, params, c, group)

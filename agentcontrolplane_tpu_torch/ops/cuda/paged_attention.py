@@ -1,17 +1,24 @@
 """Paged decode attention: the CUDA kernels' wrapper.
 
 Replaces the TPU kernel ``agentcontrolplane_tpu/ops/pallas/paged_attention.py``
-(``paged_decode_attention`` :278 and ``paged_decode_attention_cache_plus_new``
-:325, both through ``_paged_state``'s ``pl.pallas_call`` at :265) with the
-hand-written Hopper kernel of ``csrc/paged_attention.cuh`` — one kernel, two
-epilogue modes, two page walks:
+(``paged_decode_attention`` :278, ``paged_decode_attention_cache_plus_new``
+:325 and the context-parallel wrapper's state walk :399-460, all through
+``_paged_state``'s ``pl.pallas_call`` at :265) with the hand-written Hopper
+kernel of ``csrc/paged_attention.cuh`` — one kernel, three epilogue forms
+(normalized without and with the self term, and the unnormalized
+``(acc, m, l)`` state over a slice of every page), two page walks:
 
 - the f32/bf16 walk (``csrc/paged_attention.cu``): pages in q's dtype;
 - the int8 walk (``csrc/paged_attention_int8.cu``, the Pallas kernel's
   ``quantized=True``): int8 pages plus f32 ``k_scales``/``v_scales`` of
   [NP, P, H_kv], dequantized inside the kernel as ``value * scale``.
 
-The signatures are the reference's (scales as keywords).
+The signatures are the reference's (scales as keywords). The sharded
+wrappers (reference :348-500) take a ``ServingGroup`` (``parallel/mesh.py``)
+where the reference takes a mesh, and the RANK's tensors: its query and KV
+head slice (tp) and its row slice of every page (sp). tp needs no
+collective; sp merges the ranks' states with one max and two sum
+all-reduces over the sp group, then folds the self term once.
 
 Bound: bytes. The least time for a call is the K/V page rows it must walk
 (sum over slots of seq_len rows x H_kv x d x 2 (K and V) x page bytes, plus
@@ -21,8 +28,9 @@ prints it beside the measured time.
 
 Routing: CUDA tensors launch a kernel (or raise — there is no fallback);
 CPU tensors run the plain version in ``ops/paged.py``. ``LAUNCHES`` counts
-every kernel launch and ``INT8_LAUNCHES`` the int8 walk's alone, so a run
-can show the main path went through the kernel and which walk served it.
+every kernel launch, ``INT8_LAUNCHES`` the int8 walk's and
+``STATE_LAUNCHES`` the state form's (of either walk), so a run can show the
+main path went through the kernel and which walk and form served it.
 """
 
 from __future__ import annotations
@@ -33,30 +41,37 @@ from typing import Optional
 import torch
 
 from ..paged import (
+    fold_self_term,
+    merge_sp_states,
     paged_decode_attention_reference,
     paged_decode_attention_reference_cache_plus_new,
+    paged_decode_state_reference,
 )
 from . import build
 
 # kernel launches since import (or since a caller reset them to 0): all
-# walks, and the int8 walk alone
+# walks and forms, the int8 walk alone, and the state form alone
 LAUNCHES = 0
 INT8_LAUNCHES = 0
+STATE_LAUNCHES = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 8  # query heads per KV head the kernel's register tiles hold
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _entry(int8: bool):
-    if int8:
-        fn = build.load("paged_attention_int8").acp_paged_decode_attention_int8
-        n_ptrs = 10
-    else:
-        fn = build.load("paged_attention").acp_paged_decode_attention
-        n_ptrs = 8
+def _entry(int8: bool, state: bool = False):
+    lib = build.load("paged_attention_int8" if int8 else "paged_attention")
+    name = "acp_paged_decode_" + ("state" if state else "attention") + ("_int8" if int8 else "")
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        # pointers: q, k/v pages, (int8: k/v scales), tables, lens, then
+        # k_new, v_new, out — or, in the state form, acc, m, l; ints: S, H,
+        # H_kv, d, P, max_pages, then dtype, with_self — or pos_base,
+        # global_page_size, dtype
+        n_ptrs = 10 if int8 else 8
+        n_ints = 9 if state else 8
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -148,6 +163,40 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, k_new, v_new,
     return out
 
 
+def _launch_state(q, k_pages, v_pages, block_tables, seq_lens, pos_base, global_page_size,
+                  k_scales, v_scales):
+    global LAUNCHES, INT8_LAUNCHES, STATE_LAUNCHES
+    _check(q, k_pages, v_pages, block_tables, seq_lens, None, None, k_scales, v_scales)
+    S, H, d = q.shape
+    _num_pages, P, H_kv, _ = k_pages.shape
+    if not (0 <= pos_base and P <= global_page_size and pos_base + P <= global_page_size):
+        raise ValueError(f"a slice of {P} rows at {pos_base} does not fit pages of "
+                         f"{global_page_size} tokens")
+    acc = torch.empty((S, H, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((S, H), dtype=torch.float32, device=q.device)
+    l = torch.empty((S, H), dtype=torch.float32, device=q.device)
+    if S == 0:
+        return acc, m, l
+    int8 = k_scales is not None
+    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
+    if int8:
+        ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
+    ptrs += [block_tables.data_ptr(), seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(),
+             l.data_ptr()]
+    err = _entry(int8, state=True)(
+        *ptrs, S, H, H_kv, d, P, block_tables.shape[1], pos_base, global_page_size,
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        walk = "int8" if int8 else "f32/bf16"
+        raise RuntimeError(f"paged attention state ({walk} walk) launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    STATE_LAUNCHES += 1
+    if int8:
+        INT8_LAUNCHES += 1
+    return acc, m, l
+
+
 def _route(q) -> bool:
     """True for the kernel (CUDA tensors), False for the plain version (CPU
     tensors); anything else raises."""
@@ -197,3 +246,114 @@ def paged_decode_attention_cache_plus_new(
             k_scales=k_scales, v_scales=v_scales,
         )
     return _launch(q, k_pages, v_pages, block_tables, seq_lens, k_new, v_new, k_scales, v_scales)
+
+
+def paged_decode_state(
+    q: torch.Tensor,  # [S, H, d]
+    k_pages: torch.Tensor,  # [num_pages, P_local, H_kv, d] — a slice of every page
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, max_pages] int32
+    seq_lens: torch.Tensor,  # [S] int32 — valid tokens per slot (global positions)
+    *,
+    pos_base: int = 0,  # the slice's first row within a page
+    global_page_size: Optional[int] = None,  # tokens per page (default P_local)
+    k_scales: Optional[torch.Tensor] = None,  # [num_pages, P_local, H_kv] f32 — int8
+    v_scales: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's state form: unnormalized f32 ``(acc [S,H,d], m [S,H],
+    l [S,H])`` over this pool's rows, local row r of page j at global
+    position ``j * global_page_size + pos_base + r`` (the reference's
+    ``_paged_state(..., pos_base=, global_page_size=)``). A lane with no
+    valid row here gives ``m = -1e30``, ``l = 0``, ``acc = 0``."""
+    G = global_page_size or k_pages.shape[1]
+    if not _route(q):
+        return paged_decode_state_reference(
+            q, k_pages, v_pages, block_tables, seq_lens, pos_base=pos_base,
+            global_page_size=G, k_scales=k_scales, v_scales=v_scales,
+        )
+    return _launch_state(q, k_pages, v_pages, block_tables, seq_lens, pos_base, G,
+                         k_scales, v_scales)
+
+
+def _sp_state(group, q, k_pages, v_pages, block_tables, seq_lens, k_scales, v_scales):
+    """This sp rank's state walk merged over the sp group: (acc_g, m_g,
+    l_g), identical on every rank of the group."""
+    P_local = k_pages.shape[1]
+    acc, m, l = paged_decode_state(
+        q, k_pages, v_pages, block_tables, seq_lens,
+        pos_base=group.sp_rank * P_local, global_page_size=P_local * group.sp,
+        k_scales=k_scales, v_scales=v_scales,
+    )
+    return merge_sp_states(acc, m, l, group.sp_max, group.sp_sum)
+
+
+def paged_decode_attention_sharded(
+    group,  # ServingGroup
+    q: torch.Tensor,  # [S, H/tp, d] — this rank's query heads
+    k_pages: torch.Tensor,  # [num_pages, P/sp, H_kv/tp, d] — this rank's slice
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, max_pages] int32, the same on every rank
+    seq_lens: torch.Tensor,  # [S] int32, the same on every rank
+    *,
+    k_scales: Optional[torch.Tensor] = None,  # [num_pages, P/sp, H_kv/tp] f32 — int8
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The classic form on a rank (reference :375): with sp = 1 the kernel
+    over the rank's heads, no collective; with sp > 1 the state walk over
+    the rank's rows merged over the sp group, normalized as
+    ``acc / max(l, 1e-30)``."""
+    if group.sp == 1:
+        return paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
+                                      k_scales=k_scales, v_scales=v_scales)
+    acc, _m, l = _sp_state(group, q, k_pages, v_pages, block_tables, seq_lens,
+                           k_scales, v_scales)
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def paged_decode_attention_cache_plus_new_sp_sharded(
+    group,  # ServingGroup with sp > 1
+    q: torch.Tensor,  # [S, H/tp, d]
+    k_pages: torch.Tensor,  # [num_pages, P/sp, H_kv/tp, d] — WITHOUT the new token
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,  # [S] — tokens valid in the PAGES (excl. new)
+    k_new: torch.Tensor,  # [S, H_kv/tp, d], the same on every sp rank
+    v_new: torch.Tensor,
+    *,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Context-parallel cache-plus-new (reference :399): the state walk over
+    this rank's rows with exact global-position masking, the sp merge
+    (``m_g = max m``, ``l_g = sum l*corr``, ``acc_g = sum acc*corr``), then
+    the self term folded once."""
+    acc, m, l = _sp_state(group, q, k_pages, v_pages, block_tables, seq_lens,
+                          k_scales, v_scales)
+    return fold_self_term(q, k_new, v_new, acc, m, l)
+
+
+def paged_decode_attention_cache_plus_new_sharded(
+    group,  # ServingGroup
+    q: torch.Tensor,  # [S, H/tp, d]
+    k_pages: torch.Tensor,  # [num_pages, P/sp, H_kv/tp, d]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    k_new: torch.Tensor,  # [S, H_kv/tp, d]
+    v_new: torch.Tensor,
+    *,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Reference :463: sp > 1 routes to the context-parallel form; sp = 1
+    runs the cache-plus-new kernel over the rank's heads (each rank's pool
+    holds only its heads, so the slice is contiguous), no collective."""
+    if group.sp > 1:
+        return paged_decode_attention_cache_plus_new_sp_sharded(
+            group, q, k_pages, v_pages, block_tables, seq_lens, k_new, v_new,
+            k_scales=k_scales, v_scales=v_scales,
+        )
+    return paged_decode_attention_cache_plus_new(
+        q, k_pages, v_pages, block_tables, seq_lens, k_new, v_new,
+        k_scales=k_scales, v_scales=v_scales,
+    )

@@ -6,11 +6,17 @@ pages ``[L, num_pages, page_size, H_kv, d]`` and each sequence owns a page
 list (block table). Page 0 is the trash page: padded and inactive-lane
 writes land there and nothing reads it.
 
-The two ``paged_decode_attention_reference*`` functions are the plain
-versions of the hand-written CUDA kernel in ``ops/cuda/paged_attention.py``:
-the CPU path and the yardstick the kernel is held against on the card. They
-gather each slot's pages — the ``[S, max_pages, P, H_kv, d]`` copy the kernel
-exists to avoid — and, for int8 pools, dequantize the gathered rows.
+The two ``paged_decode_attention_reference*`` functions and
+``paged_decode_state_reference`` are the plain versions of the hand-written
+CUDA kernel's three forms in ``ops/cuda/paged_attention.py``: the CPU path
+and the yardstick the kernel is held against on the card. They gather each
+slot's pages — the ``[S, max_pages, P, H_kv, d]`` copy the kernel exists to
+avoid — and, for int8 pools, dequantize the gathered rows.
+
+Context-parallel serving (``sp`` ranks) keeps a ``[P / sp]`` slice of every
+page on each rank; ``merge_sp_states`` and ``fold_self_term`` are the plain
+torch algebra that turns the ranks' unnormalized states into the output,
+as the reference computes them outside its kernel.
 """
 
 from __future__ import annotations
@@ -59,10 +65,14 @@ def _gather_rows(pages, scales, idx):
     return rows
 
 
-def _gather_logits(q, k_pages, block_tables, seq_lens, k_scales):
-    """Shared body of the two plain versions: f32 logits over each slot's
-    gathered pages, masked at ``seq_lens``. Returns (logits [S,M,P,H_kv,r],
-    grouped q [S,H_kv,r,d] f32, the 1/sqrt(d) scale, int64 block tables)."""
+def _gather_logits(q, k_pages, block_tables, seq_lens, k_scales, pos_base=0,
+                   global_page_size=None):
+    """Shared body of the plain versions: f32 logits over each slot's
+    gathered pages, masked at ``seq_lens``. Local row r of page j sits at
+    global position ``j * global_page_size + pos_base + r`` (a pool holding
+    a slice of every page; by default the whole page). Returns (logits
+    [S,M,P,H_kv,r], grouped q [S,H_kv,r,d] f32, the 1/sqrt(d) scale, int64
+    block tables)."""
     S, H, d = q.shape
     _num_pages, P, H_kv, _ = k_pages.shape
     max_pages = block_tables.shape[1]
@@ -73,7 +83,8 @@ def _gather_logits(q, k_pages, block_tables, seq_lens, k_scales):
     q4 = q.reshape(S, H_kv, r, d).float()
     logits = torch.einsum("skrd,smpkd->smpkr", q4, k) * scale
     pos = (
-        torch.arange(max_pages, device=q.device)[:, None] * P
+        torch.arange(max_pages, device=q.device)[:, None] * (global_page_size or P)
+        + pos_base
         + torch.arange(P, device=q.device)[None, :]
     )  # [M, P]
     mask = pos[None, :, :, None, None] < seq_lens.long()[:, None, None, None, None]
@@ -135,6 +146,73 @@ def paged_decode_attention_reference_cache_plus_new(
     out = out + p_self[..., None] * v_new.float()[:, :, None, :]
     out = out / torch.clamp_min(denom, 1e-30)[..., None]
     return out.reshape(S, H, d).to(q.dtype)
+
+
+def paged_decode_state_reference(
+    q: torch.Tensor,  # [S, H, d]
+    k_pages: torch.Tensor,  # [num_pages, P_local, H_kv, d] — a slice of every page
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, max_pages]
+    seq_lens: torch.Tensor,  # [S] — valid tokens per slot (global positions)
+    *,
+    pos_base: int = 0,  # this slice's first row within a page
+    global_page_size: Optional[int] = None,  # tokens per page (default P_local)
+    k_scales: Optional[torch.Tensor] = None,  # [num_pages, P_local, H_kv] f32 (int8)
+    v_scales: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unnormalized online-softmax state ``(acc [S,H,d], m [S,H],
+    l [S,H])`` in f32 over this pool's rows, masked at the rows' GLOBAL
+    positions — the reference's ``_paged_state(..., pos_base=,
+    global_page_size=)``. Masked rows weigh nothing (p = 0), so a lane with
+    no valid row here gives ``m = -1e30``, ``l = 0``, ``acc = 0`` (the
+    Pallas kernel, which loads masked rows, counts them in ``l`` with
+    ``exp(0)`` instead; the merged outputs agree)."""
+    S, H, d = q.shape
+    logits, _q4, _scale, idx = _gather_logits(
+        q, k_pages, block_tables, seq_lens, k_scales, pos_base, global_page_size
+    )
+    valid = logits > NEG_INF
+    m = logits.amax(dim=(1, 2))  # [S, H_kv, r]
+    p = torch.where(valid, torch.exp(logits - m[:, None, None]), 0.0)
+    l = p.sum(dim=(1, 2))
+    acc = torch.einsum("smpkr,smpkd->skrd", p, _gather_rows(v_pages, v_scales, idx))
+    return acc.reshape(S, H, d), m.reshape(S, H), l.reshape(S, H)
+
+
+def merge_sp_states(acc, m, l, reduce_max, reduce_sum):
+    """Merge the sp ranks' unnormalized states: ``m_g = max(m)``,
+    ``corr = exp(m - m_g)``, ``l_g = sum(l * corr)``, ``acc_g = sum(acc *
+    corr)`` — the reference's one pmax and two psums
+    (``paged_decode_attention_cache_plus_new_sp_sharded``). The reductions
+    are passed in: ``all_reduce`` over the sp group on the serving path, a
+    reduction over a stacked rank axis in a single-process test."""
+    m_g = reduce_max(m)
+    corr = torch.exp(m - m_g)
+    l_g = reduce_sum(l * corr)
+    acc_g = reduce_sum(acc * corr[..., None])
+    return acc_g, m_g, l_g
+
+
+def fold_self_term(q, k_new, v_new, acc, m, l) -> torch.Tensor:
+    """One more online-softmax fold: the not-yet-written new token's
+    self-attention term merged into the unnormalized ``(acc, m, l)`` state,
+    then normalized — the reference's ``_fold_self_term``, which it computes
+    outside its kernel (plain torch here too)."""
+    S, H, d = q.shape
+    H_kv = k_new.shape[1]
+    r = H // H_kv
+    scale = 1.0 / (d**0.5)
+    q4 = q.reshape(S, H_kv, r, d).float()
+    self_logit = ((q4 * k_new.float()[:, :, None, :]).sum(dim=-1) * scale).reshape(S, H)
+    m2 = torch.maximum(m, self_logit)
+    corr = torch.exp(m - m2)
+    p_self = torch.exp(self_logit - m2)
+    l2 = l * corr + p_self
+    v_new_rep = v_new.float()[:, :, None, :].expand(S, H_kv, r, d).reshape(S, H, d)
+    out = (acc * corr[..., None] + p_self[..., None] * v_new_rep) / torch.clamp_min(
+        l2, 1e-30
+    )[..., None]
+    return out.to(q.dtype)
 
 
 class PageAllocator:

@@ -9,7 +9,12 @@ no aiohttp:
   are parsed from the generated text by ``engine/toolparse.py``;
 - ``GET /healthz`` — liveness;
 - ``GET /v1/engine`` — ``Engine.stats()`` (with the int8 knobs under
-  ``model.quantize``/``model.quantize_kv`` and ``memory.quantized_kv``).
+  ``model.quantize``/``model.quantize_kv`` and ``memory.quantized_kv``, and
+  the serving group under ``mesh``).
+
+:func:`serve_parallel` serves over tp x sp ranks (one process each, from
+``parallel.distributed.run_ranks``): rank 0 answers HTTP, the other ranks
+run the engine loop on the leader's frame stream.
 
 Constrained requests (``response_format: json_object``, or a ``tool_choice``
 that forces a call) answer 400: the torch engine has no constrained
@@ -210,3 +215,43 @@ def serve(
     finally:
         server.server_close()
         engine.stop()
+
+
+def _serve_rank(preset: str, tp: int, sp: int, seed: int, host: str, port: int,
+                engine_kw: dict) -> None:
+    """One rank of :func:`serve_parallel` (runs in a spawned process)."""
+    from ..parallel.distributed import runtime_info
+    from ..parallel.mesh import serving_group
+
+    group = serving_group(tp, sp)
+    engine = Engine(preset, device=runtime_info()["device"], seed=seed, group=group, **engine_kw)
+    engine.start()
+    if not group.is_leader:
+        engine.join()  # until the leader's stop frame
+        return
+    server = make_server(engine, host, port)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        engine.stop()
+
+
+def serve_parallel(
+    preset: str = "llama3-8b",
+    tp: int = 2,
+    sp: int = 1,
+    seed: int = 0,
+    host: str = "127.0.0.1",
+    port: int = 8000,
+    device: str = "cuda",
+    backend: str | None = None,
+    **engine_kw,
+) -> None:
+    """Serve ``preset`` over ``tp x sp`` ranks on this machine until
+    interrupted. ``backend`` defaults to nccl when every rank has a card of
+    its own and gloo otherwise (NCCL refuses two ranks on one card)."""
+    from ..parallel.distributed import run_ranks
+
+    run_ranks(_serve_rank, tp * sp, args=(preset, tp, sp, seed, host, port, engine_kw),
+              timeout_s=None, backend=backend, device=device)

@@ -17,9 +17,16 @@ without printing a result:
    shapes (d=16 f32, d=256 bf16, a group of 7 query heads); the int8 walk
    over pages made on the card by ``kv_quantize`` at the llama3-8b shape,
    the serving lengths, d=16 f32, d=256 with a group of 8, and a case whose
-   trash page and masked tail rows hold poisoned values and scales; times
-   of each kernel, its plain version and ``scaled_dot_product_attention``
-   (a yardstick only) beside the bound;
+   trash page and masked tail rows hold poisoned values and scales; one
+   tp=2 rank's heads (16/4) in both walks; the STATE form of both walks
+   (the context-parallel wrapper's unnormalized (acc, m, l)) on each sp
+   rank's rows of every page at one sp=2 x tp=2 rank's shape, with lanes a
+   rank holds no row of, poisoned masked rows (int8), and the two ranks'
+   states merged with the self term against the mode-1 kernel over whole
+   pages; times of each kernel, its plain version and a PyTorch attention
+   call (``scaled_dot_product_attention``, or for the state form the
+   memory-efficient attention that returns the log-sum-exp; a yardstick
+   only) beside the bound;
 4. model — the tiny f32 model's paged prefill + decode on the card (kernel)
    against the same on the CPU (plain version), unquantized and with int8
    weights and an int8 KV cache (the int8 walk);
@@ -29,7 +36,16 @@ without printing a result:
    completions each (four concurrent greedy ones, one sampled that arrives
    mid-decode), with the walk's launch count equal to n_layers x decode
    steps and no launch of the other walk; then a greedy batch run twice
-   must give identical tokens, and TTFT / decode rates and a profile.
+   must give identical tokens, and TTFT / decode rates and a profile;
+6. parallel serving — llama3-8b over ``torch.distributed`` ranks (one
+   process each, rank 0 behind HTTP, gloo when the ranks share one card):
+   tp=2 in bf16, then sp=2 x tp=2 in bf16 and with int8 weights + KV (12
+   tokens a request), one phase's ranks at a time. Every rank's stream of
+   finished requests must be identical, every decode layer of every step
+   must go through the expected walk (the state form on every sp rank),
+   and the first-step logits must agree with the single card's for the
+   same seed; ms per decode step, the step's collectives replayed alone,
+   and memory per rank are recorded.
 
 ``--kernels-only`` stops after the kernel phase (a first check of a new
 kernel; it prints no result line).
@@ -123,9 +139,12 @@ def graph_ms(fn, calls: int, replays: int = 10) -> float:
 
 # -- kernel phase --------------------------------------------------------
 
+LLAMA_LENS = [0, 1, 17, 255, 1024, 1500, 2047, 2048]
 CASES = [
     # name, dtype, H, H_kv, d, P, max_pages, seq_lens, layers cycled for timing
-    ("llama3-8b", "bfloat16", 32, 8, 128, 16, 128, [0, 1, 17, 255, 1024, 1500, 2047, 2048], 4),
+    ("llama3-8b", "bfloat16", 32, 8, 128, 16, 128, LLAMA_LENS, 4),
+    # one tp=2 rank's heads: the tp wrapper runs this on every decode layer
+    ("llama3-8b-tp2-rank", "bfloat16", 16, 4, 128, 16, 128, LLAMA_LENS, 4),
     ("llama3-8b-serving-lengths", "bfloat16", 32, 8, 128, 16, 128,
      [61, 64, 70, 77, 85, 90, 96, 110], 4),
     ("tiny-d16-f32", "float32", 4, 2, 16, 8, 8, [0, 5, 16, 27, 64], 1),
@@ -136,7 +155,8 @@ CASES = [
 # fills the trash page and every row past each slot's seq_len in its last
 # page with value 127 and scale 1e30, which must not reach the output
 INT8_CASES = [
-    ("llama3-8b", "bfloat16", 32, 8, 128, 16, 128, [0, 1, 17, 255, 1024, 1500, 2047, 2048], 4),
+    ("llama3-8b", "bfloat16", 32, 8, 128, 16, 128, LLAMA_LENS, 4),
+    ("llama3-8b-tp2-rank", "bfloat16", 16, 4, 128, 16, 128, LLAMA_LENS, 4),
     ("llama3-8b-serving-lengths", "bfloat16", 32, 8, 128, 16, 128,
      [61, 64, 70, 77, 85, 90, 96, 110], 4),
     ("tiny-d16-f32", "float32", 4, 2, 16, 8, 8, [0, 5, 16, 27, 64], 1),
@@ -144,6 +164,20 @@ INT8_CASES = [
     ("llama3-8b-poisoned-tail", "bfloat16", 32, 8, 128, 16, 16, [1, 17, 100, 255, 16, 0, 33, 200], 1),
 ]
 MODES = (("cache_plus_new", True), ("classic", False))
+# the state form, at one sp rank's slice of every page: name, dtype, H,
+# H_kv, d, P (tokens per page), sp, max_pages, seq_lens, layers cycled. The
+# llama3-8b case is one rank of sp=2 x tp=2 (16 query / 4 KV heads, rows
+# 0-7 or 8-15 of every 16-token page); lengths 0 and 1 leave rank 1 no row
+STATE_CASES = [
+    ("llama3-8b-sp2xtp2-rank", "bfloat16", 16, 4, 128, 16, 2, 128, LLAMA_LENS, 4),
+    ("tiny-d16-f32", "float32", 4, 2, 16, 8, 2, 8, [0, 3, 5, 16, 27, 64], 1),
+]
+INT8_STATE_CASES = STATE_CASES + [
+    ("llama3-8b-sp2xtp2-poisoned-tail", "bfloat16", 16, 4, 128, 16, 2, 16,
+     [1, 17, 100, 255, 16, 0, 33, 200], 1),
+]
+# f32 state math on the same inputs: only the order of the sums differs
+MAX_STATE_ERR = 1e-4
 
 
 def _tables(seq_lens, P, max_pages):
@@ -313,15 +347,208 @@ def run_case(case, int8: bool) -> dict:
     return entry
 
 
+def _state_err(got, want) -> float:
+    """Largest difference of two (acc, m, l) states, relative to the
+    weight sum: |dm|, |dl| / max(l, 1) and |dacc| / max(l, 1)."""
+    acc, m, l = (t.float() for t in got)
+    acc_w, m_w, l_w = (t.float() for t in want)
+    w = l_w.clamp_min(1.0)
+    return max((m - m_w).abs().max().item(), ((l - l_w).abs() / w).max().item(),
+               ((acc - acc_w).abs() / w[..., None]).max().item())
+
+
+def _library_state(q, k_rows, v_rows, bt, seq_lens, P, P_local, pos_base):
+    """Yardstick for the state form: one call of PyTorch's memory-efficient
+    attention over this rank's valid rows (gathered, dequantized, padded to
+    a multiple of 16 and repeated to every query head beforehand), which
+    returns the log-sum-exp — the state's m + log(l). Returns (fn, lse)."""
+    import torch
+
+    S, H, d = q.shape
+    H_kv = k_rows.shape[2]
+    dev, dtype = q.device, q.dtype
+    lists = []
+    for n in seq_lens:
+        lists.append([(j, r) for j in range(-(-n // P)) for r in range(P_local)
+                      if j * P + pos_base + r < n])
+    L = max(16, -(-max(len(x) for x in lists) // 16) * 16)
+    kg = torch.zeros(S, H, L, d, device=dev, dtype=dtype)
+    vg = torch.zeros_like(kg)
+    bias = torch.full((S, H, 1, L), float("-inf"), device=dev, dtype=dtype)
+    for s_, rows in enumerate(lists):
+        if not rows:
+            continue
+        pages = bt[s_, torch.tensor([j for j, _ in rows], device=dev)].long()
+        offs = torch.tensor([r for _, r in rows], device=dev)
+        kg[s_, :, : len(rows)] = k_rows[pages, offs].to(dtype).repeat_interleave(
+            H // H_kv, dim=1).transpose(0, 1)
+        vg[s_, :, : len(rows)] = v_rows[pages, offs].to(dtype).repeat_interleave(
+            H // H_kv, dim=1).transpose(0, 1)
+        bias[s_, :, :, : len(rows)] = 0
+    q4 = q[:, :, None, :].contiguous()
+
+    def fn(_i=0):
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q4, kg, vg, bias, True)
+
+    return fn, fn()[1][:, :, 0]
+
+
+def run_state_case(case, int8: bool) -> dict:
+    """The state form on each sp rank's slice against its plain version;
+    the ranks' states merged with the self term against the mode-1 kernel
+    over whole pages; kernel / plain / library times and the bound."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.ops import paged as plain
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+    from agentcontrolplane_tpu_torch.ops.quant import kv_dequantize, kv_quantize
+
+    name, dtype_name, H, H_kv, d, P, sp, max_pages, seq_lens, n_layers = case
+    P_local = P // sp
+    walk = "int8" if int8 else dtype_name
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    S = len(seq_lens)
+    tables, num_pages = _tables(seq_lens, P, max_pages)
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    q = randn(S, H, d)
+    k_pool = randn(n_layers, num_pages, P, H_kv, d)
+    v_pool = randn(n_layers, num_pages, P, H_kv, d)
+    k_new, v_new = randn(S, H_kv, d), randn(S, H_kv, d)
+    k_sc = v_sc = None
+    if int8:
+        (k_pool, k_sc), (v_pool, v_sc) = kv_quantize(k_pool), kv_quantize(v_pool)
+    bt = torch.from_numpy(tables).to(dev)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+
+    def rank_slice(i, r):
+        """Layer i's pools cut to sp rank r's rows, as the rank holds them."""
+        rows = slice(r * P_local, (r + 1) * P_local)
+        out = {"k": k_pool[i][:, rows].contiguous(), "v": v_pool[i][:, rows].contiguous()}
+        if int8:
+            out["k_scales"] = k_sc[i][:, rows].contiguous()
+            out["v_scales"] = v_sc[i][:, rows].contiguous()
+        return out
+
+    slices = [[rank_slice(i, r) for r in range(sp)] for i in range(n_layers)]
+
+    def state(i, r, fn=pa.paged_decode_state):
+        t = slices[i][r]
+        kw = {k: v for k, v in t.items() if k.endswith("scales")}
+        return fn(q, t["k"], t["v"], bt, sl, pos_base=r * P_local, global_page_size=P, **kw)
+
+    tol = MAX_BF16_ERR if dtype == torch.bfloat16 else MAX_F32_ERR
+    entry = {"case": name, "walk": walk, "dtype": dtype_name, "S": S, "H": H, "H_kv": H_kv,
+             "d": d, "P": P, "P_local": P_local, "sp": sp, "max_pages": max_pages,
+             "seq_lens": seq_lens, "state_tol": MAX_STATE_ERR, "merge_tol": tol}
+    states, err = [], 0.0
+    for r in range(sp):
+        got = state(0, r)
+        torch.cuda.synchronize()
+        want = state(0, r, plain.paged_decode_state_reference)
+        if not all(torch.isfinite(t).all() for t in got):
+            fail(f"state {walk} {name} rank {r}: non-finite state")
+        e = _state_err(got, want)
+        again = state(0, r)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"state {walk} {name} rank {r}: two launches on the same inputs differ")
+        empty = torch.tensor([sum(1 for j in range(-(-n // P)) for x in range(P_local)
+                                  if j * P + r * P_local + x < n) == 0 for n in seq_lens],
+                             device=dev)
+        if empty.any():
+            acc, m, l = got
+            if not ((m[empty] == -1e30).all() and (l[empty] == 0).all()
+                    and (acc[empty] == 0).all()):
+                fail(f"state {walk} {name} rank {r}: a lane with no valid row is not "
+                     "(acc 0, m -1e30, l 0)")
+        if "poisoned" in name:
+            t = slices[0][r]
+            kq, vq, ks, vs = t["k"].clone(), t["v"].clone(), t["k_scales"].clone(), t["v_scales"].clone()
+            for a in (kq, vq):
+                a[0] = 127
+            for a in (ks, vs):
+                a[0] = 1e30
+            for s_, n in enumerate(seq_lens):
+                for j in range(-(-n // P)):
+                    page = int(tables[s_, j])
+                    for x in range(P_local):
+                        if j * P + r * P_local + x >= n:
+                            kq[page, x] = vq[page, x] = 127
+                            ks[page, x] = vs[page, x] = 1e30
+            bad = pa.paged_decode_state(q, kq, vq, bt, sl, pos_base=r * P_local,
+                                        global_page_size=P, k_scales=ks, v_scales=vs)
+            if not all(torch.equal(a, b) for a, b in zip(bad, got)):
+                fail(f"state {walk} {name} rank {r}: poisoned masked rows changed the state")
+        if e > MAX_STATE_ERR:
+            fail(f"state {walk} {name} rank {r}: |kernel - plain| = {e:.3e} > {MAX_STATE_ERR}")
+        err = max(err, e)
+        states.append(got)
+    entry["state_max_err"] = err
+    # merge the ranks' states as the sp group does, fold the self term, and
+    # hold that against the mode-1 kernel over whole pages
+    acc, m, l = (torch.stack(x) for x in zip(*states))
+    acc, m, l = plain.merge_sp_states(acc, m, l, lambda x: x.amax(0, keepdim=True),
+                                      lambda x: x.sum(0, keepdim=True))
+    merged = plain.fold_self_term(q, k_new, v_new, acc[0], m[0], l[0])
+    scales = {"k_scales": k_sc[0], "v_scales": v_sc[0]} if int8 else {}
+    whole = pa.paged_decode_attention_cache_plus_new(q, k_pool[0], v_pool[0], bt, sl,
+                                                     k_new, v_new, **scales)
+    merge_err = (merged.float() - whole.float()).abs().max().item()
+    if merge_err > tol:
+        fail(f"state {walk} {name}: merged ranks vs whole-page kernel {merge_err:.3e} > {tol}")
+    entry["merge_max_abs_err"] = merge_err
+    # times on rank 0's slice (it holds at least as many valid rows as any)
+    entry["kernel_ms"] = graph_ms(lambda i: state(i % n_layers, 0), 32)
+    entry["plain_ms"] = cuda_ms(
+        lambda i: state(i % n_layers, 0, plain.paged_decode_state_reference), 10, warmup=1)
+    t = slices[0][0]
+    k_rows = kv_dequantize(t["k"], t["k_scales"], dtype) if int8 else t["k"]
+    v_rows = kv_dequantize(t["v"], t["v_scales"], dtype) if int8 else t["v"]
+    lib, lse = _library_state(q, k_rows, v_rows, bt, seq_lens, P, P_local, 0)
+    acc0, m0, l0 = states[0]
+    live = l0 > 0
+    entry["library_max_abs_err"] = (lse.float() - (m0 + torch.log(l0)))[live].abs().max().item()
+    entry["library_ms"] = graph_ms(lib, 16)
+    esz = torch.finfo(dtype).bits // 8
+    rows = sum(sum(1 for j in range(-(-n // P)) for x in range(P_local) if j * P + x < n)
+               for n in seq_lens)
+    pages_walked = sum(-(-n // P) for n in seq_lens)
+    page_bytes = 1 if int8 else esz
+    nbytes = S * H * d * esz + 2 * rows * H_kv * d * page_bytes + S * H * (d + 2) * 4 \
+        + 4 * (pages_walked + S)
+    flops = 4 * rows * H * d
+    if int8:
+        nbytes += 2 * rows * H_kv * 4
+        flops += 2 * rows * H_kv * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    entry.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bound_bytes=nbytes, bound_flops=flops, rank0_rows=rows)
+    say(f"state  {walk:8s} {name:32s} state err {err:.3e} (tol {MAX_STATE_ERR}) merged vs whole "
+        f"{merge_err:.3e} (tol {tol}) kernel {entry['kernel_ms']:.4f} ms plain "
+        f"{entry['plain_ms']:.4f} ms library {entry['library_ms']:.4f} ms bound "
+        f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}, {nbytes} B)")
+    return entry
+
+
 def kernel_phase() -> dict:
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
-    results = {"bf16": [], "int8": []}
+    results = {"bf16": [], "int8": [], "state_bf16": [], "state_int8": []}
     for key, cases, int8 in (("bf16", CASES, False), ("int8", INT8_CASES, True)):
         for case in cases:
             results[key].append(run_case(case, int8))
+            torch.cuda.empty_cache()
+    for key, cases, int8 in (("state_bf16", STATE_CASES, False),
+                             ("state_int8", INT8_STATE_CASES, True)):
+        for case in cases:
+            results[key].append(run_state_case(case, int8))
             torch.cuda.empty_cache()
     return results
 
@@ -536,6 +763,7 @@ def serving_phase(card: str, label: str, **engine_kw) -> dict:
         lg = forward(engine.params, torch.arange(16, device="cuda")[None] + 256, cfg)
     if lg.shape != (1, 16, cfg.vocab_size) or not torch.isfinite(lg).all():
         fail(f"serving {label}: llama3-8b forward logits {tuple(lg.shape)} not finite/shaped")
+    ref_logits = first_step_logits(engine.params, cfg, None, "cuda", engine.quantize_kv)
     wp_ms = weight_product_ms(engine.params, cfg)
     say(f"serving {label}: one decode step's weight products (8 slots, {cfg.n_layers} layers x 7 "
         f"matmuls) take {wp_ms:.3f} ms of device time  [{card}]")
@@ -626,11 +854,289 @@ def serving_phase(card: str, label: str, **engine_kw) -> dict:
                 f"{p['ttft_ms_max']:.1f} ms; {p['ms_per_decode_step']:.2f} ms per decode step; "
                 f"{p['decode_tokens_per_s']:.1f} decode tokens/s  [{card}]")
         perf["profile"] = profile_window(lambda: batch(8, 32), card, label)
+        perf["first_step_logits"] = ref_logits
         return perf
     finally:
         server.shutdown()
         server.server_close()
         engine.stop()
+
+
+# -- parallel serving phases ---------------------------------------------
+
+FIRST_PROMPT = [300 + 7 * i for i in range(20)]
+# tp / sp ranks against one card: the reduction order differs from a single
+# card's (partial products rounded to bf16, then summed in f32), so logits
+# agree to a few bf16 roundings per layer, not bit for bit
+MAX_LOGIT_REL_L2 = 5e-2
+
+
+def first_step_logits(params, cfg, group, device, quantize_kv: bool = False):
+    """Logits of a fixed 20-token prompt's paged prefill and of the decode
+    step after it, on a scratch pool of 4 pages of 16 (this rank's slice of
+    it with a group; every rank of the group must call this)."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.models import llama
+
+    with torch.inference_mode():
+        pages = llama.init_paged_cache(cfg, 4, 16, device=device, quantize_kv=quantize_kv,
+                                       group=group)
+        toks = torch.zeros(1, 32, dtype=torch.long)
+        toks[0, :20] = torch.tensor(FIRST_PROMPT)
+        pages, lg0 = llama.prefill_paged_batch(
+            params, pages, toks.to(device), torch.tensor([20], device=device),
+            torch.tensor([[1, 2]], device=device), cfg, group=group)
+        pages, lg1 = llama.decode_step_paged(
+            params, pages, torch.tensor([int(lg0[0].argmax())], device=device),
+            torch.tensor([20], dtype=torch.int32, device=device),
+            torch.tensor([[1, 2, 3, 0]], dtype=torch.int32, device=device),
+            torch.tensor([True], device=device), cfg, group=group)
+        return torch.stack([lg0[0], lg1[0]]).float().cpu()
+
+
+def collective_replay_ms(group, cfg, slots: int = 8, reps: int = 3) -> dict:
+    """Device-synchronized ms of one decode step's collectives replayed
+    alone at ``slots`` lanes, with the shapes and dtypes the model sends:
+    the embedding and the two per-layer tp sums of [slots, 1, dim] bf16,
+    per layer the sp merge's max and two sums of f32 [slots, H/tp] and
+    [slots, H/tp, d], and the logits' tp sum of f32 [slots, V]. Timed as the
+    port sends them (``ServingGroup``: an f32 copy on the card, reduced by
+    the backend), and, for comparison, staged through the host by hand
+    (copy to the CPU, reduce, copy back). Every rank of the group must call
+    this at once."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.randn(slots, 1, cfg.dim, device=dev).to(cfg.dtype)
+    h = cfg.n_heads // group.tp
+    m = torch.randn(slots, h, device=dev)
+    acc = torch.randn(slots, h, cfg.head_dim, device=dev)
+    logits = torch.randn(slots, cfg.vocab_size, device=dev)
+    MAX, SUM = dist.ReduceOp.MAX, dist.ReduceOp.SUM
+
+    def staged(t, op, g):
+        buf = t.to("cpu", torch.float32)
+        dist.all_reduce(buf, op=op, group=g)
+        return buf.to(dev, t.dtype)
+
+    def step(reduce):
+        reduce(x, SUM, "tp")
+        for _ in range(cfg.n_layers):
+            if group.sp > 1:
+                reduce(m, MAX, "sp")
+                reduce(m, SUM, "sp")
+                reduce(acc, SUM, "sp")
+            reduce(x, SUM, "tp")
+            reduce(x, SUM, "tp")
+        reduce(logits, SUM, "tp")
+
+    def ported(t, op, axis):
+        if axis == "tp":
+            return group.tp_sum(t)
+        return group.sp_max(t) if op == MAX else group.sp_sum(t)
+
+    def by_hand(t, op, axis):
+        if (group.tp if axis == "tp" else group.sp) == 1:
+            return t
+        return staged(t, op, group.tp_group if axis == "tp" else group.sp_group)
+
+    out = {}
+    for name, fn in (("ms_per_step", ported), ("host_staged_ms_per_step", by_hand)):
+        calls0 = group.collective_calls
+        step(fn)
+        out["calls_per_step"] = max(out.get("calls_per_step", 0), group.collective_calls - calls0)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(fn)
+        torch.cuda.synchronize(dev)
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def _serving_rank(label: str, tp: int, sp: int, max_tokens: int, engine_kw: dict,
+                  preset="llama3-8b") -> dict:
+    """One rank of a parallel serving phase (a spawned process). Every rank
+    builds its engine (its slices of llama3-8b from seed 0), computes the
+    first-step logits, zeroes the walk counters just before its engine
+    starts and reads them just after it stops. Rank 0 serves the HTTP
+    traffic; the others run the loop on its frames."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+    from agentcontrolplane_tpu_torch.parallel.distributed import runtime_info
+    from agentcontrolplane_tpu_torch.parallel.mesh import serving_group
+    from agentcontrolplane_tpu_torch.server.rest import make_server, serve_in_thread
+
+    info = runtime_info()
+    group = serving_group(tp, sp)
+    dev = torch.device(info["device"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    engine = Engine(preset, device=dev, seed=0, group=group, max_slots=8, max_ctx=2048,
+                    page_size=16, decode_block_size=8, **engine_kw)
+    torch.cuda.synchronize(dev)
+    doc = {"rank": group.rank, "n_layers": engine.config.n_layers, "tp_rank": group.tp_rank, "sp_rank": group.sp_rank,
+           "backend": info["backend"], "device": info["device"],
+           "init_s": time.monotonic() - t0, "init_peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "weight_bytes": engine.weight_bytes, "pool_bytes": engine.pool_bytes,
+           "pool_shape": list(engine.cache["k"].shape)}
+    logits = first_step_logits(engine.params, engine.config, group, dev, engine.quantize_kv)
+    if group.is_leader:
+        doc["first_step_logits"] = logits
+    # the counted run: counts to 0 just before the engine starts
+    pa.LAUNCHES = pa.INT8_LAUNCHES = pa.STATE_LAUNCHES = 0
+    group.collective_calls = 0
+    engine.start()
+    if group.is_leader:
+        server = make_server(engine, "127.0.0.1", 0)
+        serve_in_thread(server)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            def chat(i, temperature=0.0, top_p=None):
+                body = {"model": "llama3-8b", "max_tokens": max_tokens,
+                        "temperature": temperature,
+                        "messages": [{"role": "system", "content": "You are a helpful agent."},
+                                     {"role": "user",
+                                      "content": f"Request {i}: plan the next step."}]}
+                if top_p is not None:
+                    body["top_p"] = top_p
+                return _post(base, body)
+
+            _check_reply(*chat("warm-up"), max_tokens, f"{label} warm-up")
+            replies: dict = {}
+            threads = [threading.Thread(target=lambda i=i: replies.__setitem__(i, chat(i)))
+                       for i in range(4)]
+            steps0 = engine.decode_steps
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 300
+            while engine.decode_steps == steps0 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            late = threading.Thread(
+                target=lambda: replies.__setitem__("sampled", chat("late", 0.7, 0.9)))
+            late.start()
+            for t in [*threads, late]:
+                t.join(timeout=600)
+            if len(replies) != 5:
+                raise RuntimeError(f"{len(replies)} of 5 replies arrived")
+            doc["completion_tokens"] = [
+                _check_reply(*replies[k], max_tokens, f"{label} request {k}") for k in replies]
+
+            def batch(n):
+                with engine.hold_admission():
+                    futs = [engine.submit(f"Task {i}: summarize the incident report.",
+                                          SamplingParams(max_tokens=max_tokens))
+                            for i in range(n)]
+                    s0 = engine.decode_steps
+                res = [f.result(timeout=600) for f in futs]
+                return res, engine.decode_steps - s0
+
+            run_a, _ = batch(4)
+            run_b, steps_b = batch(4)
+            doc["repeat_identical"] = [r.tokens for r in run_a] == [r.tokens for r in run_b]
+            decode_ms = max(r.latency_ms for r in run_b) - max(r.ttft_ms for r in run_b)
+            doc["batch4"] = {
+                "ttft_ms_mean": sum(r.ttft_ms for r in run_b) / len(run_b),
+                "decode_steps": steps_b,
+                "ms_per_decode_step": decode_ms / steps_b if steps_b else None,
+                "decode_tokens_per_s": (sum(max(0, len(r.tokens) - 1) for r in run_b)
+                                        / (decode_ms / 1e3)) if decode_ms > 0 else None,
+            }
+            stats = engine.stats()
+            doc["stats_mesh"] = stats["mesh"]
+            doc["pages_released"] = (stats["kv_pages"]["free"] == engine.num_pages - 1
+                                     and not stats["active_slots"])
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+    elif not engine.join(timeout=900):
+        raise RuntimeError("follower engine did not stop with the leader")
+    torch.cuda.synchronize(dev)
+    doc.update(launches=pa.LAUNCHES, int8_launches=pa.INT8_LAUNCHES,
+               state_launches=pa.STATE_LAUNCHES, decode_steps=engine.decode_steps,
+               engine_collective_calls=group.collective_calls,
+               finished=list(engine.finished), peak_bytes=torch.cuda.max_memory_allocated(dev))
+    doc["collectives"] = collective_replay_ms(group, engine.config)
+    return doc
+
+
+def parallel_serving_phase(card: str, label: str, tp: int, sp: int, ref_logits,
+                           max_tokens: int = 32, preset="llama3-8b", **engine_kw) -> dict:
+    """llama3-8b served over tp x sp ranks sharing this machine's card(s),
+    behind rank 0's HTTP server. Checks: every rank's stream of finished
+    requests identical, pages released, greedy repeats identical, every
+    decode layer of every step through the expected walk and form on every
+    rank, first-step logits against the single card's within
+    MAX_LOGIT_REL_L2."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.parallel.distributed import run_ranks
+
+    world = tp * sp
+    t0 = time.monotonic()
+    try:
+        ranks = run_ranks(_serving_rank, world,
+                          args=(label, tp, sp, max_tokens, engine_kw, preset), timeout_s=600)
+    except RuntimeError as e:
+        fail(f"parallel {label}: {e}")
+    wall_s = time.monotonic() - t0
+    lead = ranks[0]
+    shared = f"{world} ranks sharing one card" if lead["device"] == ranks[-1]["device"] \
+        else f"{world} ranks, one card each"
+    int8_walk = bool(engine_kw.get("quantize_kv"))
+    steps, n_layers = lead["decode_steps"], lead["n_layers"]
+    for r in ranks:
+        if r["finished"] != lead["finished"] or r["decode_steps"] != steps:
+            fail(f"parallel {label}: rank {r['rank']}'s token streams or decode steps differ "
+                 "from rank 0's")
+        want = n_layers * steps
+        walk = r["int8_launches"] if int8_walk else r["launches"] - r["int8_launches"]
+        other = r["launches"] - walk
+        state = r["state_launches"]
+        if steps == 0 or walk != want or other or state != (want if sp > 1 else 0):
+            fail(f"parallel {label}: rank {r['rank']} ran {walk} {'int8' if int8_walk else 'bf16'}"
+                 f"-walk launches ({state} in the state form, {other} of the other walk) for "
+                 f"{steps} decode steps x {n_layers} layers")
+    if not lead["repeat_identical"] or not lead["pages_released"]:
+        fail(f"parallel {label}: repeat identical {lead['repeat_identical']}, pages released "
+             f"{lead['pages_released']}")
+    want_mesh = {"sp": sp, "tp": tp} if sp > 1 else {"tp": tp}
+    if lead["stats_mesh"] != want_mesh:
+        fail(f"parallel {label}: stats mesh {lead['stats_mesh']} != {want_mesh}")
+    lg = lead.pop("first_step_logits")
+    rel = ((lg - ref_logits).norm() / ref_logits.norm()).item()
+    max_abs = (lg - ref_logits).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(lg, ref_logits, dim=-1).tolist()
+    same_argmax = (lg.argmax(-1) == ref_logits.argmax(-1)).tolist()
+    if not torch.isfinite(lg).all() or rel > MAX_LOGIT_REL_L2:
+        fail(f"parallel {label}: first-step logits vs one card: relative L2 {rel:.3e} > "
+             f"{MAX_LOGIT_REL_L2} (max |d| {max_abs:.3e})")
+    b, c = lead["batch4"], lead["collectives"]
+    model = preset if isinstance(preset, str) else f"a {preset.dim}-wide model"
+    say(f"parallel {label} ({shared}, backend {lead['backend']}): {world} ranks x {model}, "
+        f"5 chat completions OK ({lead['completion_tokens']} tokens), streams identical on "
+        f"every rank, {steps} decode steps, per rank {lead['launches']} walk launches "
+        f"({lead['state_launches']} state form, {lead['int8_launches']} int8) = {n_layers} x {steps}; "
+        f"first-step logits vs one card: rel L2 {rel:.3e} (tol {MAX_LOGIT_REL_L2}), max |d| "
+        f"{max_abs:.3e}, cosine {cos}, same argmax {same_argmax}  [{card}]")
+    say(f"parallel {label} ({shared}): {b['ms_per_decode_step']:.2f} ms per decode step at 4 "
+        f"slots, {b['decode_tokens_per_s']:.1f} decode tokens/s, TTFT mean "
+        f"{b['ttft_ms_mean']:.1f} ms; collectives {c['calls_per_step']} per step, "
+        f"{c['ms_per_step']:.2f} ms per step replayed alone (synchronized; staged through the "
+        f"host by hand {c['host_staged_ms_per_step']:.2f} ms); "
+        f"per rank weights {lead['weight_bytes'] / 1e9:.3f} GB, pool "
+        f"{lead['pool_bytes'] / 1e9:.3f} GB {lead['pool_shape']}, peak "
+        + ", ".join(f"{r['peak_bytes'] / 1e9:.2f}" for r in ranks)
+        + f" GB; phase wall {wall_s:.1f} s  [{card}]")
+    return {"card": card, "label": label, "tp": tp, "sp": sp, "ranks_sharing_card": shared,
+            "wall_s": wall_s, "logits_rel_l2": rel, "logits_max_abs": max_abs,
+            "logits_cosine": cos, "logits_same_argmax": same_argmax,
+            "ranks": [{k: v for k, v in r.items() if k != "finished"} for r in ranks]}
 
 
 def _ptxas_summary(logs: dict) -> dict:
@@ -703,6 +1209,17 @@ def main() -> int:
     say(f"serving int8 vs bf16: weights {perf_int8['weight_bytes'] / 1e9:.3f} / "
         f"{perf['weight_bytes'] / 1e9:.3f} GB, KV pool {perf_int8['pool_bytes'] / 1e9:.3f} / "
         f"{perf['pool_bytes'] / 1e9:.3f} GB for {perf['num_pages']} pages  [{card}]")
+    ref_bf16, ref_int8 = perf.pop("first_step_logits"), perf_int8.pop("first_step_logits")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one phase's ranks at a time; each rank holds its slices only
+    par = {
+        "tp2_bf16": parallel_serving_phase(card, "tp2-bf16", 2, 1, ref_bf16),
+        "sp2xtp2_bf16": parallel_serving_phase(card, "sp2xtp2-bf16", 2, 2, ref_bf16),
+        "sp2xtp2_int8": parallel_serving_phase(card, "sp2xtp2-int8", 2, 2, ref_int8,
+                                               max_tokens=12, quantize_weights=True,
+                                               quantize_kv=True),
+    }
 
     docs = []
     for walk, name, source, replaces, serving in (
@@ -728,10 +1245,31 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["cache_plus_new_library_ms"],
         })
+    for walk, name, source, phase in (
+        ("state_bf16", "paged_decode_state", "agentcontrolplane_tpu_torch/csrc/paged_attention.cu",
+         par["sp2xtp2_bf16"]),
+        ("state_int8", "paged_decode_state_int8",
+         "agentcontrolplane_tpu_torch/csrc/paged_attention_int8.cu", par["sp2xtp2_int8"]),
+    ):
+        cases = kernels[walk]
+        main_case = next(c for c in cases if c["case"] == "llama3-8b-sp2xtp2-rank")
+        docs.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": "agentcontrolplane_tpu/ops/pallas/paged_attention.py:399",
+            "launches": phase["ranks"][0]["state_launches"],
+            "max_abs_err": max(max(c["state_max_err"], c["merge_max_abs_err"]) for c in cases),
+            "ms": main_case["kernel_ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+        })
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "ptxas": ptxas, "kernels": docs,
          "kernel_cases": kernels, "model": model, "serving": perf, "serving_int8": perf_int8,
-         "seconds": time.monotonic() - t_start}, indent=1))
+         "parallel": par, "seconds": time.monotonic() - t_start}, indent=1, default=str))
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

@@ -1,6 +1,8 @@
 """The torch port stands alone: no module of ``agentcontrolplane_tpu_torch``
 and not ``chip_smoke.py`` imports JAX, the JAX package, or a package the
-card's machine lacks (pydantic, aiohttp, safetensors, tokenizers)."""
+card's machine lacks (pydantic, aiohttp, safetensors, tokenizers). Nor does
+``tests/torch_parallel_ranks.py``, which every spawned rank of the parallel
+tests re-imports."""
 
 import ast
 from pathlib import Path
@@ -12,7 +14,9 @@ FORBIDDEN = {
     "jax", "jaxlib", "agentcontrolplane_tpu", "pydantic", "aiohttp",
     "safetensors", "tokenizers", "ml_dtypes",
 }
-FILES = sorted((ROOT / "agentcontrolplane_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "agentcontrolplane_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_ranks.py",
+]
 
 
 def _imports(source: str) -> set[str]:
@@ -40,7 +44,11 @@ def test_scan_covers_the_port_and_catches_offenders():
         "agentcontrolplane_tpu_torch/engine/accuracy.py",
         "agentcontrolplane_tpu_torch/engine/engine.py",
         "agentcontrolplane_tpu_torch/server/rest.py",
+        "agentcontrolplane_tpu_torch/parallel/distributed.py",
+        "agentcontrolplane_tpu_torch/parallel/mesh.py",
+        "agentcontrolplane_tpu_torch/engine/coordination.py",
         "chip_smoke.py",
+        "tests/torch_parallel_ranks.py",
     ):
         assert expected in names
     assert "jax" in _imports("def f():\n    from jax import numpy as jnp\n")
