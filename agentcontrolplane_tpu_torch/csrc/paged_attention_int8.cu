@@ -34,34 +34,39 @@ int dispatch(int dtype, int d, const acp::Args& a) {
 
 // Plain C entry for ctypes. dtype is q's (and k_new's, v_new's, out's):
 // 0 = float32, 1 = bfloat16; the pages are int8 and k_scales/v_scales f32.
-// k_new/v_new may be null when with_self == 0. Launches on `stream` and
-// returns cudaGetLastError() (0 = launched); the caller raises otherwise.
+// k_new/v_new may be null when with_self == 0. ws, counters and n_split
+// are the split-KV walk's, as in paged_attention.cu. Launches on `stream`
+// and returns cudaGetLastError() (0 = launched); the caller raises
+// otherwise.
 extern "C" int acp_paged_decode_attention_int8(
     const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
     const void* v_scales, const void* block_tables, const void* seq_lens, const void* k_new,
-    const void* v_new, void* out, int S, int H, int H_kv, int d, int P, int max_pages,
-    int dtype, int with_self, void* stream) {
-  if (!acp::valid_shape(S, H, H_kv, P, max_pages) || k_scales == nullptr ||
+    const void* v_new, void* out, void* ws, void* counters, int S, int H, int H_kv, int d,
+    int P, int max_pages, int dtype, int with_self, int n_split, void* stream) {
+  if (!acp::valid_shape(S, H, H_kv, P, max_pages) ||
+      !acp::valid_split(n_split, max_pages, ws, counters) || k_scales == nullptr ||
       v_scales == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const acp::Args a{q, k_pages, v_pages,
                     static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
                     static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
-                    k_new, v_new, out, nullptr, nullptr, nullptr, S, H, H_kv, P, max_pages,
-                    0, P, with_self ? acp::kCachePlusNew : acp::kClassic,
+                    k_new, v_new, out, nullptr, nullptr, nullptr, static_cast<float*>(ws),
+                    static_cast<int*>(counters), S, H, H_kv, P, max_pages, 0, P,
+                    with_self ? acp::kCachePlusNew : acp::kClassic, n_split,
                     static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, a);
 }
 
 // The state form over this rank's P rows of every page (within-page offset
 // pos_base of pages holding global_page_size tokens): f32 acc [S, H, d],
-// m [S, H], l [S, H], unnormalized.
+// m [S, H], l [S, H], unnormalized; ws, counters and n_split as above.
 extern "C" int acp_paged_decode_state_int8(
     const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
     const void* v_scales, const void* block_tables, const void* seq_lens, void* acc, void* m,
-    void* l, int S, int H, int H_kv, int d, int P, int max_pages, int pos_base,
-    int global_page_size, int dtype, void* stream) {
+    void* l, void* ws, void* counters, int S, int H, int H_kv, int d, int P, int max_pages,
+    int pos_base, int global_page_size, int dtype, int n_split, void* stream) {
   if (!acp::valid_shape(S, H, H_kv, P, max_pages) ||
+      !acp::valid_split(n_split, max_pages, ws, counters) ||
       !acp::valid_slice(P, pos_base, global_page_size) || k_scales == nullptr ||
       v_scales == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -69,7 +74,8 @@ extern "C" int acp_paged_decode_state_int8(
                     static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
                     static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
                     nullptr, nullptr, nullptr, static_cast<float*>(acc), static_cast<float*>(m),
-                    static_cast<float*>(l), S, H, H_kv, P, max_pages, pos_base,
-                    global_page_size, acp::kState, static_cast<cudaStream_t>(stream)};
+                    static_cast<float*>(l), static_cast<float*>(ws), static_cast<int*>(counters),
+                    S, H, H_kv, P, max_pages, pos_base, global_page_size, acp::kState,
+                    n_split, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, a);
 }

@@ -26,6 +26,18 @@ the int8 walk's scales, q, k_new, v_new and the output) over the card's
 memory rate; ``chip_smoke.py`` computes it from the data sheet's rate and
 prints it beside the measured time.
 
+Split-KV: every call is ONE launch of a (S, H_kv, n_split) grid whose
+blocks walk runs of table columns and merge their partial states in the
+same launch (``csrc/paged_attention.cuh``). :func:`split_plan` picks
+``n_split`` from shapes only — the table width, rows per page, S x H_kv and
+the card's SM count — never from ``seq_lens``, so a call never reads the
+lengths on the host and can be captured in a CUDA graph. The wrapper owns
+the merge's workspace and its ticket counters: cached per device, grown
+when a call needs more, the counters zeroed once (every launch leaves them
+zero). So calls on one device must not overlap in time: one stream at a
+time, as the engine's single loop thread issues them. Make a graph's first
+call eagerly before capturing it, so the buffers exist zeroed.
+
 Routing: CUDA tensors launch a kernel (or raise — there is no fallback);
 CPU tensors run the plain version in ``ops/paged.py``. ``LAUNCHES`` counts
 every kernel launch, ``INT8_LAUNCHES`` the int8 walk's and
@@ -58,6 +70,50 @@ STATE_LAUNCHES = 0
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 8  # query heads per KV head the kernel's register tiles hold
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WAVES = 2  # blocks to aim for, in multiples of the card's SMs
+MIN_SPLIT_ROWS = 128  # rows a split walks at least (8 pages of 16)
+MAX_SPLITS = 256  # the kernel's kMaxSplits: its merge's shared memory holds this many
+
+_sm_counts: dict = {}
+_scratch: dict = {}  # device -> (workspace f32, counters int32)
+
+
+def split_plan(max_pages: int, page_rows: int, lanes: int, sm_count: int) -> tuple[int, int]:
+    """``(n_split, pages_per_split)`` for a walk of ``max_pages`` table
+    columns of ``page_rows`` rows each over ``lanes`` = S x H_kv (slot, KV
+    head) pairs on a card of ``sm_count`` SMs: about ``WAVES`` blocks per
+    SM, at least ``MIN_SPLIT_ROWS`` rows a split, and no split wholly past
+    the table, at most ``MAX_SPLITS``. Shapes only: never the lengths."""
+    want = -(-WAVES * sm_count // max(lanes, 1))
+    most = max(1, max_pages * page_rows // MIN_SPLIT_ROWS)
+    n = max(1, min(want, most, max_pages, MAX_SPLITS))
+    pps = -(-max_pages // n)
+    return -(-max_pages // pps), pps
+
+
+def _sm_count(device: torch.device) -> int:
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _sm_counts:
+        _sm_counts[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _sm_counts[key]
+
+
+def _split(q, k_pages, block_tables):
+    """This call's ``(n_split, workspace pointer, counters pointer)``; the
+    pointers are None when the walk is not split."""
+    S, H, d = q.shape
+    _num_pages, P, H_kv, _ = k_pages.shape
+    n_split, _pps = split_plan(block_tables.shape[1], P, S * H_kv, _sm_count(q.device))
+    if n_split == 1:
+        return 1, None, None
+    need_ws, need_pairs = S * n_split * H * (d + 2), S * H_kv
+    ws, counters = _scratch.get(q.device, (None, None))
+    if ws is None or ws.numel() < need_ws:
+        ws = torch.empty(need_ws, dtype=torch.float32, device=q.device)
+    if counters is None or counters.numel() < need_pairs:
+        counters = torch.zeros(need_pairs, dtype=torch.int32, device=q.device)
+    _scratch[q.device] = (ws, counters)
+    return n_split, ws.data_ptr(), counters.data_ptr()
 
 
 def _entry(int8: bool, state: bool = False):
@@ -66,11 +122,12 @@ def _entry(int8: bool, state: bool = False):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         # pointers: q, k/v pages, (int8: k/v scales), tables, lens, then
-        # k_new, v_new, out — or, in the state form, acc, m, l; ints: S, H,
-        # H_kv, d, P, max_pages, then dtype, with_self — or pos_base,
-        # global_page_size, dtype
-        n_ptrs = 10 if int8 else 8
-        n_ints = 9 if state else 8
+        # k_new, v_new, out — or, in the state form, acc, m, l — then the
+        # split's workspace and counters; ints: S, H, H_kv, d, P,
+        # max_pages, then dtype, with_self — or pos_base, global_page_size,
+        # dtype — then n_split
+        n_ptrs = 12 if int8 else 10
+        n_ints = 10 if state else 9
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -144,15 +201,16 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, k_new, v_new,
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     if int8:
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
+    n_split, ws, counters = _split(q, k_pages, block_tables)
     ptrs += [
         block_tables.data_ptr(), seq_lens.data_ptr(),
         k_new.data_ptr() if with_self else None,
         v_new.data_ptr() if with_self else None,
-        out.data_ptr(),
+        out.data_ptr(), ws, counters,
     ]
     err = _entry(int8)(
         *ptrs, S, H, H_kv, d, P, block_tables.shape[1], _DTYPES[q.dtype], int(with_self),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        n_split, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         walk = "int8" if int8 else "f32/bf16"
@@ -181,11 +239,12 @@ def _launch_state(q, k_pages, v_pages, block_tables, seq_lens, pos_base, global_
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     if int8:
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
+    n_split, ws, counters = _split(q, k_pages, block_tables)
     ptrs += [block_tables.data_ptr(), seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(),
-             l.data_ptr()]
+             l.data_ptr(), ws, counters]
     err = _entry(int8, state=True)(
         *ptrs, S, H, H_kv, d, P, block_tables.shape[1], pos_base, global_page_size,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _DTYPES[q.dtype], n_split, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         walk = "int8" if int8 else "f32/bf16"

@@ -16,7 +16,9 @@ avoid — and, for int8 pools, dequantize the gathered rows.
 Context-parallel serving (``sp`` ranks) keeps a ``[P / sp]`` slice of every
 page on each rank; ``merge_sp_states`` and ``fold_self_term`` are the plain
 torch algebra that turns the ranks' unnormalized states into the output,
-as the reference computes them outside its kernel.
+as the reference computes them outside its kernel. The same algebra
+merges the splits of the CUDA kernel's split-KV walk inside one launch;
+``paged_decode_state_split_reference`` is its plain version.
 """
 
 from __future__ import annotations
@@ -191,6 +193,44 @@ def merge_sp_states(acc, m, l, reduce_max, reduce_sum):
     l_g = reduce_sum(l * corr)
     acc_g = reduce_sum(acc * corr[..., None])
     return acc_g, m_g, l_g
+
+
+def paged_decode_state_split_reference(
+    q: torch.Tensor,  # [S, H, d]
+    k_pages: torch.Tensor,  # [num_pages, P_local, H_kv, d]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, max_pages]
+    seq_lens: torch.Tensor,  # [S] — valid tokens per slot (global positions)
+    bounds,  # page boundaries 0 = b_0 < b_1 < ... < b_n = max_pages
+    *,
+    pos_base: int = 0,
+    global_page_size: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The state walk cut along pages, as the split-KV CUDA kernel cuts it:
+    split z walks table columns ``[bounds[z], bounds[z+1])``, its state
+    comes from ``paged_decode_state_reference`` over those columns (lengths
+    shifted by the pages before it; a split past the valid rows is the
+    empty state), and the states merge with ``merge_sp_states``' algebra,
+    summed in split order. Equals the unsplit state up to f32 rounding."""
+    G = global_page_size or k_pages.shape[1]
+    states = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        lens = torch.clamp_min(seq_lens.long() - a * G, 0).to(seq_lens.dtype)
+        states.append(paged_decode_state_reference(
+            q, k_pages, v_pages, block_tables[:, a:b].contiguous(), lens, pos_base=pos_base,
+            global_page_size=G, k_scales=k_scales, v_scales=v_scales,
+        ))
+    acc, m, l = (torch.stack(x) for x in zip(*states))
+
+    def in_order(x):
+        total = x[0]
+        for part in x[1:]:
+            total = total + part
+        return total
+
+    return merge_sp_states(acc, m, l, lambda x: x.amax(0), in_order)
 
 
 def fold_self_term(q, k_new, v_new, acc, m, l) -> torch.Tensor:

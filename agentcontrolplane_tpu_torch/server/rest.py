@@ -17,8 +17,9 @@ no aiohttp:
 run the engine loop on the leader's frame stream.
 
 Constrained requests (``response_format: json_object``, or a ``tool_choice``
-that forces a call) answer 400: the torch engine has no constrained
-decoding yet.
+the reference would force: :func:`tool_choice_constrains`) and
+``stream: true`` answer 400: the torch engine has no constrained decoding
+and no server-sent events yet.
 """
 
 from __future__ import annotations
@@ -42,6 +43,21 @@ from ..engine.toolparse import to_message
 from ..engine.types import Message, MessageToolCall, Tool, ToolCallFunction, ToolFunction
 
 NOT_SUPPORTED = "not yet supported by the torch engine"
+
+
+def tool_choice_constrains(tools: list[Tool], tool_choice: str) -> bool:
+    """Whether the reference constrains decoding for this OpenAI
+    ``tool_choice`` (already normalized to a string): ``"required"`` with
+    tools (its ``json_required``, however many are offered), or the name of
+    an offered tool (its ``forced_call_prefix``,
+    ``agentcontrolplane_tpu/engine/client.py``). Any other value, a name
+    that is not offered included, is served unconstrained there and here."""
+    if not tools:
+        return False
+    if tool_choice == "required":
+        return True
+    offered = {t.function.name for t in tools}
+    return tool_choice not in ("auto", "none", "") and tool_choice in offered
 
 
 def _parse_chat(body: Any) -> tuple[str, SamplingParams, list[Tool], float]:
@@ -80,8 +96,11 @@ def _parse_chat(body: Any) -> tuple[str, SamplingParams, list[Tool], float]:
     tool_choice = body.get("tool_choice")
     if isinstance(tool_choice, dict):
         tool_choice = (tool_choice.get("function") or {}).get("name") or ""
-    if tools and str(tool_choice or "auto") not in ("auto", "none", ""):
+    tool_choice = str(tool_choice or "auto")
+    if tool_choice_constrains(tools, tool_choice):
         raise NotImplementedError(f"tool_choice {tool_choice!r} (a forced call) is {NOT_SUPPORTED}")
+    if body.get("stream"):
+        raise NotImplementedError(f"stream: true (server-sent events) is {NOT_SUPPORTED}")
     sampling = SamplingParams(
         temperature=float(body.get("temperature") or 0.0),
         top_p=float(body["top_p"]) if body.get("top_p") is not None else 1.0,

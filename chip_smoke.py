@@ -10,23 +10,29 @@ without printing a result:
 1. card — the card's name and power limit from ``nvidia-smi``;
 2. build — every CUDA source under ``agentcontrolplane_tpu_torch/csrc``
    compiled with ``nvcc`` (one process per source, all at once);
-3. kernel — both paged decode-attention walks against their plain PyTorch
+3. kernel — both paged decode-attention walks (one split-KV launch each,
+   ``n_split`` from the shape) against their plain PyTorch
    versions on the card, both epilogue modes: the f32/bf16 walk at the
    llama3-8b decode shape (8 slots, 32 query / 8 KV heads, head_dim 128,
-   pages of 16, bf16, ragged lengths up to 2048 including 0) and edge
+   pages of 16, bf16, ragged lengths up to 2048 including 0), one lane of
+   2048 tokens at one card's and one tp=2 rank's heads, lengths on, one
+   past and short of the split boundaries, and edge
    shapes (d=16 f32, d=256 bf16, a group of 7 query heads); the int8 walk
    over pages made on the card by ``kv_quantize`` at the llama3-8b shape,
-   the serving lengths, d=16 f32, d=256 with a group of 8, and a case whose
+   the serving lengths, the single lanes and split boundaries, d=16 f32,
+   d=256 with a group of 8, and a case whose
    trash page and masked tail rows hold poisoned values and scales; one
    tp=2 rank's heads (16/4) in both walks; the STATE form of both walks
    (the context-parallel wrapper's unnormalized (acc, m, l)) on each sp
-   rank's rows of every page at one sp=2 x tp=2 rank's shape, with lanes a
+   rank's rows of every page at one sp=2 x tp=2 rank's shape and at its
+   split boundaries, with lanes a
    rank holds no row of, poisoned masked rows (int8), and the two ranks'
    states merged with the self term against the mode-1 kernel over whole
    pages; times of each kernel, its plain version and a PyTorch attention
    call (``scaled_dot_product_attention``, or for the state form the
    memory-efficient attention that returns the log-sum-exp; a yardstick
-   only) beside the bound;
+   only) beside the bound, and ptxas's registers and spills (a spill in the
+   llama3-8b variant of either walk fails the run);
 4. model — the tiny f32 model's paged prefill + decode on the card (kernel)
    against the same on the CPU (plain version), unquantized and with int8
    weights and an int8 KV cache (the int8 walk);
@@ -140,6 +146,10 @@ def graph_ms(fn, calls: int, replays: int = 10) -> float:
 # -- kernel phase --------------------------------------------------------
 
 LLAMA_LENS = [0, 1, 17, 255, 1024, 1500, 2047, 2048]
+# seq_lens resolved on the card from the walk's split plan: lengths that end
+# exactly on a split boundary, one row past it, inside the first split (so
+# every later split is empty) and at the full table (_boundary_lens)
+SPLIT_BOUNDARIES = "split-boundaries"
 CASES = [
     # name, dtype, H, H_kv, d, P, max_pages, seq_lens, layers cycled for timing
     ("llama3-8b", "bfloat16", 32, 8, 128, 16, 128, LLAMA_LENS, 4),
@@ -147,6 +157,11 @@ CASES = [
     ("llama3-8b-tp2-rank", "bfloat16", 16, 4, 128, 16, 128, LLAMA_LENS, 4),
     ("llama3-8b-serving-lengths", "bfloat16", 32, 8, 128, 16, 128,
      [61, 64, 70, 77, 85, 90, 96, 110], 4),
+    # an agent's one long turn: a single lane of 2048 tokens, where the
+    # split along pages matters most
+    ("llama3-8b-one-lane-2048", "bfloat16", 32, 8, 128, 16, 128, [2048], 4),
+    ("llama3-8b-tp2-rank-one-lane-2048", "bfloat16", 16, 4, 128, 16, 128, [2048], 4),
+    ("llama3-8b-split-boundaries", "bfloat16", 32, 8, 128, 16, 128, SPLIT_BOUNDARIES, 1),
     ("tiny-d16-f32", "float32", 4, 2, 16, 8, 8, [0, 5, 16, 27, 64], 1),
     ("d256-group8-bf16", "bfloat16", 8, 1, 256, 16, 16, [0, 33, 128, 256], 1),
     ("d64-group7-f32", "float32", 14, 2, 64, 16, 8, [3, 0, 100, 128], 1),
@@ -159,6 +174,9 @@ INT8_CASES = [
     ("llama3-8b-tp2-rank", "bfloat16", 16, 4, 128, 16, 128, LLAMA_LENS, 4),
     ("llama3-8b-serving-lengths", "bfloat16", 32, 8, 128, 16, 128,
      [61, 64, 70, 77, 85, 90, 96, 110], 4),
+    ("llama3-8b-one-lane-2048", "bfloat16", 32, 8, 128, 16, 128, [2048], 4),
+    ("llama3-8b-tp2-rank-one-lane-2048", "bfloat16", 16, 4, 128, 16, 128, [2048], 4),
+    ("llama3-8b-split-boundaries", "bfloat16", 32, 8, 128, 16, 128, SPLIT_BOUNDARIES, 1),
     ("tiny-d16-f32", "float32", 4, 2, 16, 8, 8, [0, 5, 16, 27, 64], 1),
     ("d256-group8-bf16", "bfloat16", 8, 1, 256, 16, 16, [0, 33, 128, 256], 1),
     ("llama3-8b-poisoned-tail", "bfloat16", 32, 8, 128, 16, 16, [1, 17, 100, 255, 16, 0, 33, 200], 1),
@@ -170,6 +188,8 @@ MODES = (("cache_plus_new", True), ("classic", False))
 # 0-7 or 8-15 of every 16-token page); lengths 0 and 1 leave rank 1 no row
 STATE_CASES = [
     ("llama3-8b-sp2xtp2-rank", "bfloat16", 16, 4, 128, 16, 2, 128, LLAMA_LENS, 4),
+    ("llama3-8b-sp2xtp2-split-boundaries", "bfloat16", 16, 4, 128, 16, 2, 128,
+     SPLIT_BOUNDARIES, 1),
     ("tiny-d16-f32", "float32", 4, 2, 16, 8, 2, 8, [0, 3, 5, 16, 27, 64], 1),
 ]
 INT8_STATE_CASES = STATE_CASES + [
@@ -178,6 +198,30 @@ INT8_STATE_CASES = STATE_CASES + [
 ]
 # f32 state math on the same inputs: only the order of the sums differs
 MAX_STATE_ERR = 1e-4
+
+
+def _split_plan(S, H_kv, page_rows, max_pages) -> tuple[int, int]:
+    """(n_split, pages per split): what the wrapper picks on this card for
+    this shape."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pa.split_plan(max_pages, page_rows, S * H_kv, sms)
+
+
+def _boundary_lens(S, H_kv, page_rows, page_tokens, max_pages) -> list[int]:
+    """S lengths for the split-boundary case: on the split plan's first and
+    last boundaries, one token past each, inside the first split, and at
+    the full table."""
+    n_split, pps = _split_plan(S, H_kv, page_rows, max_pages)
+    if n_split < 3:
+        fail(f"split-boundary case: only {n_split} splits at this shape")
+    b = pps * page_tokens  # tokens per split
+    lens = [b, b + 1, (n_split - 1) * b, (n_split - 1) * b + 1, b // 4, max_pages * page_tokens,
+            2 * b, 2 * b + 1]
+    return (lens * S)[:S]
 
 
 def _tables(seq_lens, P, max_pages):
@@ -252,10 +296,13 @@ def run_case(case, int8: bool) -> dict:
     from agentcontrolplane_tpu_torch.ops.quant import kv_dequantize, kv_quantize
 
     name, dtype_name, H, H_kv, d, P, max_pages, seq_lens, n_layers = case
+    if seq_lens == SPLIT_BOUNDARIES:
+        seq_lens = _boundary_lens(8, H_kv, P, P, max_pages)
     walk = "int8" if int8 else dtype_name
     dev = torch.device("cuda")
     dtype = getattr(torch, dtype_name)
     S = len(seq_lens)
+    n_split = _split_plan(S, H_kv, P, max_pages)[0]
     tables, num_pages = _tables(seq_lens, P, max_pages)
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -276,7 +323,8 @@ def run_case(case, int8: bool) -> dict:
     sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
     tol = MAX_BF16_ERR if dtype == torch.bfloat16 else MAX_F32_ERR
     entry = {"case": name, "walk": walk, "dtype": dtype_name, "S": S, "H": H, "H_kv": H_kv,
-             "d": d, "P": P, "max_pages": max_pages, "seq_lens": seq_lens, "tol": tol}
+             "d": d, "P": P, "max_pages": max_pages, "seq_lens": seq_lens, "tol": tol,
+             "n_split": n_split}
     poisoned = int8 and "poisoned" in name
     for mode, with_self in MODES:
         extra = (k_new, v_new) if with_self else ()
@@ -321,8 +369,8 @@ def run_case(case, int8: bool) -> dict:
             (lib.float() - want.float())[live].abs().max().item())
         entry[f"{mode}_library_ms"] = graph_ms(
             lambda i: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask), 16)
-        say(f"kernel {walk:8s} {name:28s} {mode:15s} max_abs_err {err:.3e} (tol {tol}) "
-            f"kernel {entry[f'{mode}_kernel_ms']:.4f} ms (eager "
+        say(f"kernel {walk:8s} {name:32s} {mode:15s} n_split {n_split:2d} max_abs_err {err:.3e} "
+            f"(tol {tol}) kernel {entry[f'{mode}_kernel_ms']:.4f} ms (eager "
             f"{entry[f'{mode}_eager_ms']:.4f}) plain {entry[f'{mode}_plain_ms']:.4f} ms "
             f"sdpa {entry[f'{mode}_library_ms']:.4f} ms")
         del kg, vg
@@ -342,8 +390,8 @@ def run_case(case, int8: bool) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
     entry.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                  bound_bytes=nbytes, bound_flops=flops)
-    say(f"kernel {walk:8s} {name:28s} bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}, "
-        f"{nbytes} B)")
+    say(f"kernel {walk:8s} {name:32s} n_split {n_split:2d} bound {entry['bound_ms']:.5f} ms "
+        f"({entry['bound_by']}, {nbytes} B)")
     return entry
 
 
@@ -406,10 +454,13 @@ def run_state_case(case, int8: bool) -> dict:
 
     name, dtype_name, H, H_kv, d, P, sp, max_pages, seq_lens, n_layers = case
     P_local = P // sp
+    if seq_lens == SPLIT_BOUNDARIES:
+        seq_lens = _boundary_lens(8, H_kv, P_local, P, max_pages)
     walk = "int8" if int8 else dtype_name
     dev = torch.device("cuda")
     dtype = getattr(torch, dtype_name)
     S = len(seq_lens)
+    n_split = _split_plan(S, H_kv, P_local, max_pages)[0]
     tables, num_pages = _tables(seq_lens, P, max_pages)
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -445,7 +496,8 @@ def run_state_case(case, int8: bool) -> dict:
     tol = MAX_BF16_ERR if dtype == torch.bfloat16 else MAX_F32_ERR
     entry = {"case": name, "walk": walk, "dtype": dtype_name, "S": S, "H": H, "H_kv": H_kv,
              "d": d, "P": P, "P_local": P_local, "sp": sp, "max_pages": max_pages,
-             "seq_lens": seq_lens, "state_tol": MAX_STATE_ERR, "merge_tol": tol}
+             "seq_lens": seq_lens, "state_tol": MAX_STATE_ERR, "merge_tol": tol,
+             "n_split": n_split}
     states, err = [], 0.0
     for r in range(sp):
         got = state(0, r)
@@ -528,7 +580,8 @@ def run_state_case(case, int8: bool) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
     entry.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                  bound_bytes=nbytes, bound_flops=flops, rank0_rows=rows)
-    say(f"state  {walk:8s} {name:32s} state err {err:.3e} (tol {MAX_STATE_ERR}) merged vs whole "
+    say(f"state  {walk:8s} {name:34s} n_split {n_split:2d} state err {err:.3e} "
+        f"(tol {MAX_STATE_ERR}) merged vs whole "
         f"{merge_err:.3e} (tol {tol}) kernel {entry['kernel_ms']:.4f} ms plain "
         f"{entry['plain_ms']:.4f} ms library {entry['library_ms']:.4f} ms bound "
         f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}, {nbytes} B)")
@@ -1192,6 +1245,9 @@ def main() -> int:
         say(f"  {lib}: {len(kernels)} kernels, registers {min(regs, default=0)}-"
             f"{max(regs, default=0)}, llama3-8b variant {main_regs}, spills "
             f"{spills if spills else 'none'}")
+        main_spills = {n: b for n, b in spills.items() if "nv_bfloat16" in n and "Li128ELi4E" in n}
+        if main_spills:
+            fail(f"{lib}: the llama3-8b variant spills: {main_spills}")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1240,6 +1296,7 @@ def main() -> int:
             "max_abs_err": max(c[f"{m}_max_abs_err"] for c in cases for m, _ in MODES),
             "ms": main_case["cache_plus_new_kernel_ms"],
             "kernel_ms": main_case["cache_plus_new_kernel_ms"],
+            "n_split": main_case["n_split"],
             "plain_ms": main_case["cache_plus_new_plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
@@ -1261,6 +1318,7 @@ def main() -> int:
             "launches": phase["ranks"][0]["state_launches"],
             "max_abs_err": max(max(c["state_max_err"], c["merge_max_abs_err"]) for c in cases),
             "ms": main_case["kernel_ms"],
+            "n_split": main_case["n_split"],
             "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],

@@ -168,3 +168,99 @@ def test_int8_engine_stats_served_and_cli_flags(monkeypatch):
     finally:
         server.shutdown()
         server.server_close()
+
+
+# -- refusals held against the reference -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def scripted():
+    """A front door over a scripted engine: what it serves or refuses is
+    decided before any generation, so no model is needed."""
+    eng = _ScriptedEngine("ok")
+    server, base = _serve(eng)
+    yield eng, base
+    server.shutdown()
+    server.server_close()
+
+
+@pytest.mark.parametrize("stream,status", [(True, 400), (False, 200), (None, 200)])
+def test_stream_true_is_refused_until_sse_is_ported(scripted, stream, status):
+    _eng, base = scripted
+    body = {"messages": [{"role": "user", "content": "hi"}]}
+    if stream is not None:
+        body["stream"] = stream
+    got, doc = _call(base, "/v1/chat/completions", body)
+    assert got == status
+    if status == 400:
+        assert "not yet supported" in doc["error"] and "stream" in doc["error"]
+    else:
+        assert doc["object"] == "chat.completion"
+
+
+def _reference_constrains(tool_names, tool_choice) -> bool:
+    """The reference front door's decision (``server/rest.py``'s
+    ``chat_completions``): normalize ``tool_choice`` as it does, then
+    constrain when ``forced_call_prefix`` forces a call or ``json_required``
+    holds."""
+    from agentcontrolplane_tpu.engine.client import forced_call_prefix
+    from agentcontrolplane_tpu.engine.tokenizer import ByteTokenizer
+    from agentcontrolplane_tpu.llmclient.base import Tool, ToolFunction
+
+    tools = [Tool(function=ToolFunction(name=n, description="", parameters={}))
+             for n in tool_names]
+    if isinstance(tool_choice, dict):
+        tool_choice = (tool_choice.get("function") or {}).get("name") or ""
+    tool_choice = str(tool_choice or "auto")
+    forced = forced_call_prefix(ByteTokenizer(), tools, tool_choice)
+    return bool(forced) or (tool_choice == "required" and bool(tools))
+
+
+TOOL_CHOICES = [
+    None, "auto", "none", "", "required", "Required", "get_weather", "search",
+    "not_offered", {"type": "function", "function": {"name": "get_weather"}},
+    {"type": "function", "function": {"name": "not_offered"}}, {"type": "function"},
+]
+
+
+@pytest.mark.parametrize("tool_names", [(), ("get_weather",), ("get_weather", "search")],
+                         ids=["no-tools", "one-tool", "two-tools"])
+@pytest.mark.parametrize("tool_choice", TOOL_CHOICES, ids=lambda c: json.dumps(c))
+def test_tool_choice_refused_exactly_where_the_reference_constrains(
+        scripted, tool_names, tool_choice):
+    """400 "not yet supported" where the reference would force a call or
+    require JSON; served unconstrained (200) everywhere else, as the
+    reference serves it."""
+    _eng, base = scripted
+    body = {"messages": [{"role": "user", "content": "weather?"}]}
+    if tool_names:
+        body["tools"] = [{"type": "function", "function": {"name": n}} for n in tool_names]
+    if tool_choice is not None:
+        body["tool_choice"] = tool_choice
+    status, doc = _call(base, "/v1/chat/completions", body)
+    if _reference_constrains(tool_names, tool_choice):
+        assert status == 400 and "not yet supported" in doc["error"]
+    else:
+        assert status == 200 and doc["object"] == "chat.completion"
+
+
+def test_tool_choice_table_covers_both_outcomes():
+    """The table above holds cases the reference constrains and cases it
+    serves unconstrained, with and without tools, so neither side of the
+    boundary goes untested."""
+    from agentcontrolplane_tpu_torch.engine.types import Tool as PortTool
+    from agentcontrolplane_tpu_torch.engine.types import ToolFunction as PortToolFunction
+    from agentcontrolplane_tpu_torch.server.rest import tool_choice_constrains
+
+    seen = set()
+    for names in [(), ("get_weather",), ("get_weather", "search")]:
+        tools = [PortTool(function=PortToolFunction(name=n, description="", parameters={}))
+                 for n in names]
+        for choice in TOOL_CHOICES:
+            want = _reference_constrains(names, choice)
+            norm = choice
+            if isinstance(norm, dict):
+                norm = (norm.get("function") or {}).get("name") or ""
+            assert tool_choice_constrains(tools, str(norm or "auto")) == want, (names, choice)
+            seen.add((bool(names), want))
+    assert seen == {(False, False), (True, False), (True, True)}
