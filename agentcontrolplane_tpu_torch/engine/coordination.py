@@ -35,7 +35,10 @@ from typing import Any
 
 
 def serialize_request(req) -> dict[str, Any]:
-    """_Request -> wire dict (tokens + sampling; futures stay rank-local)."""
+    """_Request -> wire dict: the tokens and the whole sampling dict
+    (``json_only`` and ``forced_prefix`` included, so every rank builds the
+    same JSON table and takes the same admission decisions). Futures and the
+    ``on_tokens`` / ``on_tool_call`` callbacks stay on the leader."""
     return {
         "rid": req.rid,
         "prompt": list(req.prompt),

@@ -18,6 +18,17 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   host reads the block's tokens once per block and commits them.
 - Pages are freed at finish and on cancel; queued requests past their
   deadline fail fast; ``max_queue`` sheds load.
+- **Constrained decoding** (``SamplingParams.json_only`` /
+  ``forced_prefix``): the forced prefix is prefilled with the prompt and
+  returned as part of the output; with ``json_only`` the JSON automaton's
+  token table (``engine/constrain.py``, built lazily, kept on the device at
+  the tokenizer's width) masks the logits before the sampler and advances
+  each lane's state after it, at the first token and at every decode step
+  (``ops/sampling.py``). A block with no constrained lane runs none of it.
+- **Streaming**: ``submit(on_tokens=)`` receives every commit of tokens
+  (the first token with the forced prefix, then each decode block), and
+  ``submit(on_tool_call=)`` each tool call the moment its braces close,
+  from an incremental ``toolparse.ToolStreamParser`` over the same commits.
 - **int8 serving** (the reference's knobs): ``quantize="int8"`` /
   ``quantize_weights`` serves int8 layer matrices (``ops/quant.py``), and
   ``quantize_kv`` an int8 page pool with f32 scale twins, walked by the
@@ -34,10 +45,10 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   frames. Sampling generators are seeded identically on every rank.
 
 Left out for now (each is in ROADMAP): preemption, the prefix cache,
-chunked prefill and the megastep, speculative decoding, parked slots,
-dedup, the host KV tier, the flight recorder and fault sites,
-multi-host, and constrained decoding (``json_only`` / ``forced_prefix``
-raise ``ValueError`` at submit).
+chunked prefill and the megastep, speculative decoding, parked slots
+(``submit(park=)``), fleet affinity and trace export (``affinity_key=``,
+``trace=``), dedup, the host KV tier, the flight recorder, the metrics
+registry and fault sites, and multi-host.
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ import threading
 import time
 import uuid
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -67,10 +78,12 @@ from ..models.llama import (
 )
 from ..ops.paged import TRASH_PAGE, PageAllocator
 from ..ops.quant import QUANTIZABLE, QuantizedTensor, quantize_stacked
-from ..ops.sampling import sample
+from ..ops.sampling import advance_constraint, constrain_logits, sample
 from ..parallel.mesh import ServingGroup, check_serving_config
+from .constrain import build_token_table
 from .coordination import FrameChannel, deserialize_request
 from .tokenizer import ByteTokenizer, Tokenizer
+from .toolparse import ToolStreamParser
 from .weights import random_params
 
 log = logging.getLogger("acp_torch.engine")
@@ -94,9 +107,15 @@ class SamplingParams:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
-    max_tokens: int = 512  # budget for SAMPLED tokens
-    json_only: bool = False  # constrained decoding: not ported yet
-    forced_prefix: tuple = ()  # teacher-forced prefix: not ported yet
+    max_tokens: int = 512  # budget for SAMPLED tokens (forced prefix is free)
+    # grammar-constrained decoding: force a structurally valid JSON object
+    # (engine/constrain.py); generation ends when the object closes
+    json_only: bool = False
+    # teacher-forced generation prefix (token ids): prefilled with the
+    # prompt, returned as part of the output, and — with json_only — the
+    # constraint automaton is seeded past it. This is how a forced
+    # tool_choice teacher-forces the '{"name": "X", "arguments": {' envelope
+    forced_prefix: tuple = ()
 
 
 @dataclass
@@ -121,6 +140,30 @@ class _Request:
     enqueued: float = field(default_factory=time.monotonic)
     deadline: Optional[float] = None  # absolute monotonic
     first_token_at: float = 0.0
+    # called from the ENGINE thread with each commit's new token ids (must
+    # not block; bridge to asyncio with call_soon_threadsafe)
+    on_tokens: Optional[callable] = None
+    # called from the ENGINE thread as (index, MessageToolCall) the moment a
+    # streamed tool call's braces close; set with tool_parser by submit
+    on_tool_call: Optional[callable] = None
+    tool_parser: Optional[ToolStreamParser] = None
+    # token ids whose text is still an incomplete UTF-8 sequence at a commit
+    detok_pending: list[int] = field(default_factory=list)
+    # (monotonic emit time, MessageToolCall) per streamed call; the same
+    # list is ``future.early_tool_calls``
+    early_calls: list = field(default_factory=list)
+    # completed when the request takes a slot (prefill starts); mirrored on
+    # future.admitted — a client's generation clock starts here, so queue
+    # wait does not eat its budget
+    admitted: Future = field(default_factory=Future)
+
+    def emit(self, tokens: list[int]) -> None:
+        if self.on_tokens is not None and tokens:
+            try:
+                self.on_tokens(tokens)
+            except Exception:  # a broken consumer must not kill the engine
+                log.exception("on_tokens failed; disabling for rid %s", self.rid)
+                self.on_tokens = None
 
 
 @dataclass
@@ -128,6 +171,7 @@ class _Slot:
     request: _Request
     generated: list[int] = field(default_factory=list)
     prompt_len: int = 0
+    prefix_len: int = 0  # leading forced tokens in ``generated``
     first_token_at: float = 0.0
 
 
@@ -272,6 +316,15 @@ class Engine:
         self._stop_tokens = torch.tensor(
             sorted(self.tokenizer.stop_tokens), dtype=torch.int64, device=self.device
         )
+        # the JSON constraint's token table, built at the first constrained
+        # request (_get_token_table); _token_table is published last
+        self._table_lock = threading.Lock()
+        self._token_table: Optional[torch.Tensor] = None
+        self._min_close: Optional[torch.Tensor] = None
+        self._token_table_np: Optional[np.ndarray] = None
+        self._table_start = 0
+        self.constraint_table_bytes = 0
+        self.constraint_table_build_s = 0.0
         self._init_kv_state()
         log.info("engine init: params + pages in %.1fs", time.monotonic() - t0)
 
@@ -296,6 +349,7 @@ class Engine:
         self.tokens_generated = 0
         self.table_uploads = 0
         self.sheds = 0
+        self.tool_calls_early = 0
 
     def _init_kv_state(self) -> None:
         """(Re)build the page pools and the host bookkeeping — shared by
@@ -319,6 +373,8 @@ class Engine:
         self._top_ks = np.zeros(self.max_slots, dtype=np.int64)
         self._top_ps = np.ones(self.max_slots, dtype=np.float32)
         self._budgets = np.zeros(self.max_slots, dtype=np.int32)
+        self._con_states = np.zeros(self.max_slots, dtype=np.int32)
+        self._constrained = np.zeros(self.max_slots, dtype=bool)
         # device-resident decode carry; re-uploaded from the mirrors only
         # when slot assignment changed (admission, finish, cancel)
         self._dev: Optional[dict] = None
@@ -390,21 +446,29 @@ class Engine:
         self,
         prompt: str | list[int],
         sampling: Optional[SamplingParams] = None,
+        on_tokens=None,
         timeout_s: Optional[float] = None,
+        on_tool_call=None,
     ) -> Future:
         """Thread-safe; returns a Future[GenerationResult]. ``timeout_s``
         fails the request fast (DeadlineExceededError) if it is still queued
-        when the deadline passes."""
+        when the deadline passes.
+
+        ``on_tokens`` receives each commit's new token ids from the engine
+        thread (the first token with any forced prefix, then every decode
+        block); ``on_tool_call`` is called there as ``(index,
+        MessageToolCall)`` the moment a streamed tool call's braces close,
+        and the calls are also on ``future.early_tool_calls``. Both must not
+        block, and neither changes what is generated.
+        ``future.admitted`` completes when the request takes a slot."""
         s = sampling or SamplingParams()
-        if s.json_only or s.forced_prefix:
-            raise ValueError(
-                "json_only / forced_prefix (constrained decoding) is not yet "
-                "supported by the torch engine"
-            )
         tokens = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
-        # keep the prompt's TAIL and leave room to generate
+        prefix_len = len(s.forced_prefix)
+        # keep the prompt's TAIL and leave room for the forced prefix and
+        # for generating (a context-filling prompt would otherwise truncate
+        # every forced tool call at once)
         reserve = min(s.max_tokens, max(1, self.max_ctx // 2))
-        budget = max(1, self.max_ctx - reserve)
+        budget = max(1, self.max_ctx - prefix_len - reserve)
         truncated = len(tokens) > budget
         if truncated:
             tokens = tokens[-budget:]
@@ -415,7 +479,13 @@ class Engine:
             future=Future(),
             truncated=truncated,
             deadline=(time.monotonic() + timeout_s) if timeout_s else None,
+            on_tokens=on_tokens,
+            on_tool_call=on_tool_call,
         )
+        if on_tool_call is not None:
+            req.tool_parser = ToolStreamParser()
+        req.future.early_tool_calls = req.early_calls  # type: ignore[attr-defined]
+        req.future.admitted = req.admitted  # type: ignore[attr-defined]
         req.future.rid = req.rid  # type: ignore[attr-defined]  # cancel() keys on it
         if self._follower:
             # a locally submitted request would break lockstep: followers
@@ -509,6 +579,11 @@ class Engine:
                 "page_size": self.page_size,
                 "table_uploads": self.table_uploads,
             },
+            # the JSON constraint's token table on the device (0 until the
+            # first constrained request builds it) and its host build time
+            "constraint_table_bytes": self.constraint_table_bytes,
+            "constraint_table_build_s": round(self.constraint_table_build_s, 4),
+            "tool_calls_early": self.tool_calls_early,
             "memory": {
                 # int8 KV cache: at a fixed byte budget the pool holds ~1.94x
                 # the tokens (head_dim 128)
@@ -657,10 +732,16 @@ class Engine:
         gone = {id(r) for r in expired}
         self._waiting = deque(r for r in self._waiting if id(r) not in gone)
 
+    @staticmethod
+    def _full_row(req: _Request) -> list[int]:
+        """The tokens a request prefills: prompt + teacher-forced prefix."""
+        return list(req.prompt) + list(req.sampling.forced_prefix)
+
     def _pages_needed(self, req: _Request) -> int:
-        """Pages for the whole generation: the prompt plus max_tokens,
-        capped at the context (decode never allocates)."""
-        rows = min(len(req.prompt) + req.sampling.max_tokens, self.max_ctx)
+        """Pages for the whole generation: the prompt, the forced prefix and
+        max_tokens, capped at the context (decode never allocates)."""
+        rows = min(len(req.prompt) + len(req.sampling.forced_prefix) + req.sampling.max_tokens,
+                   self.max_ctx)
         return -(-rows // self.page_size)
 
     def _fill_slots(self) -> bool:
@@ -670,7 +751,11 @@ class Engine:
             if not group:
                 break  # the head can't get pages yet; FIFO, it waits
             admitted = True
-            for _req, slot, pages in group:
+            for req, slot, pages in group:
+                # starts the client's generation clock; a caller that gave
+                # up may have cancelled the future already
+                with contextlib.suppress(InvalidStateError):
+                    req.admitted.set_result(True)
                 self._slot_pages[slot] = pages
                 self._block_tables[slot, :] = TRASH_PAGE
                 self._block_tables[slot, : len(pages)] = pages
@@ -684,6 +769,14 @@ class Engine:
         group: list[tuple[_Request, int, list[int]]] = []
         while self._waiting and len(group) < self.prefill_batch_max and self._free:
             req = self._waiting[0]
+            s = req.sampling
+            if s.json_only and s.forced_prefix and self._seed_con_state(s.forced_prefix) < 0:
+                # an illegal prefix can never complete: fail it up front (on
+                # every rank of a group alike: the decision reads only the
+                # request)
+                self._waiting.popleft()
+                req.future.set_exception(RuntimeError("forced_prefix is not a legal JSON prefix"))
+                continue
             need = self._pages_needed(req)
             if need > self._allocator.num_pages - 1:
                 # bigger than the whole pool: waiting would spin forever
@@ -705,12 +798,50 @@ class Engine:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _seed_con_state(self, prefix: Sequence[int]) -> int:
+        """Walk the token table over a forced prefix; -1 = illegal."""
+        self._get_token_table()
+        state = self._table_start
+        for tok in prefix:
+            if state < 0 or tok >= self._token_table_np.shape[1]:
+                return -1
+            state = int(self._token_table_np[state, tok])
+        return state
+
+    def _get_token_table(self) -> torch.Tensor:
+        """The JSON constraint's token table on the device, built at first
+        use under a lock; ``_token_table`` is assigned LAST, so a reader
+        keying on it never sees a half-built state. It stays at the
+        tokenizer's width (``ops/sampling.py`` forbids the logits past it),
+        int16, with no padding to the model's vocabulary."""
+        if self._token_table is None:
+            with self._table_lock:
+                if self._token_table is not None:
+                    return self._token_table
+                t0 = time.monotonic()
+                table = build_token_table(self.tokenizer)
+                build_s = time.monotonic() - t0
+                self._token_table_np = table.token_trans  # host walks (prefix seeding)
+                self._table_start = table.start_state
+                self._min_close = torch.from_numpy(table.min_close).to(self.device)
+                trans = torch.from_numpy(table.token_trans).to(self.device)
+                self.constraint_table_bytes = sum(
+                    t.numel() * t.element_size() for t in (trans, self._min_close))
+                self.constraint_table_build_s = build_s
+                self._token_table = trans  # LAST: publishes the rest
+                log.info("JSON constraint table: %d states x %d tokens, %d bytes on %s "
+                         "(built in %.1fs)", *table.token_trans.shape,
+                         self.constraint_table_bytes, self.device, build_s)
+        return self._token_table
+
     def _prefill_group(self, chunk: list[tuple[_Request, int, list[int]]]) -> None:
-        """One batched prefill for B reserved requests, then first-token
-        sampling and one host read of the sampled tokens."""
+        """One batched prefill of prompt + forced prefix for B reserved
+        requests, then first-token sampling (masked and advanced for
+        json_only lanes) and one host read of the results."""
         B = len(chunk)
         P = self.page_size
-        bucket = max(_next_bucket(len(r.prompt), self.prefill_buckets) for r, _, _ in chunk)
+        rows = [self._full_row(r) for r, _, _ in chunk]
+        bucket = max(_next_bucket(len(row), self.prefill_buckets) for row in rows)
         tokens = np.zeros((B, bucket), dtype=np.int64)
         lengths = np.zeros(B, dtype=np.int64)
         page_ids = np.full((B, bucket // P), TRASH_PAGE, dtype=np.int64)
@@ -718,10 +849,10 @@ class Engine:
         top_ks = np.zeros(B, dtype=np.int64)
         top_ps = np.ones(B, dtype=np.float32)
         for i, (req, _slot, pages) in enumerate(chunk):
-            plen = len(req.prompt)
-            tokens[i, :plen] = req.prompt
+            plen = len(rows[i])
+            tokens[i, :plen] = rows[i]
             lengths[i] = plen
-            n = -(-plen // P)  # prompt pages; the rest of the row is trash
+            n = -(-plen // P)  # row pages; the rest of the bucket is trash
             page_ids[i, :n] = pages[:n]
             s = req.sampling
             temps[i], top_ks[i], top_ps[i] = s.temperature, s.top_k, s.top_p
@@ -729,9 +860,32 @@ class Engine:
             self.params, self.cache, self._upload(tokens), self._upload(lengths),
             self._upload(page_ids), self.config, group=self.group,
         )
+        con_states = np.zeros(B, dtype=np.int32)
+        json_lanes = any(r.sampling.json_only for r, _, _ in chunk)
+        if json_lanes:
+            table = self._get_token_table()
+            constrained = np.zeros(B, dtype=bool)
+            budgets = np.zeros(B, dtype=np.int32)
+            for i, (req, _slot, _pages) in enumerate(chunk):
+                s = req.sampling
+                # 1 token now + decode capacity to the ctx edge
+                budgets[i] = min(s.max_tokens, 1 + max(0, self.max_ctx - 1 - len(rows[i])))
+                if s.json_only:
+                    constrained[i] = True
+                    con_states[i] = (self._seed_con_state(s.forced_prefix)
+                                     if s.forced_prefix else self._table_start)
+            dev_states, dev_constrained = self._upload(con_states), self._upload(constrained)
+            logits = constrain_logits(logits, table, dev_states, dev_constrained,
+                                      self._min_close, self._upload(budgets))
         firsts = sample(
             logits, self._gen, self._upload(temps), self._upload(top_ks), self._upload(top_ps)
-        ).cpu().numpy()
+        )
+        if json_lanes:  # one host read for the tokens and the states
+            states = advance_constraint(table, dev_states, dev_constrained, firsts)
+            both = torch.stack([firsts, states.to(firsts.dtype)]).cpu().numpy()
+            firsts, con_states = both[0], both[1].astype(np.int32)
+        else:
+            firsts = firsts.cpu().numpy()
         now = time.monotonic()
         self._state_dirty = True
         for i, (req, slot, _pages) in enumerate(chunk):
@@ -739,29 +893,36 @@ class Engine:
             first = int(firsts[i])
             if req.first_token_at == 0.0:
                 req.first_token_at = now
-            sl = _Slot(request=req, prompt_len=len(req.prompt), first_token_at=req.first_token_at)
+            sl = _Slot(request=req, prompt_len=len(req.prompt),
+                       prefix_len=len(s.forced_prefix), first_token_at=req.first_token_at)
+            sl.generated.extend(s.forced_prefix)
             sl.generated.append(first)
             self._slots[slot] = sl
-            self._seq_lens[slot] = len(req.prompt)
+            self._seq_lens[slot] = len(rows[i])
             self._last_tokens[slot] = first
             self._temps[slot] = s.temperature
             self._top_ks[slot] = s.top_k
             self._top_ps[slot] = s.top_p
-            if first in self.tokenizer.stop_tokens or len(sl.generated) >= s.max_tokens:
-                self._finish(slot, "stop" if first in self.tokenizer.stop_tokens else "length")
+            self._con_states[slot] = con_states[i]
+            self._constrained[slot] = s.json_only
+            stop = first in self.tokenizer.stop_tokens
+            self._stream(req, list(s.forced_prefix) + ([] if stop else [first]))
+            if stop or len(sl.generated) - sl.prefix_len >= s.max_tokens:
+                self._finish(slot, "stop" if stop else "length")
 
     def _slot_budget(self, slot: int, sl: _Slot) -> int:
         """Sampled tokens this slot may still emit: the smaller of its
         remaining max_tokens and the context edge."""
-        token_left = sl.request.sampling.max_tokens - len(sl.generated)
+        token_left = sl.request.sampling.max_tokens - (len(sl.generated) - sl.prefix_len)
         ctx_left = self.max_ctx - 1 - int(self._seq_lens[slot])
         return max(0, min(token_left, ctx_left))
 
     def _ensure_dev_state(self) -> dict:
         """The device-resident decode carry (tokens, seq_lens, budgets,
-        active) and its per-slot constants. Re-uploaded from the host
-        mirrors only when slot assignment changed; otherwise the previous
-        block's carry feeds the next block directly."""
+        active, and the constraint states when a lane is constrained) and
+        its per-slot constants. Re-uploaded from the host mirrors only when
+        slot assignment changed; otherwise the previous block's carry feeds
+        the next block directly."""
         if self._state_dirty or self._dev is None:
             max_active = max(self._slots) + 1
             W = next(w for w in self.width_buckets if w >= max_active)
@@ -769,6 +930,8 @@ class Engine:
             for slot, sl in self._slots.items():
                 active[slot] = True
                 self._budgets[slot] = self._slot_budget(slot, sl)
+            # host-side: a block with no constrained lane issues no mask op
+            constrained = bool(self._constrained[:W].any())
             self._dev = {
                 "W": W,
                 "tokens": self._upload(self._last_tokens[:W]),
@@ -779,7 +942,14 @@ class Engine:
                 "top_ks": self._upload(self._top_ks[:W]),
                 "top_ps": self._upload(self._top_ps[:W]),
                 "block_tables": self._upload(self._block_tables[:W]),
+                "constrained_any": constrained,
             }
+            if constrained:
+                self._dev.update(
+                    table=self._get_token_table(),
+                    con_states=self._upload(self._con_states[:W]),
+                    constrained=self._upload(self._constrained[:W]),
+                )
             self.table_uploads += 1
             self._state_dirty = False
         return self._dev
@@ -791,14 +961,21 @@ class Engine:
             return
         d = self._ensure_dev_state()
         tokens, seq_lens, budgets, active = d["tokens"], d["seq_lens"], d["budgets"], d["active"]
+        constrained = d["constrained_any"]
+        con_states = d.get("con_states")
         steps = []
         for _ in range(self.decode_block_size):
             self.cache, logits = decode_step_paged(
                 self.params, self.cache, tokens, seq_lens, d["block_tables"], active, self.config,
                 group=self.group,
             )
+            if constrained:
+                logits = constrain_logits(logits, d["table"], con_states, d["constrained"],
+                                          self._min_close, budgets)
             nxt = sample(logits, self._gen, d["temps"], d["top_ks"], d["top_ps"])
             nxt = torch.where(active, nxt, tokens)
+            if constrained:
+                con_states = advance_constraint(d["table"], con_states, d["constrained"], nxt)
             step = active.to(torch.int32)
             seq_lens = seq_lens + step
             budgets = budgets - step
@@ -811,7 +988,15 @@ class Engine:
             )
             tokens = nxt
             steps.append(nxt)
-        tok_block = torch.stack(steps).cpu().numpy()  # the block's one host read
+        if constrained:
+            # the block's one host read carries the automaton states too:
+            # the mirror must hold them for the next dirty upload
+            both = torch.stack([*steps, con_states.to(tokens.dtype)]).cpu().numpy()
+            tok_block = both[:-1]
+            self._con_states[: d["W"]] = both[-1]
+            d["con_states"] = con_states
+        else:
+            tok_block = torch.stack(steps).cpu().numpy()  # the block's one host read
         d.update(tokens=tokens, seq_lens=seq_lens, budgets=budgets, active=active)
         self.decode_steps += self.decode_block_size
         for slot, sl in list(self._slots.items()):
@@ -824,6 +1009,7 @@ class Engine:
         deactivated the lane, so host and device bookkeeping agree."""
         s = sl.request.sampling
         done = None
+        block_new: list[int] = []
         for tok in toks:
             tok = int(tok)
             self._seq_lens[slot] += 1
@@ -833,11 +1019,57 @@ class Engine:
             if tok in self.tokenizer.stop_tokens:
                 done = "stop"
                 break
-            if len(sl.generated) >= s.max_tokens or self._seq_lens[slot] + 1 >= self.max_ctx:
+            block_new.append(tok)
+            if (len(sl.generated) - sl.prefix_len >= s.max_tokens
+                    or self._seq_lens[slot] + 1 >= self.max_ctx):
                 done = "length"
                 break
+        self._stream(sl.request, block_new)
         if done is not None:
             self._finish(slot, done)
+
+    def _stream(self, req: _Request, tokens: list[int]) -> None:
+        """Commit newly sampled tokens to the caller (engine thread): the
+        raw ids to ``on_tokens``, and, with a tool parser, the decoded delta
+        to it, firing ``on_tool_call`` for every call whose braces closed.
+        Every path that emits tokens comes through here."""
+        req.emit(tokens)
+        if req.tool_parser is None or not tokens:
+            return
+        req.detok_pending.extend(tokens)
+        text = self.tokenizer.decode(req.detok_pending)
+        if text.endswith("\ufffd"):
+            return  # a multi-byte character cut at the commit: hold it
+        req.detok_pending.clear()
+        self._feed_tool_parser(req, text)
+
+    def _stream_flush(self, req: _Request) -> None:
+        """At generation end: feed any held-back text, so the parser has
+        consumed exactly the generated text."""
+        if req.tool_parser is None or not req.detok_pending:
+            return
+        text = self.tokenizer.decode(req.detok_pending)
+        req.detok_pending.clear()
+        self._feed_tool_parser(req, text)
+
+    def _feed_tool_parser(self, req: _Request, text: str) -> None:
+        try:
+            calls = req.tool_parser.feed(text)
+        except Exception:  # a broken parser must not kill the engine
+            log.exception("tool stream parser failed; disabling for rid %s", req.rid)
+            req.tool_parser = None
+            return
+        now = time.monotonic()
+        for tc in calls:
+            idx = len(req.early_calls)
+            req.early_calls.append((now, tc))
+            self.tool_calls_early += 1
+            if req.on_tool_call is not None:
+                try:
+                    req.on_tool_call(idx, tc)
+                except Exception:  # a broken consumer must not kill the engine
+                    log.exception("on_tool_call failed; disabling for rid %s", req.rid)
+                    req.on_tool_call = None
 
     def _apply_cancels(self) -> None:
         if not self._applied:
@@ -851,10 +1083,15 @@ class Engine:
         if sl is None:
             return
         req = sl.request
+        if reason in ("stop", "length"):
+            # a cancelled or drained request fires no late tool calls
+            self._stream_flush(req)
         self._state_dirty = True  # the lane must be re-uploaded inactive
         self._applied.discard(req.rid)
         self._seq_lens[slot] = 0
         self._last_tokens[slot] = 0
+        self._con_states[slot] = 0
+        self._constrained[slot] = False
         heapq.heappush(self._free, slot)
         self._allocator.free(self._slot_pages.pop(slot, []))
         self._block_tables[slot, :] = TRASH_PAGE

@@ -29,6 +29,7 @@ ROLE_HEADER = {"system": "system", "user": "user", "assistant": "assistant", "to
 class Tokenizer(Protocol):
     def encode(self, text: str) -> list[int]: ...
     def decode(self, tokens: Sequence[int]) -> str: ...
+    def token_bytes(self, token: int) -> bytes | None: ...
     @property
     def stop_tokens(self) -> set[int]: ...
     @property
@@ -82,6 +83,12 @@ class ByteTokenizer:
         if buf:
             parts.append(buf.decode("utf-8", errors="replace"))
         return "".join(parts)
+
+    def token_bytes(self, token: int) -> bytes | None:
+        """Byte expansion for grammar-constrained decoding (None = special)."""
+        if 0 <= token < 256:
+            return bytes([token])
+        return None
 
 
 TOOL_INSTRUCTIONS = """

@@ -1,7 +1,7 @@
-"""Tool-call extraction from generated text — a copy of the batch parser of
-the reference's ``engine/toolparse.py`` over the port's own message types.
-(The incremental ``ToolStreamParser`` belongs to overlapped tool execution,
-which the port does not have yet.)
+"""Tool-call extraction from generated text — a copy of the reference's
+``engine/toolparse.py`` over the port's own message types: the batch parser
+and the incremental ``ToolStreamParser`` that the engine feeds from every
+token commit (streamed tool calls, early dispatch).
 
 The wire convention taught in the system prompt is a bare JSON object
 ``{"name": ..., "arguments": {...}}`` per call. Parsing is defensive:
@@ -102,6 +102,115 @@ def parse_tool_calls(text: str) -> list[MessageToolCall]:
         if tc is not None:
             calls.append(tc)
     return calls
+
+
+class ToolStreamParser:
+    """Resumable incremental tool-call scanner for overlapped execution.
+
+    Consumes detokenized text deltas as the decode loop commits tokens
+    (``engine.py`` feeds it from the first-token commit, forced prefix
+    included, and from every decode block) and emits
+    each tool call the moment its closing brace lands — O(delta) per feed,
+    no full-text rescans.
+
+    Semantics are the balanced-brace scan of :func:`parse_tool_calls`
+    applied everywhere in the stream (fence markers are prose to this
+    scanner; the objects inside a fence are found by the brace walk
+    itself). ``<|python_tag|>`` never needs stripping here: the tag
+    contains no braces, so a call following it — even a tag split across
+    deltas — parses identically. For the wire convention the system prompt
+    teaches (bare JSON objects, optionally fenced), the emitted calls are
+    exactly ``parse_tool_calls``'s; callers that must be robust to
+    degenerate mixed fenced+bare output reconcile against the final batch
+    parse (as the SSE front door does, ``server/rest.py``).
+
+    Bounded buffering: only text inside a candidate object is retained
+    (prose is dropped as it streams); an object that never closes is
+    abandoned as prose once it exceeds ``max_object_bytes``.
+    """
+
+    def __init__(self, max_object_bytes: int = 65536):
+        self.max_object_bytes = max_object_bytes
+        self._buf: list[str] = []  # current candidate object, chunked
+        self._buf_len = 0
+        self._depth = 0
+        self._in_str = False
+        self._escape = False
+        self.emitted = 0  # calls emitted so far (stable indices)
+        self.dropped = 0  # candidate objects abandoned (overflow / bad JSON)
+
+    def _reset_candidate(self) -> None:
+        self._buf = []
+        self._buf_len = 0
+        self._depth = 0
+        self._in_str = False
+        self._escape = False
+
+    def feed(self, delta: str) -> list[MessageToolCall]:
+        """Consume one text delta; return the calls whose braces closed in
+        it (usually empty). State carries across feeds, so calls split at
+        any token/dispatch boundary — mid-string, mid-escape, mid-\\uXXXX —
+        assemble correctly."""
+        out: list[MessageToolCall] = []
+        i = 0
+        n = len(delta)
+        while i < n:
+            if self._depth == 0:
+                # outside any candidate: skip prose up to the next '{'
+                start = delta.find("{", i)
+                if start < 0:
+                    return out
+                i = start
+                self._buf = ["{"]
+                self._buf_len = 1
+                self._depth = 1
+                self._in_str = False
+                self._escape = False
+                i += 1
+                continue
+            # inside a candidate: scan this delta chunk char by char
+            j = i
+            while j < n:
+                ch = delta[j]
+                j += 1
+                if self._in_str:
+                    if self._escape:
+                        self._escape = False
+                    elif ch == "\\":
+                        self._escape = True
+                    elif ch == '"':
+                        self._in_str = False
+                    continue
+                if ch == '"':
+                    self._in_str = True
+                elif ch == "{":
+                    self._depth += 1
+                elif ch == "}":
+                    self._depth -= 1
+                    if self._depth == 0:
+                        break
+            self._buf.append(delta[i:j])
+            self._buf_len += j - i
+            i = j
+            if self._depth == 0:
+                src = "".join(self._buf)
+                self._reset_candidate()
+                tc = None
+                try:
+                    tc = _to_tool_call(json.loads(src))
+                except json.JSONDecodeError:
+                    pass
+                if tc is not None:
+                    self.emitted += 1
+                    out.append(tc)
+                else:
+                    self.dropped += 1
+            elif self._buf_len > self.max_object_bytes:
+                # never-closing brace: stop buffering, treat as prose. The
+                # remainder of the delta is rescanned for a fresh candidate.
+                self._reset_candidate()
+                self.dropped += 1
+        return out
 
 
 def to_message(text: str, allowed_tools: Optional[set[str]] = None) -> Message:

@@ -55,3 +55,16 @@ class Tool:
 
     function: ToolFunction
     type: str = "function"
+
+
+@dataclass
+class BaseConfig:
+    """Sampling parameters of an LLM — the fields of the reference's
+    ``api/resources.py::BaseConfig`` that the engine client reads (None =
+    the engine's default)."""
+
+    model: str = ""
+    temperature: Optional[float] = None
+    max_tokens: Optional[int] = None
+    top_p: Optional[float] = None
+    top_k: Optional[int] = None

@@ -1,4 +1,5 @@
-"""Token sampling: greedy / temperature / top-k / top-p, batched per slot.
+"""Token sampling: greedy / temperature / top-k / top-p, batched per slot,
+and the JSON-constraint masks around it.
 
 Mirrors ``agentcontrolplane_tpu/ops/sampling.py``: temperature 0 means
 greedy, all math is float32, and both masks come from a 32-step bisection
@@ -6,6 +7,14 @@ of a threshold instead of sorting the vocabulary. The bisections are the
 reference's step for step, so the top-k and top-p masks match it exactly;
 only the random draw differs (a ``torch.Generator`` instead of
 ``jax.random``), so temperature samples agree in distribution, not bits.
+
+``constrain_logits`` / ``advance_constraint`` are the reference's functions
+of the same names (``agentcontrolplane_tpu/engine/engine.py``), applied
+before and after :func:`sample` for lanes under a JSON constraint
+(``engine/constrain.py``). The reference pads the token table to the
+model's vocabulary with -1; here it keeps the tokenizer's width T and every
+logit at or past T is forbidden for a constrained lane, which gives the same
+masks.
 """
 
 from __future__ import annotations
@@ -14,6 +23,8 @@ import torch
 
 NEG_INF = -1e30
 _BISECT_ITERS = 32
+# calls of constrain_logits; a batch with no constrained lane makes none
+CONSTRAIN_CALLS = 0
 
 
 def _topk_threshold(logits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -80,3 +91,48 @@ def sample(
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     sampled = (logits / temp + gumbel).argmax(dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def constrain_logits(
+    logits: torch.Tensor,  # [S, V]
+    table: torch.Tensor,  # [n_states, T] int16: next state, or -1 (forbidden)
+    con_state: torch.Tensor,  # [S] automaton state per lane
+    constrained: torch.Tensor,  # [S] bool
+    min_close: torch.Tensor,  # [n_states] bytes from each state to DONE
+    budget: torch.Tensor,  # [S] sampled tokens left, this one included
+) -> torch.Tensor:
+    """float32 logits with every grammar-illegal token of a constrained
+    lane at -1e30. Tokens are further restricted to those whose next state
+    can still close the JSON within ``budget - 1``, so a constrained
+    generation completes inside its max_tokens; where no legal token can,
+    plain legality is kept rather than masking everything. A state index
+    outside the table is clipped into it, as the reference does."""
+    global CONSTRAIN_CALLS
+    CONSTRAIN_CALLS += 1
+    logits = logits.float()
+    n_states, T = table.shape
+    T = min(T, logits.shape[-1])
+    nxt = table[con_state.long().clamp(0, n_states - 1), :T]  # [S, T]
+    allowed = nxt >= 0
+    closable = min_close[nxt.long().clamp(0, min_close.shape[0] - 1)] <= (budget[:, None] - 1)
+    budget_allowed = allowed & closable
+    feasible = budget_allowed.any(dim=-1, keepdim=True)
+    allowed = torch.where(feasible, budget_allowed, allowed)
+    lanes = constrained[:, None]
+    head = torch.where(lanes & ~allowed, NEG_INF, logits[:, :T])
+    tail = torch.where(lanes, NEG_INF, logits[:, T:])  # past the table: -1 there
+    return torch.cat([head, tail], dim=-1)
+
+
+def advance_constraint(
+    table: torch.Tensor,  # [n_states, T] int16
+    con_state: torch.Tensor,  # [S]
+    constrained: torch.Tensor,  # [S] bool
+    toks: torch.Tensor,  # [S] sampled ids
+) -> torch.Tensor:
+    """Each constrained lane's state after its sampled token (-1 for a token
+    the grammar forbids, or one past the table); other lanes keep theirs."""
+    n_states, T = table.shape
+    nxt = table[con_state.long().clamp(0, n_states - 1), toks.long().clamp(0, T - 1)]
+    nxt = torch.where(toks < T, nxt.to(con_state.dtype), -1)
+    return torch.where(constrained, nxt, con_state)

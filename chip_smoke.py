@@ -43,10 +43,23 @@ without printing a result:
    mid-decode), with the walk's launch count equal to n_layers x decode
    steps and no launch of the other walk; then a greedy batch run twice
    must give identical tokens, and TTFT / decode rates and a profile;
+   then, on the bf16 engine, the constrained phase: eight concurrent
+   requests through the HTTP server (four ``response_format: json_object``,
+   one of them with 24 tokens, two forcing one of two offered tools, one
+   ``tool_choice: "required"``, and one ``stream: true`` forcing a tool),
+   every completion parsed (JSON, or a call to the forced tool), the stream
+   against the same body unstreamed in a repeat of the group, the walk's
+   launches equal to n_layers x decode steps; then the JSON table's bytes
+   and build time, ms per decode step with constrained lanes against
+   unconstrained ones over as many steps (medians of repeats), device ops
+   per step of each (a profile window each, less a window of the same
+   requests' prefill alone), the masks' own ops and time at the decode
+   shape, and a forced request's TTFT;
 6. parallel serving — llama3-8b over ``torch.distributed`` ranks (one
    process each, rank 0 behind HTTP, gloo when the ranks share one card):
-   tp=2 in bf16, then sp=2 x tp=2 in bf16 and with int8 weights + KV (12
-   tokens a request), one phase's ranks at a time. Every rank's stream of
+   tp=2 in bf16 (with one more request, forcing a tool call), then sp=2 x
+   tp=2 in bf16 and with int8 weights + KV (12 tokens a request), one
+   phase's ranks at a time. Every rank's stream of
    finished requests must be identical, every decode layer of every step
    must go through the expected walk (the state form on every sp rank),
    and the first-step logits must agree with the single card's for the
@@ -717,6 +730,39 @@ def _check_reply(status: int, doc: dict, max_tokens: int, what: str) -> int:
     return n
 
 
+def _post_sse(base: str, body: dict) -> tuple[int, list[str]]:
+    """POST a ``stream: true`` body: (status, every event's data)."""
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if r.headers.get("Content-Type") != "text/event-stream":
+                return r.status, []
+            raw = r.read().decode()
+            return r.status, [e[len("data: "):] for e in raw.split("\n\n")[:-1]]
+    except urllib.error.HTTPError as e:
+        return e.code, [e.read().decode()]
+
+
+def _forced_call(status: int, doc: dict, name: str) -> str:
+    """The arguments of the one tool call a forced reply must be, parsed by
+    the port's toolparse from the reply's call; raises ValueError."""
+    from agentcontrolplane_tpu_torch.engine.toolparse import parse_tool_calls
+
+    try:
+        choice = doc["choices"][0]
+        (call,) = choice["message"]["tool_calls"]
+        fn = call["function"]
+        (parsed,) = parse_tool_calls(json.dumps({"name": fn["name"],
+                                                 "arguments": json.loads(fn["arguments"])}))
+    except (KeyError, IndexError, TypeError, ValueError) as e:
+        raise ValueError(f"HTTP {status}: not one parseable tool call ({e!r}): {doc}") from None
+    if status != 200 or choice["finish_reason"] != "tool_calls" or parsed.function.name != name:
+        raise ValueError(f"HTTP {status}: not a call to {name}: {doc}")
+    return fn["arguments"]
+
+
 def profile_window(run, card: str, label: str = "") -> dict:
     """Device time by kernel over one serving run, from ``torch.profiler``'s
     CUDA activity, and the card's busy share: that device time over the
@@ -742,8 +788,12 @@ def profile_window(run, card: str, label: str = "") -> dict:
     )
     busy_ms = sum(ms for _, ms, _ in kernels)
     launches = sum(n for _, _, n in kernels)
+    raw_ops = _raw_device_ops(prof)  # device_ops()'s count of the same window
+    if raw_ops != launches:
+        say(f"profile {label}: {raw_ops} ops on the raw events against {launches}")
     doc = {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "decode_steps": steps,
+        "raw_device_ops": raw_ops,
         "busy_share": busy_ms / wall_ms,
         "device_ops_per_decode_step": launches / steps if steps else None,
         "top": [{"kernel": k[:120], "ms": ms, "count": n} for k, ms, n in kernels[:10]],
@@ -754,6 +804,29 @@ def profile_window(run, card: str, label: str = "") -> dict:
     for t in doc["top"]:
         say(f"  {t['ms']:9.3f} ms  x{t['count']:<6d} {t['kernel'][:90]}")
     return doc
+
+
+def _raw_device_ops(prof) -> int:
+    """Device ops (kernels and copies with device time) in a finished
+    ``torch.profiler`` window, counted on its raw events: the count
+    ``key_averages()`` gives, without building its event tree (tens of
+    seconds for a window of 50,000 kernels)."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0)
+
+
+def device_ops(run) -> tuple[int, object]:
+    """(device ops in one ``run()``, from ``torch.profiler``'s CUDA
+    activity; what ``run()`` returned)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    return _raw_device_ops(prof), out
 
 
 def _pool_bytes(cache: dict) -> int:
@@ -785,10 +858,11 @@ def weight_product_ms(params: dict, cfg, slots: int = 8) -> float:
         return graph_ms(step, 1, replays=5)
 
 
-def serving_phase(card: str, label: str, **engine_kw) -> dict:
+def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw) -> dict:
     """llama3-8b at full width behind the HTTP server. ``engine_kw`` picks
     the int8 knobs; with ``quantize_kv`` the int8 walk must serve every
-    decode layer, otherwise the f32/bf16 walk."""
+    decode layer, otherwise the f32/bf16 walk. ``constrained`` runs the
+    constrained phase on the same engine after the timed window."""
     import torch
 
     from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
@@ -908,11 +982,289 @@ def serving_phase(card: str, label: str, **engine_kw) -> dict:
                 f"{p['decode_tokens_per_s']:.1f} decode tokens/s  [{card}]")
         perf["profile"] = profile_window(lambda: batch(8, 32), card, label)
         perf["first_step_logits"] = ref_logits
+        if constrained:
+            perf["constrained"] = constrained_phase(engine, base, card, perf["profile"])
         return perf
     finally:
         server.shutdown()
         server.server_close()
         engine.stop()
+
+
+# -- constrained phase ---------------------------------------------------
+
+TOOLS = [
+    {"type": "function", "function": {
+        "name": "get_weather", "description": "Current weather for a city.",
+        "parameters": {"type": "object", "properties": {"city": {"type": "string"}},
+                       "required": ["city"]}}},
+    {"type": "function", "function": {
+        "name": "search_docs", "description": "Search the team's runbooks.",
+        "parameters": {"type": "object", "properties": {"query": {"type": "string"}}}}},
+]
+TIMING_REPEATS = 5
+
+
+def _force(name: str) -> dict:
+    return {"type": "function", "function": {"name": name}}
+
+
+def _constrained_bodies() -> list[tuple[str, dict]]:
+    """The constrained phase's eight requests, labelled."""
+    def body(i, max_tokens=48, **extra):
+        return {"model": "llama3-8b", "max_tokens": max_tokens, **extra,
+                "messages": [{"role": "system", "content": "You are a helpful agent."},
+                             {"role": "user", "content": f"Request {i}: check the weather in "
+                                                         "Paris, then plan the next step."}]}
+    out = [(f"json-{i}", body(i, 24 if i == 0 else 48, response_format={"type": "json_object"}))
+           for i in range(4)]
+    out += [(f"forced-{n}", body(4 + k, tools=TOOLS, tool_choice=_force(n)))
+            for k, n in enumerate(("get_weather", "search_docs"))]
+    out.append(("required", body(6, tools=TOOLS, tool_choice="required")))
+    out.append(("stream", body(7, tools=TOOLS, tool_choice=_force("get_weather"), stream=True)))
+    return out
+
+
+def _sse_view(events: list[str]) -> dict:
+    """An OpenAI streaming client's view of an SSE reply: content, tool
+    calls accumulated by index, finish reason, usage."""
+    if not events or events[-1] != "[DONE]":
+        raise ValueError(f"the last event is not [DONE]: {events[-2:]}")
+    content, calls = "", {}
+    docs = [json.loads(e) for e in events[:-1]]
+    for d in docs:
+        if d.get("object") != "chat.completion.chunk":
+            raise ValueError(f"not a chunk: {d}")
+        delta = d["choices"][0]["delta"]
+        content += delta.get("content") or ""
+        for tc in delta.get("tool_calls") or []:
+            calls[tc["index"]] = (tc["function"]["name"], tc["function"]["arguments"])
+    return {"content": content, "calls": [calls[i] for i in sorted(calls)],
+            "finish": docs[-1]["choices"][0]["finish_reason"], "usage": docs[-1]["usage"]}
+
+
+def _reply_view(doc: dict) -> dict:
+    msg = doc["choices"][0]["message"]
+    return {"content": msg["content"] or "",
+            "calls": [(c["function"]["name"], c["function"]["arguments"])
+                      for c in msg.get("tool_calls") or []],
+            "finish": doc["choices"][0]["finish_reason"], "usage": doc["usage"]}
+
+
+def constrained_phase(engine, base: str, card: str, plain_profile: dict) -> dict:
+    """JSON-constrained decoding, forced tool calls and SSE on the bf16
+    llama3-8b engine (already serving at ``base``)."""
+    import statistics
+
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.client import forced_call_prefix
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+    from agentcontrolplane_tpu_torch.engine.types import Tool, ToolFunction
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+    from agentcontrolplane_tpu_torch.ops.sampling import advance_constraint, constrain_logits
+
+    cfg = engine.config
+    bodies = _constrained_bodies()
+    t_phase = time.monotonic()
+    parts = {}  # wall seconds of each part of this phase
+
+    def group(stream: bool) -> dict:
+        """The eight requests admitted as one group in a fixed order (each
+        queued before the next is sent): label -> (status, reply)."""
+        replies: dict = {}
+        threads = []
+        with engine.hold_admission():
+            for k, (name, body) in enumerate(bodies):
+                if not stream:
+                    body = {b: v for b, v in body.items() if b != "stream"}
+                post = _post_sse if body.get("stream") else _post
+                threads.append(threading.Thread(
+                    target=lambda n=name, b=body, f=post: replies.__setitem__(n, f(base, b))))
+                threads[-1].start()
+                deadline = time.monotonic() + 60
+                while engine.stats()["waiting"] < k + 1 and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                if engine.stats()["waiting"] < k + 1:
+                    fail(f"constrained: request {name} never reached the queue")
+        for t in threads:
+            t.join(timeout=600)
+        if len(replies) != len(bodies):
+            fail(f"constrained: {len(replies)} of {len(bodies)} replies arrived")
+        return replies
+
+    # the counted run: counts to 0 just before, read just after
+    pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+    steps0 = engine.decode_steps
+    t0 = time.monotonic()
+    first = group(stream=True)
+    wall_s = time.monotonic() - t0
+    launches, steps = pa.LAUNCHES, engine.decode_steps - steps0
+    if launches != cfg.n_layers * steps or steps == 0 or pa.INT8_LAUNCHES:
+        fail(f"constrained: {launches} walk launches ({pa.INT8_LAUNCHES} int8) for {steps} "
+             f"decode steps x {cfg.n_layers} layers")
+    views = {}
+    try:
+        for name, body in bodies:
+            status, reply = first[name]
+            if name == "stream":
+                if status != 200:
+                    fail(f"constrained: stream HTTP {status}: {reply}")
+                views[name] = _sse_view(reply)
+                (call,) = views[name]["calls"]
+                if call[0] != "get_weather" or views[name]["finish"] != "tool_calls":
+                    fail(f"constrained: the stream is not a call to get_weather: {views[name]}")
+                json.loads(call[1])
+                continue
+            if status != 200:
+                fail(f"constrained: {name} HTTP {status}: {reply}")
+            views[name] = view = _reply_view(reply)
+            if name.startswith("forced-"):
+                _forced_call(status, reply, name[len("forced-"):])
+            elif view["calls"]:  # a JSON object that is a call (to an offered tool)
+                for _, args in view["calls"]:
+                    json.loads(args)
+            elif not isinstance(json.loads(view["content"]), dict):
+                fail(f"constrained: {name} is not a JSON object: {view['content']!r}")
+            n = reply["usage"]["completion_tokens"]
+            if "tools" not in body and n > body["max_tokens"]:
+                fail(f"constrained: {name} took {n} tokens, max_tokens {body['max_tokens']}")
+    except ValueError as e:
+        fail(f"constrained: {e}")
+    # the same group again, the stream's body unstreamed: the stream must
+    # carry exactly its reply, and every other reply must repeat
+    parts["first_group"] = wall_s
+    t0 = time.monotonic()
+    second = group(stream=False)
+    parts["second_group"] = time.monotonic() - t0
+    for name, _ in bodies:
+        again = _reply_view(second[name][1])
+        if name == "stream":
+            got = views["stream"]
+            if (got["calls"], got["content"], got["finish"], got["usage"]) != (
+                    again["calls"], again["content"], again["finish"], again["usage"]):
+                fail(f"constrained: the stream {got} differs from the unstreamed reply {again}")
+        elif again != views[name]:
+            fail(f"constrained: {name} changed on a repeat: {views[name]} then {again}")
+    stats = engine.stats()
+    table_bytes, build_s = stats["constraint_table_bytes"], stats["constraint_table_build_s"]
+    if not 0 < table_bytes < 8 * 2**20:
+        fail(f"constrained: the JSON table takes {table_bytes} bytes on the card")
+    if stats["active_slots"] or stats["kv_pages"]["free"] != engine.num_pages - 1:
+        fail(f"constrained: pages or slots not released: {stats}")
+    say(f"constrained: 8 concurrent requests OK in {wall_s:.2f} s (4 json_object, one of 24 "
+        f"tokens; 2 forced tools; 1 required; 1 SSE stream = its unstreamed reply, last event "
+        f"[DONE]); walk launches {launches} = {cfg.n_layers} x {steps} decode steps; JSON table "
+        f"{table_bytes} B on the card, built in {build_s:.2f} s  [{card}]")
+
+    def batch(json_only: bool, n: int = 8, max_tokens: int = 32):
+        with engine.hold_admission():
+            futs = [engine.submit(f"Task {i}: summarize the incident report as JSON.",
+                                  SamplingParams(max_tokens=max_tokens, json_only=json_only))
+                    for i in range(n)]
+            s0 = engine.decode_steps
+        res = [f.result(timeout=600) for f in futs]
+        return res, engine.decode_steps - s0
+
+    def row(res, nsteps):
+        decode_ms = max(r.latency_ms for r in res) - max(r.ttft_ms for r in res)
+        return {"ms_per_decode_step": decode_ms / nsteps, "decode_steps": nsteps,
+                "tokens": sum(len(r.tokens) for r in res)}
+
+    # the constrained lanes close their objects early (data-dependent), so
+    # each unconstrained run is given the same number of decode steps
+    t0 = time.monotonic()
+    rows = {False: [], True: []}
+    for _ in range(TIMING_REPEATS):
+        res, nsteps = batch(True)
+        rows[True].append(row(res, nsteps))
+        rows[False].append(row(*batch(False, max_tokens=nsteps + 1)))
+    timing = {}
+    for json_only, label in ((False, "unconstrained"), (True, "constrained")):
+        ms = [r["ms_per_decode_step"] for r in rows[json_only]]
+        timing[label] = {"median_ms_per_decode_step": statistics.median(ms),
+                         "runs": rows[json_only]}
+    say(f"constrained: ms per decode step at 8 slots, median of {TIMING_REPEATS}: constrained "
+        f"{timing['constrained']['median_ms_per_decode_step']:.2f} (runs "
+        f"{[round(r['ms_per_decode_step'], 2) for r in rows[True]]}, steps "
+        f"{[r['decode_steps'] for r in rows[True]]}) vs unconstrained "
+        f"{timing['unconstrained']['median_ms_per_decode_step']:.2f} (runs "
+        f"{[round(r['ms_per_decode_step'], 2) for r in rows[False]]}, steps "
+        f"{[r['decode_steps'] for r in rows[False]]})  [{card}]")
+    parts["timing"] = time.monotonic() - t0
+    # device ops per decode step over equal step counts: one profile window
+    # of the 8 requests constrained (max_tokens 32), then one of the same
+    # requests unconstrained given as many decode steps; a window of each
+    # with max_tokens 1 (prefill and first token only) gives the ops that
+    # are not decode steps
+    t0 = time.monotonic()
+    ops = {}
+    for json_only, label in ((True, "constrained"), (False, "unconstrained")):
+        max_tokens = 32 if json_only else ops["constrained"]["decode_steps"] + 1
+        whole, (_res, nsteps) = device_ops(lambda j=json_only, m=max_tokens: batch(j,
+                                                                                 max_tokens=m))
+        prefill, _ = device_ops(lambda j=json_only: batch(j, max_tokens=1))
+        ops[label] = {"window_ops": whole, "prefill_window_ops": prefill, "decode_steps": nsteps,
+                      "raw_per_decode_step": whole / nsteps,
+                      "per_decode_step": (whole - prefill) / nsteps}
+    if ops["constrained"]["decode_steps"] != ops["unconstrained"]["decode_steps"]:
+        fail(f"constrained: the ops windows ran {ops['constrained']['decode_steps']} and "
+             f"{ops['unconstrained']['decode_steps']} decode steps, not as many")
+    parts["ops_windows"] = time.monotonic() - t0
+    # the masks alone at this decode shape (8 lanes, every lane constrained):
+    # device time per step from a CUDA graph, the host's rate issuing them
+    # eagerly, and their device ops
+    dev = engine.device
+    g = torch.Generator(device=dev).manual_seed(2)
+    table, min_close = engine._get_token_table(), engine._min_close
+    logits = torch.randn(8, cfg.vocab_size, generator=g, device=dev)
+    states = torch.randint(0, table.shape[0], (8,), generator=g, device=dev, dtype=torch.int32)
+    toks = torch.randint(0, table.shape[1], (8,), generator=g, device=dev)
+    lanes = torch.ones(8, dtype=torch.bool, device=dev)
+    budgets = torch.full((8,), 16, dtype=torch.int32, device=dev)
+
+    def masks(_i=0):
+        constrain_logits(logits, table, states, lanes, min_close, budgets)
+        return advance_constraint(table, states, lanes, toks)
+
+    t0 = time.monotonic()
+    mask = {"device_ms": graph_ms(masks, 16), "eager_ms": cuda_ms(masks, 100),
+            "device_ops": device_ops(masks)[0]}
+    parts["masks"] = time.monotonic() - t0
+    con, unc = ops["constrained"], ops["unconstrained"]
+    say(f"constrained: device ops per decode step {con['per_decode_step']:.1f} constrained vs "
+        f"{unc['per_decode_step']:.1f} unconstrained, +"
+        f"{con['per_decode_step'] - unc['per_decode_step']:.1f} (8 requests over "
+        f"{con['decode_steps']} decode steps each; a profile window of each less its "
+        f"max_tokens-1 window; whole windows {con['raw_per_decode_step']:.1f} / "
+        f"{unc['raw_per_decode_step']:.1f} per step, the serving phase's "
+        f"{plain_profile.get('device_ops_per_decode_step')} over 32 steps); the masks "
+        f"alone at 8 x {cfg.vocab_size}: {mask['device_ops']} ops, "
+        f"{mask['device_ms']:.4f} ms of device time (CUDA graph), {mask['eager_ms']:.4f} ms a "
+        f"step issued eagerly  [{card}]")
+    # TTFT needs the first token only: max_tokens 1 (the forced envelope is
+    # not counted in it), so no decode step is paid for
+    t0 = time.monotonic()
+    tool = Tool(function=ToolFunction(name="get_weather"))
+    forced = SamplingParams(max_tokens=1, json_only=True, forced_prefix=forced_call_prefix(
+        engine.tokenizer, [tool], "get_weather"))
+    prompt = "Request 8: check the weather in Paris, then plan the next step."
+    ttft = {}
+    for label, sp in (("forced", forced), ("plain", SamplingParams(max_tokens=1))):
+        ttft[label] = statistics.median(engine.generate(prompt, sp).ttft_ms
+                                        for _ in range(TIMING_REPEATS))
+    parts["ttft"] = time.monotonic() - t0
+    say(f"constrained: TTFT of a forced tool call {ttft['forced']:.1f} ms vs {ttft['plain']:.1f} "
+        f"ms unforced, one request alone, median of {TIMING_REPEATS}  [{card}]")
+    phase_s = time.monotonic() - t_phase
+    say(f"constrained: phase wall {phase_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + f" s; the table build, {build_s:.2f} s, "
+        f"inside the first group)  [{card}]")
+    return {"card": card, "launches": launches, "decode_steps": steps, "wall_s": wall_s,
+            "phase_s": phase_s, "parts_s": parts,
+            "table_bytes": table_bytes, "table_build_s": build_s, "timing": timing,
+            "device_ops": ops, "masks": mask, "ttft_ms": ttft,
+            "replies": views}
 
 
 # -- parallel serving phases ---------------------------------------------
@@ -1010,12 +1362,13 @@ def collective_replay_ms(group, cfg, slots: int = 8, reps: int = 3) -> dict:
 
 
 def _serving_rank(label: str, tp: int, sp: int, max_tokens: int, engine_kw: dict,
-                  preset="llama3-8b") -> dict:
+                  preset="llama3-8b", forced_tool: bool = False) -> dict:
     """One rank of a parallel serving phase (a spawned process). Every rank
     builds its engine (its slices of llama3-8b from seed 0), computes the
     first-step logits, zeroes the walk counters just before its engine
     starts and reads them just after it stops. Rank 0 serves the HTTP
-    traffic; the others run the loop on its frames."""
+    traffic; the others run the loop on its frames. ``forced_tool`` adds a
+    request whose tool_choice forces a call to get_weather."""
     import torch
 
     from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
@@ -1078,6 +1431,11 @@ def _serving_rank(label: str, tp: int, sp: int, max_tokens: int, engine_kw: dict
                 raise RuntimeError(f"{len(replies)} of 5 replies arrived")
             doc["completion_tokens"] = [
                 _check_reply(*replies[k], max_tokens, f"{label} request {k}") for k in replies]
+            if forced_tool:  # raises in this rank when the reply is not the call
+                body = {"model": "llama3-8b", "max_tokens": max_tokens, "tools": TOOLS,
+                        "tool_choice": _force("get_weather"),
+                        "messages": [{"role": "user", "content": "Weather in Paris?"}]}
+                doc["forced_call"] = _forced_call(*_post(base, body), "get_weather")
 
             def batch(n):
                 with engine.hold_admission():
@@ -1119,7 +1477,8 @@ def _serving_rank(label: str, tp: int, sp: int, max_tokens: int, engine_kw: dict
 
 
 def parallel_serving_phase(card: str, label: str, tp: int, sp: int, ref_logits,
-                           max_tokens: int = 32, preset="llama3-8b", **engine_kw) -> dict:
+                           max_tokens: int = 32, preset="llama3-8b", forced_tool: bool = False,
+                           **engine_kw) -> dict:
     """llama3-8b served over tp x sp ranks sharing this machine's card(s),
     behind rank 0's HTTP server. Checks: every rank's stream of finished
     requests identical, pages released, greedy repeats identical, every
@@ -1134,7 +1493,8 @@ def parallel_serving_phase(card: str, label: str, tp: int, sp: int, ref_logits,
     t0 = time.monotonic()
     try:
         ranks = run_ranks(_serving_rank, world,
-                          args=(label, tp, sp, max_tokens, engine_kw, preset), timeout_s=600)
+                          args=(label, tp, sp, max_tokens, engine_kw, preset, forced_tool),
+                          timeout_s=600)
     except RuntimeError as e:
         fail(f"parallel {label}: {e}")
     wall_s = time.monotonic() - t0
@@ -1169,6 +1529,9 @@ def parallel_serving_phase(card: str, label: str, tp: int, sp: int, ref_logits,
     if not torch.isfinite(lg).all() or rel > MAX_LOGIT_REL_L2:
         fail(f"parallel {label}: first-step logits vs one card: relative L2 {rel:.3e} > "
              f"{MAX_LOGIT_REL_L2} (max |d| {max_abs:.3e})")
+    if forced_tool:
+        say(f"parallel {label}: a forced tool_choice request answered get_weather("
+            f"{lead['forced_call']}), its stream identical on every rank  [{card}]")
     b, c = lead["batch4"], lead["collectives"]
     model = preset if isinstance(preset, str) else f"a {preset.dim}-wide model"
     say(f"parallel {label} ({shared}, backend {lead['backend']}): {world} ranks x {model}, "
@@ -1251,17 +1614,28 @@ def main() -> int:
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    kernels = kernel_phase()
+    walls = {"build": build_s}  # wall seconds of each phase
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.monotonic()
+        out = fn(*args, **kw)
+        walls[name] = time.monotonic() - t0
+        return out
+
+    kernels = timed("kernels", kernel_phase)
     if kernels_only:
         (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(
             {"card": card, "build_s": build_s, "ptxas": ptxas, "kernels": kernels}, indent=1))
         say(f"kernels only: {time.monotonic() - t_start:.1f} s  [{card}]")
         return 0
-    model = model_phase()
-    perf = serving_phase(card, "bf16")
+    model = timed("model", model_phase)
+    perf = timed("serving_bf16", serving_phase, card, "bf16", constrained=True)
+    walls["constrained"] = perf["constrained"]["phase_s"]
+    walls["serving_bf16"] -= walls["constrained"]
     gc.collect()
     torch.cuda.empty_cache()
-    perf_int8 = serving_phase(card, "int8", quantize_weights=True, quantize_kv=True)
+    perf_int8 = timed("serving_int8", serving_phase, card, "int8", quantize_weights=True,
+                      quantize_kv=True)
     say(f"serving int8 vs bf16: weights {perf_int8['weight_bytes'] / 1e9:.3f} / "
         f"{perf['weight_bytes'] / 1e9:.3f} GB, KV pool {perf_int8['pool_bytes'] / 1e9:.3f} / "
         f"{perf['pool_bytes'] / 1e9:.3f} GB for {perf['num_pages']} pages  [{card}]")
@@ -1270,11 +1644,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # one phase's ranks at a time; each rank holds its slices only
     par = {
-        "tp2_bf16": parallel_serving_phase(card, "tp2-bf16", 2, 1, ref_bf16),
-        "sp2xtp2_bf16": parallel_serving_phase(card, "sp2xtp2-bf16", 2, 2, ref_bf16),
-        "sp2xtp2_int8": parallel_serving_phase(card, "sp2xtp2-int8", 2, 2, ref_int8,
-                                               max_tokens=12, quantize_weights=True,
-                                               quantize_kv=True),
+        "tp2_bf16": timed("tp2_bf16", parallel_serving_phase, card, "tp2-bf16", 2, 1, ref_bf16,
+                          forced_tool=True),
+        "sp2xtp2_bf16": timed("sp2xtp2_bf16", parallel_serving_phase, card, "sp2xtp2-bf16", 2, 2,
+                              ref_bf16),
+        "sp2xtp2_int8": timed("sp2xtp2_int8", parallel_serving_phase, card, "sp2xtp2-int8", 2, 2,
+                              ref_int8, max_tokens=12, quantize_weights=True, quantize_kv=True),
     }
 
     docs = []
@@ -1327,7 +1702,10 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "ptxas": ptxas, "kernels": docs,
          "kernel_cases": kernels, "model": model, "serving": perf, "serving_int8": perf_int8,
-         "parallel": par, "seconds": time.monotonic() - t_start}, indent=1, default=str))
+         "parallel": par, "walls_s": walls, "seconds": time.monotonic() - t_start}, indent=1,
+        default=str))
+    say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + " s (serving_bf16 without the constrained phase)")
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

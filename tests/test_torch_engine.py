@@ -4,8 +4,8 @@ byte-identical for a concurrent batch (more requests than slots, a stop
 token mid-block and at the first token, max_tokens clipping, and a
 truncated prompt that runs into the context edge). Plus the engine's own
 contracts: pages recycled, FIFO backpressure when pages run out, cancel,
-deadlines, load shedding, refusal of constrained requests, and no silent
-CPU fallback."""
+deadlines, load shedding, the refusal of an illegal forced JSON prefix,
+and no silent CPU fallback."""
 
 import dataclasses
 import time
@@ -161,11 +161,17 @@ def test_deadline_and_queue_shedding():
 
 
 def test_constrained_requests_are_rejected(engines):
-    _, port = engines
-    with pytest.raises(ValueError, match="not yet supported"):
-        port.submit("x", SamplingParams(json_only=True))
-    with pytest.raises(ValueError, match="not yet supported"):
-        port.submit("x", SamplingParams(forced_prefix=(1, 2)))
+    """The refusal the reference keeps: a json_only request whose forced
+    prefix is not a legal JSON prefix fails at admission with "not a legal
+    JSON prefix", as the JAX engine's does; the engine serves on."""
+    jax_engine, port = engines
+    bad = tuple(port.tokenizer.encode('{"name": }'))
+    with pytest.raises(RuntimeError, match="not a legal JSON prefix"):
+        jax_engine.submit("x", JaxSampling(json_only=True, forced_prefix=bad)).result(timeout=120)
+    with pytest.raises(RuntimeError, match="not a legal JSON prefix"):
+        port.submit("x", SamplingParams(json_only=True, forced_prefix=bad)).result(timeout=120)
+    assert port.generate("x", SamplingParams(max_tokens=3)).finish_reason in ("stop", "length")
+    assert port.stats()["active_slots"] == 0
 
 
 def test_default_device_is_cuda_and_raises_without_it():

@@ -15,11 +15,13 @@ both walks against the JAX sharded wrappers (1e-5), ``decode_step_paged``
 logits against the reference's (2e-4, the bar of ``test_torch_model.py``)
 and its committed pools (1e-5), and greedy engine streams byte-identical
 across ranks, to the port on one card and to the JAX mesh engine, unquantized
-and with int8 weights + KV. Plus the reference's refusals of bad serving
+and with int8 weights + KV, a json_only request and a forced tool-call
+envelope among them. Plus the reference's refusals of bad serving
 configurations, and ``run_ranks``' hard timeout.
 """
 
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -29,13 +31,17 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from agentcontrolplane_tpu.engine import constrain as ref_constrain
 from agentcontrolplane_tpu.engine.engine import Engine as JaxEngine
 from agentcontrolplane_tpu.engine.engine import SamplingParams as JaxSampling
 from agentcontrolplane_tpu.engine.tokenizer import ByteTokenizer as JaxByteTokenizer
 from agentcontrolplane_tpu.models import llama as jl
 from agentcontrolplane_tpu.ops.pallas import paged_attention as jpa
 from agentcontrolplane_tpu.parallel.mesh import make_mesh
+from agentcontrolplane_tpu_torch.engine import constrain as port_constrain
+from agentcontrolplane_tpu_torch.engine import engine as port_engine_mod
 from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
+from agentcontrolplane_tpu_torch.engine.tokenizer import ByteTokenizer
 from agentcontrolplane_tpu_torch.engine.weights import params_from_jax
 from agentcontrolplane_tpu_torch.models import llama as tl
 from agentcontrolplane_tpu_torch.ops import paged as tpaged
@@ -56,6 +62,13 @@ EOT = 260  # ByteTokenizer's <|eot_id|>, a stop token
 # as tests/test_torch_engine.py: stops mid-decode and at the first token,
 # max_tokens clipping, a truncated prompt running into the context edge
 BATCH = [("json", 30), ("cat", 10), ("hello", 7), ("w" * 50, 40), ("qq", 12), ("tool time", 20)]
+# (prompt, sampling keywords): the batch above, plus a json_only request and
+# a forced tool-call envelope under the constraint
+WORKLOAD = [(p, {"max_tokens": m}) for p, m in BATCH] + [
+    ("json", {"max_tokens": 20, "json_only": True}),
+    ("tool time", {"max_tokens": 12, "json_only": True,
+                   "forced_prefix": tuple(b'{"name": "get_weather", "arguments": {')}),
+]
 
 # paged inputs: S=4 lanes, pages of 8 tokens, 2 KV heads of 8 query heads,
 # d=16. Lengths: 0 (nothing anywhere), 3 (all rows of sp rank 1 masked at
@@ -226,7 +239,7 @@ def inputs():
     tree = jax.tree_util.tree_map(np.array, jl.init_params(JCFG, jax.random.key(7)))
     return {
         "config": TCFG, "wrappers": _paged_inputs(4), "tree": tree,  # as jax_sharded
-        "decode": _decode_inputs(), "stream_tree": _stream_weights(), "batch": BATCH,
+        "decode": _decode_inputs(), "stream_tree": _stream_weights(), "batch": WORKLOAD,
         "engine_kw": ENGINE_KW,
     }
 
@@ -296,33 +309,45 @@ def single_card_streams(inputs):
     """quantized -> (the port on one card, the JAX mesh engines by world)."""
     weights = inputs["stream_tree"]
     out = {}
-    for quantized in (False, True):
-        port = Engine(TCFG, params_from_jax(weights, TCFG, device="cpu"), device="cpu",
-                      quantize_weights=quantized, quantize_kv=quantized, **ENGINE_KW)
-        port.start()
-        try:
-            with port.hold_admission():
-                futs = [port.submit(p, SamplingParams(max_tokens=m)) for p, m in BATCH]
-            mine = [(f.result(timeout=120).tokens, f.result().finish_reason) for f in futs]
-        finally:
-            port.stop()
-        jax_streams = {}
-        for world in WORLDS:
-            eng = JaxEngine(
-                config=JCFG, params=jax.tree_util.tree_map(jnp.asarray, weights),
-                tokenizer=JaxByteTokenizer(), mesh=_mesh(world), kv_layout="paged",
-                prefix_cache_entries=0, quantize_weights=quantized, quantize_kv=quantized,
-                **ENGINE_KW,
-            )
-            eng.start()
-            try:
-                futs = [eng.submit(p, JaxSampling(max_tokens=m)) for p, m in BATCH]
-                jax_streams[world] = [(f.result(timeout=300).tokens, f.result().finish_reason)
-                                      for f in futs]
-            finally:
-                eng.stop()
-        out[quantized] = (mine, jax_streams)
+    # every engine would build the same JSON token table: build it once a side
+    table = ref_constrain.build_token_table(JaxByteTokenizer())
+    port_table = port_constrain.build_token_table(ByteTokenizer())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_constrain, "build_token_table", lambda tokenizer, max_depth=8: table)
+        mp.setattr(port_engine_mod, "build_token_table",
+                   lambda tokenizer, max_depth=8: port_table)
+        for quantized in (False, True):
+            out[quantized] = _single_card_streams(weights, quantized)
     return out
+
+
+def _single_card_streams(weights, quantized: bool):
+    """(the port's greedy streams on one card, the JAX mesh engine's by world)."""
+    port = Engine(TCFG, params_from_jax(weights, TCFG, device="cpu"), device="cpu",
+                  quantize_weights=quantized, quantize_kv=quantized, **ENGINE_KW)
+    port.start()
+    try:
+        with port.hold_admission():
+            futs = [port.submit(p, SamplingParams(**kw)) for p, kw in WORKLOAD]
+        mine = [(f.result(timeout=120).tokens, f.result().finish_reason) for f in futs]
+    finally:
+        port.stop()
+    jax_streams = {}
+    for world in WORLDS:
+        eng = JaxEngine(
+            config=JCFG, params=jax.tree_util.tree_map(jnp.asarray, weights),
+            tokenizer=JaxByteTokenizer(), mesh=_mesh(world), kv_layout="paged",
+            prefix_cache_entries=0, quantize_weights=quantized, quantize_kv=quantized,
+            **ENGINE_KW,
+        )
+        eng.start()
+        try:
+            futs = [eng.submit(p, JaxSampling(**kw)) for p, kw in WORKLOAD]
+            jax_streams[world] = [(f.result(timeout=300).tokens, f.result().finish_reason)
+                                  for f in futs]
+        finally:
+            eng.stop()
+    return mine, jax_streams
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
@@ -335,6 +360,9 @@ def test_engine_streams_identical_across_ranks_single_card_and_jax(
     one_card, jax_streams = single_card_streams[quantized]
     assert leader == one_card
     assert leader == jax_streams[world]
+    for (_prompt, kw), (tokens, _reason) in zip(WORKLOAD, leader):
+        if kw.get("json_only"):  # the constrained requests complete as JSON
+            json.loads(ByteTokenizer().decode(tokens))
     reasons = [reason for _, reason in leader]
     assert "stop" in reasons and "length" in reasons
     for run in runs[1:]:

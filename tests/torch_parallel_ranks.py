@@ -70,9 +70,9 @@ def _decode(group, tree: dict, config, d: dict) -> dict:
 
 
 def _streams(group, tree: dict, config, batch, engine_kw: dict, quantized: bool) -> dict:
-    """A greedy batch through this rank's engine (submitted on rank 0, as
-    one admission group): the leader's results and every rank's record of
-    finished requests."""
+    """A greedy batch of (prompt, sampling keywords) through this rank's
+    engine (submitted on rank 0, as one admission group): the leader's
+    results and every rank's record of finished requests."""
     if quantized:  # int8 is applied to the whole model, then sliced
         params = shard_params(quantize_params(params_from_jax(tree, config, device="cpu")), group)
     else:
@@ -83,7 +83,7 @@ def _streams(group, tree: dict, config, batch, engine_kw: dict, quantized: bool)
     results = None
     if group.is_leader:
         with engine.hold_admission():
-            futs = [engine.submit(p, SamplingParams(max_tokens=m)) for p, m in batch]
+            futs = [engine.submit(p, SamplingParams(**kw)) for p, kw in batch]
         results = [(f.result(timeout=120).tokens, f.result().finish_reason) for f in futs]
         engine.stop()
     else:
