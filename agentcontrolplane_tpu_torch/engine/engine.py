@@ -79,7 +79,7 @@ from ..models.llama import (
 from ..ops.paged import TRASH_PAGE, PageAllocator
 from ..ops.quant import QUANTIZABLE, QuantizedTensor, quantize_stacked
 from ..ops.sampling import advance_constraint, constrain_logits, sample
-from ..parallel.mesh import ServingGroup, check_serving_config
+from ..parallel.mesh import ServingGroup, ServingMesh, check_serving_config
 from .constrain import build_token_table
 from .coordination import FrameChannel, deserialize_request
 from .tokenizer import ByteTokenizer, Tokenizer
@@ -267,6 +267,8 @@ class Engine:
         self.max_pages_per_seq = self.max_ctx // page_size
         self.num_pages = kv_pages or (max_slots * self.max_pages_per_seq + 1)
         self.group = group
+        # axis sizes, read by the LLM controller (``engine.mesh.shape``)
+        self.mesh = ServingMesh.of(group)
         # lockstep frame stream across the group's ranks (None on one rank)
         self._channel = (
             FrameChannel(group) if group is not None and group.world_size > 1 else None
@@ -346,6 +348,7 @@ class Engine:
         # finish order — what lockstep ranks must agree on
         self.finished: deque[tuple[str, tuple, str]] = deque(maxlen=4096)
         self.decode_steps = 0
+        self.requests_prefilled = 0
         self.tokens_generated = 0
         self.table_uploads = 0
         self.sheds = 0
@@ -553,7 +556,7 @@ class Engine:
                 "weight_bytes": self.weight_bytes,
             },
             "device": str(self.device),
-            "mesh": self.group.axes() if self.group is not None else {"tp": 1},
+            "mesh": dict(self.mesh.shape),
             # this rank's share: its weight slices and its slice of the pool
             "rank": {
                 "index": self.group.rank if self.group is not None else 0,
@@ -569,6 +572,7 @@ class Engine:
             "sheds": self.sheds,
             "decode_block_size": self.decode_block_size,
             "decode_steps": self.decode_steps,
+            "requests_prefilled": self.requests_prefilled,
             "tokens_generated": self.tokens_generated,
             "tokens_per_decode_step": (
                 round(self.tokens_generated / self.decode_steps, 4) if self.decode_steps else 0.0
@@ -888,6 +892,7 @@ class Engine:
             firsts = firsts.cpu().numpy()
         now = time.monotonic()
         self._state_dirty = True
+        self.requests_prefilled += B
         for i, (req, slot, _pages) in enumerate(chunk):
             s = req.sampling
             first = int(firsts[i])

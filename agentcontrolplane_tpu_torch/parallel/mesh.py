@@ -95,6 +95,20 @@ class ServingGroup:
         return box[0]
 
 
+@dataclass(frozen=True)
+class ServingMesh:
+    """``Engine.mesh``: the part of the reference's serving mesh
+    (``serving_mesh(...)``, a ``jax.sharding.Mesh``) that the control plane
+    reads. ``shape`` maps axis names to sizes, with the reference's keys for
+    the same tp and sp (``{"tp": 1}`` on one card)."""
+
+    shape: dict
+
+    @classmethod
+    def of(cls, group: Optional[ServingGroup]) -> "ServingMesh":
+        return cls(group.axes() if group is not None else {"tp": 1})
+
+
 def serving_group(tensor_parallelism: int = 0, context_parallelism: int = 1) -> ServingGroup:
     """The serving group of this process (``serving_mesh``, reference
     :46-86): ``context_parallelism`` x ``tensor_parallelism`` ranks over the

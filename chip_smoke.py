@@ -54,7 +54,18 @@ without printing a result:
    unconstrained ones over as many steps (medians of repeats), device ops
    per step of each (a profile window each, less a window of the same
    requests' prefill alone), the masks' own ops and time at the decode
-   shape, and a forced request's TTFT;
+   shape, and a forced request's TTFT; last, on each of the two engines,
+   the control-plane phase: JSON manifests (three ``provider: tpu`` LLMs
+   and two Agents) applied to a sqlite store, a Manager under a
+   LeaderElector (lease 2 s) running the LLM controller (a one-token probe
+   through the factory's client: a prefill on the card) and the Agent
+   controller through the elector's fenced store, until the LLM that fits
+   the engine is Ready, the tp=2 one (and on the bf16 engine the int8 one)
+   Error with the reference's message, and its Agents Ready and Pending;
+   every status write fenced, a stale fence refused, the store reopened
+   from its file with the same statuses and resource versions, then one
+   16-token chat through the factory-made client whose decode steps all
+   go through the engine's walk;
 6. parallel serving — llama3-8b over ``torch.distributed`` ranks (one
    process each, rank 0 behind HTTP, gloo when the ranks share one card):
    tp=2 in bf16 (with one more request, forcing a tool call), then sp=2 x
@@ -862,7 +873,8 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
     """llama3-8b at full width behind the HTTP server. ``engine_kw`` picks
     the int8 knobs; with ``quantize_kv`` the int8 walk must serve every
     decode layer, otherwise the f32/bf16 walk. ``constrained`` runs the
-    constrained phase on the same engine after the timed window."""
+    constrained phase on the same engine after the timed window; the
+    control-plane phase runs on it last."""
     import torch
 
     from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
@@ -984,6 +996,7 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
         perf["first_step_logits"] = ref_logits
         if constrained:
             perf["constrained"] = constrained_phase(engine, base, card, perf["profile"])
+        perf["control_plane"] = control_plane_phase(engine, card, label)
         return perf
     finally:
         server.shutdown()
@@ -1274,6 +1287,208 @@ FIRST_PROMPT = [300 + 7 * i for i in range(20)]
 # card's (partial products rounded to bf16, then summed in f32), so logits
 # agree to a few bf16 roundings per layer, not bit for bit
 MAX_LOGIT_REL_L2 = 5e-2
+
+
+# -- control-plane phase -------------------------------------------------
+
+# the applied manifests (JSON; camelCase as a user writes them)
+CONTROL_PLANE_MANIFEST = json.dumps([
+    {"kind": "LLM", "metadata": {"name": "l8b"}, "spec": {
+        "provider": "tpu", "parameters": {"model": "llama3-8b", "maxTokens": 16},
+        "tpu": {"preset": "llama3-8b", "tensorParallelism": 1}}},
+    {"kind": "LLM", "metadata": {"name": "needs-tp2"}, "spec": {
+        "provider": "tpu", "tpu": {"preset": "llama3-8b", "tensorParallelism": 2}}},
+    {"kind": "LLM", "metadata": {"name": "needs-int8"}, "spec": {
+        "provider": "tpu", "tpu": {"preset": "llama3-8b", "quantizeWeights": True}}},
+    {"kind": "Agent", "metadata": {"name": "a1"}, "spec": {
+        "llmRef": {"name": "l8b"}, "system": "You are a helpful agent."}},
+    {"kind": "Agent", "metadata": {"name": "a2"}, "spec": {
+        "llmRef": {"name": "needs-tp2"}, "system": "You are a helpful agent."}},
+])
+AGENT_REQUEUE_S = 0.5  # the Agent controller's wait for a pending LLM (default 5 s)
+
+
+class RecordingEngine:
+    """The engine as the control plane sees it, recording each request's
+    future (the probes' TTFT and count); everything else passes through."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self.futures: list = []
+
+    def submit(self, *args, **kw):
+        fut = self._engine.submit(*args, **kw)
+        self.futures.append(fut)
+        return fut
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+def control_plane_phase(engine, card: str, label: str) -> dict:
+    """The control plane over the running llama3-8b ``engine``: JSON
+    manifests applied to a sqlite store, a Manager under a LeaderElector
+    (lease 2 s) driving the LLM controller (1-token probe) and the Agent
+    controller through the elector's fenced store, every expected status
+    checked, the store reopened from its file, then one chat through the
+    factory-made client, which must run the walk."""
+    import asyncio
+    import tempfile
+
+    from agentcontrolplane_tpu_torch.api.manifests import apply_resources, load_manifests
+    from agentcontrolplane_tpu_torch.controllers import AgentReconciler, LLMReconciler
+    from agentcontrolplane_tpu_torch.engine.types import Message
+    from agentcontrolplane_tpu_torch.kernel import (
+        Conflict, FencedStore, LeaderElector, Manager, SqliteBackend, Store,
+    )
+    from agentcontrolplane_tpu_torch.llmclient.factory import DefaultLLMClientFactory
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    int8 = engine.quantize == "int8"
+    expected = {
+        ("LLM", "l8b"): ("Ready", "Provider validated"),
+        ("LLM", "needs-tp2"): (
+            "Error", "engine mesh tp=1 != spec tensorParallelism=2 (set acp-tpu run --tpu-tp)"),
+        ("LLM", "needs-int8"): ("Ready", "Provider validated") if int8 else (
+            "Error", "engine serves bf16 weights but spec requests quantizeWeights "
+                     "(set acp-tpu run --tpu-quantize-weights)"),
+        ("Agent", "a1"): ("Ready", "All dependencies validated"),
+        ("Agent", "a2"): ("Pending", 'LLM "needs-tp2" not ready'),
+    }
+
+    class CountingFencedStore(FencedStore):
+        """The reconcilers' store: every mutation carries the elector's
+        fence; status writes are counted."""
+
+        status_writes = 0
+
+        def update_status(self, obj):
+            out = super().update_status(obj)
+            self.status_writes += 1
+            return out
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = str(Path(tmp) / "control-plane.db")
+        recording = RecordingEngine(engine)
+        prefills0 = engine.stats()["requests_prefilled"]
+
+        async def run() -> dict:
+            store = Store(SqliteBackend(path))
+            mgr = Manager(store, identity=f"chip-smoke-{label}", leader_election=True)
+            mgr.elector = LeaderElector(store, mgr.identity, ttl=2.0, renew_interval=0.5)
+            fenced = CountingFencedStore(store, mgr.elector.fence)
+            mgr.add_controller("llm", "LLM", LLMReconciler(
+                fenced, mgr.recorder, DefaultLLMClientFactory(recording), probe=True))
+            mgr.add_controller("agent", "Agent", AgentReconciler(
+                fenced, mgr.recorder, requeue_delay=AGENT_REQUEUE_S))
+            watch = store.watch(["LLM", "Agent"])
+            await mgr.start()
+            await mgr.run_until(lambda: mgr.elector.is_leader, timeout=10)
+            t_apply = time.monotonic()
+            applied = apply_resources(store, load_manifests(CONTROL_PLANE_MANIFEST))
+            if [a for a, _ in applied] != ["created"] * 5:
+                fail(f"control plane {label}: apply gave {[a for a, _ in applied]}")
+            settled_at: dict = {}
+
+            def settled() -> bool:
+                for key, want in expected.items():
+                    st = store.get(*key).status
+                    if (st.status, st.status_detail) == want:
+                        settled_at.setdefault(key, time.monotonic() - t_apply)
+                    else:
+                        settled_at.pop(key, None)
+                return len(settled_at) == len(expected)
+
+            try:
+                await mgr.run_until(settled, timeout=120)
+            except TimeoutError:
+                got = {k: (store.get(*k).status.status, store.get(*k).status.status_detail)
+                       for k in expected}
+                fail(f"control plane {label}: statuses did not settle: {got}")
+            # quiet: no probe in flight (a Ready LLM's reconcile after its own
+            # status write probes once more), none started for 0.2 s
+            n_requests = -1
+            while n_requests != len(recording.futures):
+                n_requests = len(recording.futures)
+                await mgr.run_until(lambda: all(f.done() for f in recording.futures), timeout=60)
+                await asyncio.sleep(0.2)
+            # a fence of a later epoch than the elector's is refused
+            stale = {**mgr.elector.fence(), "epoch": mgr.elector.epoch + 1}
+            try:
+                store.update_status(store.get("LLM", "l8b"), fence=stale)
+                fail(f"control plane {label}: a write under a stale fence landed")
+            except Conflict:
+                pass
+            before = {k: (store.get(*k).status.model_dump(),
+                          store.get(*k).metadata.resource_version) for k in expected}
+            epoch = mgr.elector.epoch
+            await mgr.stop()
+            modified = []
+            while (ev := await watch.next(timeout=0.01)) is not None:
+                if ev.type == "MODIFIED":
+                    modified.append(ev.object.key)
+            watch.stop()
+            if fenced.status_writes != len(modified) or fenced.status_writes < len(expected):
+                fail(f"control plane {label}: {len(modified)} status writes landed, "
+                     f"{fenced.status_writes} under the elector's fence")
+            store.close()
+
+            t_reopen = time.monotonic()
+            reopened = Store(SqliteBackend(path))
+            after = {k: (reopened.get(*k).status.model_dump(),
+                         reopened.get(*k).metadata.resource_version) for k in expected}
+            reopen_ms = (time.monotonic() - t_reopen) * 1e3
+            if after != before:
+                fail(f"control plane {label}: statuses or resource versions changed across "
+                     f"the reopen: {before} -> {after}")
+            l8b = reopened.get("LLM", "l8b")
+            reopened.close()
+
+            # one chat through the factory-made client: decode through the walk
+            client = await DefaultLLMClientFactory(recording).create_client(l8b, "")
+            steps0 = engine.decode_steps
+            pa.LAUNCHES = 0
+            pa.INT8_LAUNCHES = 0
+            reply = await client.send_request(
+                [Message(role="system", content="You are a helpful agent."),
+                 Message(role="user", content="Plan the next step of the incident review.")],
+                [])
+            launches, int8_launches = pa.LAUNCHES, pa.INT8_LAUNCHES
+            steps = engine.decode_steps - steps0
+            return {"settled_ms": {f"{k[0]}/{k[1]}": v * 1e3 for k, v in settled_at.items()},
+                    "status_writes": fenced.status_writes, "epoch": epoch,
+                    "reopen_ms": reopen_ms, "reply": reply, "chat_steps": steps,
+                    "launches": launches, "int8_launches": int8_launches}
+
+        out = asyncio.run(run())
+    probes = recording.futures[:-1]  # the last request is the chat
+    probe_ttft = [f.result().ttft_ms for f in probes]
+    prefilled = engine.stats()["requests_prefilled"] - prefills0
+    n_ready_llms = sum(1 for k, (st, _) in expected.items() if k[0] == "LLM" and st == "Ready")
+    if len(probes) < n_ready_llms or prefilled != len(recording.futures):
+        fail(f"control plane {label}: {len(probes)} probes for {n_ready_llms} Ready LLMs, "
+             f"engine counted {prefilled} prefills for {len(recording.futures)} requests")
+    reply, steps = out.pop("reply"), out["chat_steps"]
+    walk = out["int8_launches"] if engine.quantize_kv else out["launches"] - out["int8_launches"]
+    other = out["launches"] - walk
+    if reply.role != "assistant" or steps == 0:
+        fail(f"control plane {label}: chat gave {reply!r} over {steps} decode steps")
+    if walk != engine.config.n_layers * steps or other:
+        fail(f"control plane {label}: {walk} walk launches (other walk {other}) for {steps} "
+             f"decode steps x {engine.config.n_layers} layers")
+    phase_s = time.monotonic() - t_phase
+    ms = out["settled_ms"]
+    say(f"control plane {label}: apply -> LLM l8b Ready {ms['LLM/l8b']:.1f} ms, -> Agent a1 "
+        f"Ready {ms['Agent/a1']:.1f} ms (Agent requeue {AGENT_REQUEUE_S} s); probe TTFT "
+        f"{probe_ttft[0]:.1f} ms ({len(probes)} probes); reopen {out['reopen_ms']:.2f} ms; "
+        f"{out['status_writes']} fenced status writes (epoch {out['epoch']}); chat "
+        f"{steps} decode steps, {walk} walk launches; phase {phase_s:.1f} s  [{card}]")
+    return {**out, "card": card, "probe_ttft_ms": probe_ttft, "probes": len(probes),
+            "requests_prefilled": prefilled, "walk_launches": walk,
+            "agent_requeue_s": AGENT_REQUEUE_S, "phase_s": phase_s}
 
 
 def first_step_logits(params, cfg, group, device, quantize_kv: bool = False):
@@ -1631,11 +1846,14 @@ def main() -> int:
     model = timed("model", model_phase)
     perf = timed("serving_bf16", serving_phase, card, "bf16", constrained=True)
     walls["constrained"] = perf["constrained"]["phase_s"]
-    walls["serving_bf16"] -= walls["constrained"]
+    walls["control_plane_bf16"] = perf["control_plane"]["phase_s"]
+    walls["serving_bf16"] -= walls["constrained"] + walls["control_plane_bf16"]
     gc.collect()
     torch.cuda.empty_cache()
     perf_int8 = timed("serving_int8", serving_phase, card, "int8", quantize_weights=True,
                       quantize_kv=True)
+    walls["control_plane_int8"] = perf_int8["control_plane"]["phase_s"]
+    walls["serving_int8"] -= walls["control_plane_int8"]
     say(f"serving int8 vs bf16: weights {perf_int8['weight_bytes'] / 1e9:.3f} / "
         f"{perf['weight_bytes'] / 1e9:.3f} GB, KV pool {perf_int8['pool_bytes'] / 1e9:.3f} / "
         f"{perf['pool_bytes'] / 1e9:.3f} GB for {perf['num_pages']} pages  [{card}]")
@@ -1705,7 +1923,7 @@ def main() -> int:
          "parallel": par, "walls_s": walls, "seconds": time.monotonic() - t_start}, indent=1,
         default=str))
     say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
-        + " s (serving_bf16 without the constrained phase)")
+        + " s (serving phases without the constrained and control-plane phases)")
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

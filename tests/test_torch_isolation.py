@@ -1,6 +1,7 @@
 """The torch port stands alone: no module of ``agentcontrolplane_tpu_torch``
 and not ``chip_smoke.py`` imports JAX, the JAX package, or a package the
-card's machine lacks (pydantic, aiohttp, safetensors, tokenizers). Nor does
+card's machine lacks (pydantic, aiohttp, httpx, yaml, safetensors,
+tokenizers). Nor does
 ``tests/torch_parallel_ranks.py``, which every spawned rank of the parallel
 tests re-imports."""
 
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {
-    "jax", "jaxlib", "agentcontrolplane_tpu", "pydantic", "aiohttp",
+    "jax", "jaxlib", "agentcontrolplane_tpu", "pydantic", "aiohttp", "httpx", "yaml",
     "safetensors", "tokenizers", "ml_dtypes",
 }
 FILES = sorted((ROOT / "agentcontrolplane_tpu_torch").rglob("*.py")) + [
@@ -47,10 +48,14 @@ def test_scan_covers_the_port_and_catches_offenders():
         "agentcontrolplane_tpu_torch/parallel/distributed.py",
         "agentcontrolplane_tpu_torch/parallel/mesh.py",
         "agentcontrolplane_tpu_torch/engine/coordination.py",
+        "agentcontrolplane_tpu_torch/kernel/store.py",
+        "agentcontrolplane_tpu_torch/controllers/llm.py",
+        "agentcontrolplane_tpu_torch/api/resources.py",
         "chip_smoke.py",
         "tests/torch_parallel_ranks.py",
     ):
         assert expected in names
     assert "jax" in _imports("def f():\n    from jax import numpy as jnp\n")
+    assert "yaml" in _imports("def load(text):\n    import yaml\n")
     assert "agentcontrolplane_tpu" in _imports("import agentcontrolplane_tpu.ops.paged\n")
     assert not _imports("from .engine import Engine\n")  # relative imports stay inside
