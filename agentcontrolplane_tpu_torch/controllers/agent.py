@@ -3,8 +3,7 @@ resolved set in its status, so the Task path never re-resolves them (the
 port's copy of the reference's ``controllers/agent.py``).
 
 It reads the LLM, MCPServer, ContactChannel and sub-Agent objects from the
-store. The MCPServer and ContactChannel controllers that make those ready
-are ROADMAP A.2(b) part 2.
+store; their own controllers make them ready.
 """
 
 from __future__ import annotations

@@ -54,10 +54,13 @@ class ToolFunction:
 
 @dataclass
 class Tool:
-    """An LLM-visible function tool."""
+    """An LLM-visible function tool. ``acp_tool_type`` is internal routing
+    metadata (MCP | HumanContact | DelegateToAgent), never sent to the
+    model."""
 
     function: ToolFunction
     type: str = "function"
+    acp_tool_type: str = "MCP"
 
 
 @dataclass(kw_only=True)

@@ -8,6 +8,7 @@ from .queue import WorkQueue
 from .runtime import LeaderElector, Manager, Reconciler, Result, map_owner
 from .store import (
     Backend, FencedStore, MemoryBackend, SqliteBackend, Store, Watch, WatchEvent,
+    wait_for,
 )
 from . import lease
 
@@ -15,5 +16,5 @@ __all__ = [
     "AlreadyExists", "Conflict", "Invalid", "NotFound", "StoreError",
     "EventRecorder", "WorkQueue", "LeaderElector", "Manager", "Reconciler",
     "Result", "map_owner", "Backend", "FencedStore", "MemoryBackend",
-    "SqliteBackend", "Store", "Watch", "WatchEvent", "lease",
+    "SqliteBackend", "Store", "Watch", "WatchEvent", "wait_for", "lease",
 ]

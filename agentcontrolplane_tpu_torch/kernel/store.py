@@ -475,6 +475,27 @@ class Watch:
             self._watcher.queue.put_nowait(self._SENTINEL)
 
 
+async def wait_for(
+    store: Store,
+    kind: str,
+    name: str,
+    namespace: str,
+    predicate: Callable[[Resource], bool],
+    timeout: float = 10.0,
+    poll: float = 0.02,
+) -> Resource:
+    """Poll until ``predicate(obj)`` holds; ``TimeoutError`` after
+    ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        obj = store.try_get(kind, name, namespace)
+        if obj is not None and predicate(obj):
+            return obj
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"timed out waiting for {kind} {namespace}/{name}")
+        await asyncio.sleep(poll)
+
+
 class FencedStore:
     """A Store view whose every MUTATION carries a fencing token read from
     ``fence_provider`` at call time (``None`` = not leader => immediate

@@ -65,7 +65,20 @@ without printing a result:
    every status write fenced, a stale fence refused, the store reopened
    from its file with the same statuses and resource versions, then one
    16-token chat through the factory-made client whose decode steps all
-   go through the engine's walk;
+   go through the engine's walk; then the operator phase: the port's
+   ``Operator`` over a sqlite store, with forced ``provider: tpu`` LLMs
+   (``tool_choice`` ``"required"`` or a tool's name), the MCP stdio echo
+   server (``tests/mcp/echo_server.py`` under a ``/bin/sh`` memory limit),
+   a ContactChannel on the local human backend and Agents using each; 8
+   Tasks at once (2 delegating, 2 MCP echo, 2 asking a human, 2 without
+   tools) whose turns run on the engine, each tool Task's first ToolCall
+   CR (early or at fan-out) executed to its terminal state and its result
+   joined to the Task's window, the human answered through the backend,
+   one delegation ToolCall applied directly running its child Task to
+   FinalAnswer, Task create -> first ToolCall CR (p50 and max per kind)
+   and the other checkpoints printed, every decode step through the walk;
+   new turns are stopped by holding the Tasks' ``task-llm`` leases before
+   the operator stops;
 6. parallel serving — llama3-8b over ``torch.distributed`` ranks (one
    process each, rank 0 behind HTTP, gloo when the ranks share one card):
    tp=2 in bf16 (with one more request, forcing a tool call), then sp=2 x
@@ -88,6 +101,7 @@ from __future__ import annotations
 
 import gc
 import json
+import statistics
 import subprocess
 import sys
 import threading
@@ -874,7 +888,7 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
     the int8 knobs; with ``quantize_kv`` the int8 walk must serve every
     decode layer, otherwise the f32/bf16 walk. ``constrained`` runs the
     constrained phase on the same engine after the timed window; the
-    control-plane phase runs on it last."""
+    control-plane phase and then the operator phase run on it last."""
     import torch
 
     from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
@@ -997,6 +1011,7 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
         if constrained:
             perf["constrained"] = constrained_phase(engine, base, card, perf["profile"])
         perf["control_plane"] = control_plane_phase(engine, card, label)
+        perf["operator"] = operator_phase(engine, card, label)
         return perf
     finally:
         server.shutdown()
@@ -1491,6 +1506,420 @@ def control_plane_phase(engine, card: str, label: str) -> dict:
             "agent_requeue_s": AGENT_REQUEUE_S, "phase_s": phase_s}
 
 
+# -- operator phase -------------------------------------------------------
+
+ECHO_SERVER = ROOT / "tests" / "mcp" / "echo_server.py"  # stdlib-only MCP stdio server
+
+
+def _llm_doc(name: str, tool_choice: str = "") -> dict:
+    spec = {"provider": "tpu", "parameters": {"model": "llama3-8b", "maxTokens": 32,
+                                              "temperature": 0},
+            "tpu": {"preset": "llama3-8b", "requestTimeoutSeconds": 120}}
+    if tool_choice:
+        spec["providerConfig"] = {"tool_choice": tool_choice}
+    return {"kind": "LLM", "metadata": {"name": name}, "spec": spec}
+
+
+def _agent_doc(name: str, llm: str, system: str, **deps) -> dict:
+    return {"kind": "Agent", "metadata": {"name": name},
+            "spec": {"llmRef": {"name": llm}, "system": system, **deps}}
+
+
+# the operator phase's manifests: forced tool calls as the reference's
+# provider: tpu end-to-end tests force them (required / a named tool)
+OPERATOR_MANIFEST = json.dumps([
+    {"kind": "Secret", "metadata": {"name": "hl-key"}, "spec": {"data": {"api-key": "local"}}},
+    {"kind": "ContactChannel", "metadata": {"name": "oncall"}, "spec": {
+        "type": "email", "apiKeyFrom": {"name": "hl-key", "key": "api-key"},
+        "email": {"address": "oncall@example.com", "contextAboutUser": "the on-call engineer"}}},
+    {"kind": "MCPServer", "metadata": {"name": "echo"}, "spec": {
+        "transport": "stdio", "command": sys.executable, "args": [str(ECHO_SERVER)],
+        "resources": {"limits": {"memory": "1Gi"}}}},
+    _llm_doc("l8b-delegate", "required"),
+    _llm_doc("l8b-ask", "oncall__human_contact_email"),
+    _llm_doc("l8b-echo", "echo__echo"),
+    _llm_doc("l8b-free"),
+    _agent_doc("leaf", "l8b-free", "Answer in one line.",
+               description="answers one question in one line"),
+    _agent_doc("delegator", "l8b-delegate", "Delegate the question.",
+               subAgents=[{"name": "leaf"}]),
+    _agent_doc("asker", "l8b-ask", "Ask the on-call engineer first.",
+               humanContactChannels=[{"name": "oncall"}]),
+    _agent_doc("echoer", "l8b-echo", "Use the echo tool.", mcpServers=[{"name": "echo"}]),
+    _agent_doc("plain", "l8b-free", "You are a helpful agent."),
+])
+OPERATOR_KINDS = {"delegate": "delegator", "echo": "echoer", "human": "asker", "plain": "plain"}
+HUMAN_ANSWER = "approved, proceed"
+TOOLCALL_POLL_S = 0.1  # the ToolCall controller's poll of a human / a child (default 5 s)
+
+
+def _ms_stats(values: list) -> dict:
+    vals = sorted(values)
+    return {"p50": statistics.median(vals), "max": vals[-1], "n": len(vals),
+            "values": vals} if vals else {}
+
+
+def operator_phase(engine, card: str, label: str) -> dict:
+    """The port's ``Operator`` over the running llama3-8b ``engine``: JSON
+    manifests (forced ``provider: tpu`` LLMs, an MCP stdio server, a
+    ContactChannel on the local human backend, Agents using each) applied
+    to its sqlite store, then 8 Tasks at once (2 delegating, 2 MCP echo, 2
+    asking a human, 2 without tools) and one delegation ToolCall applied
+    directly (the forced arguments of a random-weight model carry no
+    ``message`` for a child Task) to a Task whose window already holds the
+    assistant's call, so that the child's output joins that window. Every
+    Task's first turn must create its
+    first ToolCall CR (or reach FinalAnswer without tools), every ToolCall
+    must reach its terminal state with its result joined to the parent's
+    context window, and the decode steps must go through the engine's walk.
+    Then the phase stops new turns by holding every Task's ``task-llm``
+    lease, waits until the engine has no request in flight, and stops the
+    operator."""
+    import asyncio
+    import tempfile
+
+    from agentcontrolplane_tpu_torch.api.manifests import apply_resources, load_manifests
+    from agentcontrolplane_tpu_torch.api.resources import Task, ToolCall
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+    from agentcontrolplane_tpu_torch.kernel import lease
+    from agentcontrolplane_tpu_torch.operator import Operator, OperatorOptions
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    if not Path("/bin/sh").exists():
+        fail("operator: /bin/sh is missing (the MCP memory limit runs through it)")
+    int8_walk = engine.quantize_kv
+    max_bucket = engine.prefill_buckets[-1]
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        recording = RecordingEngine(engine)
+        prompts: list = []  # (prompt tokens, prompt text, wall time) of each request
+        submit = recording.submit
+
+        def submit_recording(prompt, *a, **kw):
+            prompts.append((len(engine.tokenizer.encode(prompt)), prompt, time.time()))
+            return submit(prompt, *a, **kw)
+
+        recording.submit = submit_recording
+
+        async def run() -> dict:
+            op = Operator(OperatorOptions(db_path=str(Path(tmp) / "operator.db"), llm_probe=True,
+                                          engine=recording, identity=f"chip-smoke-op-{label}"))
+            op.agent_reconciler.requeue_delay = AGENT_REQUEUE_S
+            op.toolcall_reconciler.poll_interval = TOOLCALL_POLL_S
+            store = op.store
+            await op.start()
+            try:
+                return await asyncio.wait_for(drive(op, store), 600)
+            finally:
+                await op.stop()
+
+        async def drive(op, store) -> dict:
+            t_apply = time.monotonic()
+            applied = apply_resources(store, load_manifests(OPERATOR_MANIFEST))
+            if any(a != "created" for a, _ in applied):
+                fail(f"operator {label}: apply gave {[a for a, _ in applied]}")
+            agents = [d["metadata"]["name"] for d in json.loads(OPERATOR_MANIFEST)
+                      if d["kind"] == "Agent"]
+            try:
+                await op.manager.run_until(
+                    lambda: all(store.get("Agent", a).status.ready for a in agents), timeout=180)
+            except TimeoutError:
+                fail(f"operator {label}: Agents not Ready: " + str(
+                    {a: store.get("Agent", a).status.status_detail for a in agents}))
+            ready_ms = (time.monotonic() - t_apply) * 1e3
+            # quiet: the LLM probes are done (none in flight for 0.2 s)
+            n_requests = -1
+            while n_requests != len(recording.futures):
+                n_requests = len(recording.futures)
+                await op.manager.run_until(lambda: all(f.done() for f in recording.futures),
+                                           timeout=120)
+                await asyncio.sleep(0.2)
+            probes = len(recording.futures)
+            # the JSON table is built at an engine's first constrained
+            # request (no prewarm yet, ROADMAP A.3): build it before the
+            # counted run, so no Task's first turn waits for it
+            t0 = time.monotonic()
+            await asyncio.to_thread(lambda: engine.submit(
+                "warm-up", SamplingParams(max_tokens=1, json_only=True)).result(timeout=120))
+            table_s = time.monotonic() - t0
+            n_prompts = len(prompts)
+
+            created: dict = {}  # task -> create time
+            seen: dict = {}  # (what, name) -> first time
+            watch = store.watch(["Task", "ToolCall"])
+            names = {f"t-{kind}-{i}": agent for kind, agent in OPERATOR_KINDS.items()
+                     for i in range(2)}
+            # the counted run: counts to 0 just before the Tasks are created
+            pa.LAUNCHES = 0
+            pa.INT8_LAUNCHES = 0
+            steps0 = engine.decode_steps
+            for name, agent in names.items():
+                store.create(Task.model_validate({"metadata": {"name": name}, "spec": {
+                    "agentRef": {"name": agent}, "userMessage": f"{name}: check the deploy."}}))
+                created[name] = time.monotonic()
+            # a parent whose last turn already asked for the delegation: the
+            # Task is created in ToolCallsPending with the assistant's call,
+            # and the ToolCall carries that turn's request id
+            direct_args = json.dumps({"message": "Summarize the deploy in one line."})
+            parent = store.create(Task.model_validate({
+                "metadata": {"name": "t-delegate-join"},
+                "spec": {"agentRef": {"name": "delegator"},
+                         "userMessage": "t-delegate-join: summarize the deploy."},
+                "status": {"phase": "ToolCallsPending", "status": "Ready",
+                           "toolCallRequestId": "direct0", "messageCount": 3,
+                           "contextWindow": [
+                               {"role": "system", "content": "Delegate the question."},
+                               {"role": "user", "content": "t-delegate-join: summarize the deploy."},
+                               {"role": "assistant", "toolCalls": [{
+                                   "id": "call_direct", "function": {
+                                       "name": "delegate_to_agent__leaf",
+                                       "arguments": direct_args}}]}]}}))
+            direct = store.create(ToolCall.model_validate({
+                "metadata": {"name": "direct-delegate",
+                             "labels": {"acp.tpu/task": parent.name,
+                                        "acp.tpu/toolcallrequest": "direct0"},
+                             "ownerReferences": [parent.owner_ref().model_dump()]},
+                "spec": {"toolCallId": "call_direct", "taskRef": {"name": parent.name},
+                         "toolRef": {"name": "delegate_to_agent__leaf"},
+                         "toolType": "DelegateToAgent", "arguments": direct_args}}))
+            created[direct.name] = time.monotonic()
+
+            def note(what: str, name: str) -> None:
+                seen.setdefault((what, name), time.monotonic())
+
+            def first_calls() -> dict:
+                out = {}
+                for tc in store.list("ToolCall"):
+                    task = tc.spec.task_ref.name
+                    if tc.name != direct.name and (
+                            task not in out or tc.metadata.creation_timestamp <
+                            out[task].metadata.creation_timestamp):
+                        out[task] = tc
+                return out
+
+            def done() -> bool:
+                firsts = first_calls()
+                for name in names:
+                    if name.startswith("t-plain"):
+                        if ("final", name) not in seen:
+                            return False
+                    elif name not in firsts or ("joined", name) not in seen:
+                        return False
+                return ("terminal", direct.name) in seen and ("joined", parent.name) in seen
+
+            async def observe() -> None:
+                while not done():
+                    ev = await watch.next(timeout=0.05)
+                    if ev is None:
+                        pass
+                    elif ev.object.kind == "ToolCall":
+                        tc = ev.object
+                        note("toolcall", tc.name)
+                        if ev.type == "ADDED":
+                            seen.setdefault(("added_rv", tc.name), tc.metadata.resource_version)
+                        if tc.status.phase == "AwaitingHumanInput":
+                            note("awaiting", tc.name)
+                        if tc.status.phase in ("Succeeded", "Failed", "ToolCallRejected"):
+                            note("terminal", tc.name)
+                    else:
+                        t = ev.object
+                        if t.status.phase == "ToolCallsPending":
+                            # the store's order tells an early CR (created
+                            # while the turn decoded) from one of the fan-out
+                            seen.setdefault(("pending_rv", t.name, t.status.tool_call_request_id),
+                                            t.metadata.resource_version)
+                        if t.status.phase == "FinalAnswer":
+                            note("final", t.name)
+                        if any(m.role == "tool" for m in t.status.context_window):
+                            note("joined", t.name)
+                    for c in op.human_backend.pending_contacts():
+                        op.human_backend.respond(c.call_id, HUMAN_ANSWER)
+                        note("responded", c.run_id)
+
+            try:
+                await asyncio.wait_for(observe(), 300)
+            except asyncio.TimeoutError:
+                fail(f"operator {label}: checkpoints not reached in 300 s: "
+                     f"{sorted(k for k in seen if k[0] in ('final', 'joined', 'terminal'))}")
+            t_checkpoints = time.monotonic()
+            # stop new turns: hold every unfinished Task's task-llm lease (as
+            # another replica would), until no request is in flight
+            while True:
+                held = all(
+                    t.status.phase in ("FinalAnswer", "Failed") or lease.try_acquire(
+                        store, f"task-llm-{t.name}", "chip-smoke-drain", ttl=600)
+                    for t in store.list("Task"))
+                if held and all(f.done() for f in recording.futures):
+                    await asyncio.sleep(0.2)
+                    if all(f.done() for f in recording.futures):
+                        break
+                await asyncio.sleep(0.02)
+            drain_s = time.monotonic() - t_checkpoints
+            watch.stop()
+            launches, int8_launches = pa.LAUNCHES, pa.INT8_LAUNCHES
+            steps = engine.decode_steps - steps0
+
+            firsts = first_calls()
+            tasks = {t.name: t for t in store.list("Task")}
+            kinds: dict = {}
+            first_turn = {}  # task -> (submit wall time, its GenerationResult)
+            for name in names:
+                i = next(i for i in range(n_prompts, len(prompts))
+                         if f"{name}: check" in prompts[i][1])
+                first_turn[name] = (prompts[i][2], recording.futures[i].result())
+            for kind in OPERATOR_KINDS:
+                k = kinds.setdefault(kind, {"create_to_first_toolcall_ms": [], "how": [],
+                                            "create_to_terminal_ms": [], "terminal": [],
+                                            "create_to_joined_ms": [], "create_to_final_ms": [],
+                                            "create_to_submit_ms": [], "ttft_ms": [],
+                                            "first_token_to_toolcall_ms": [], "turn_tokens": []})
+                for i in range(2):
+                    name = f"t-{kind}-{i}"
+                    t0 = created[name]
+                    # the first turn: create -> submit (the controllers),
+                    # submit -> first token (queue + prefill, engine clock)
+                    t_submit, res = first_turn[name]
+                    k["create_to_submit_ms"].append(
+                        (t_submit - tasks[name].metadata.creation_timestamp) * 1e3)
+                    k["ttft_ms"].append(res.ttft_ms)
+                    k["turn_tokens"].append(len(res.tokens))
+                    if kind == "plain":
+                        if tasks[name].status.phase != "FinalAnswer":
+                            fail(f"operator {label}: {name} is {tasks[name].status.phase}")
+                        k["create_to_final_ms"].append((seen[("final", name)] - t0) * 1e3)
+                        continue
+                    tc = store.get("ToolCall", firsts[name].name)
+                    want = {"delegate": "delegate_to_agent__leaf", "echo": "echo__echo",
+                            "human": "oncall__human_contact_email"}[kind]
+                    if tc.spec.tool_ref.name != want:
+                        fail(f"operator {label}: {name}'s first ToolCall is "
+                             f"{tc.spec.tool_ref.name}, not {want}")
+                    json.loads(tc.spec.arguments)  # the grammar guarantees a JSON object
+                    # store clock: the CR's creation against the Task's
+                    k["create_to_first_toolcall_ms"].append(
+                        (tc.metadata.creation_timestamp - tasks[name].metadata.creation_timestamp)
+                        * 1e3)
+                    k["first_token_to_toolcall_ms"].append(
+                        (tc.metadata.creation_timestamp - t_submit) * 1e3 - res.ttft_ms)
+                    pending_rv = seen.get(("pending_rv", name,
+                                           tc.metadata.labels.get("acp.tpu/toolcallrequest")))
+                    k["how"].append("early" if pending_rv is not None and
+                                    seen[("added_rv", tc.name)] < pending_rv else "fan-out")
+                    k["terminal"].append(tc.status.phase)
+                    k["create_to_terminal_ms"].append((seen[("terminal", tc.name)] - t0) * 1e3)
+                    k["create_to_joined_ms"].append((seen[("joined", name)] - t0) * 1e3)
+                    if kind == "echo" and not (tc.status.phase == "Succeeded"
+                                               and tc.status.result.startswith("echo: ")):
+                        fail(f"operator {label}: {name}'s echo ToolCall {tc.status.phase} "
+                             f"{tc.status.result!r}")
+                    if kind == "human":
+                        if tc.status.result != HUMAN_ANSWER or ("awaiting", tc.name) not in seen:
+                            fail(f"operator {label}: {name}'s human ToolCall {tc.status.phase} "
+                                 f"{tc.status.result!r}")
+                        k.setdefault("create_to_awaiting_ms", []).append(
+                            (seen[("awaiting", tc.name)] - t0) * 1e3)
+                        k.setdefault("respond_to_joined_ms", []).append(
+                            (seen[("joined", name)] - seen[("responded", tc.name)]) * 1e3)
+                    if kind == "delegate" and tc.status.phase == "Failed" and \
+                            tc.status.error != "delegate_to_agent requires a message argument":
+                        fail(f"operator {label}: {name}'s delegation failed: {tc.status.error}")
+                    window = tasks[name].status.context_window
+                    joined = [m for m in window if m.role == "tool"
+                              and m.tool_call_id == tc.spec.tool_call_id]
+                    if not joined or joined[0].content != (tc.status.result or
+                                                            f"error: {tc.status.error}"):
+                        fail(f"operator {label}: {name}'s tool result did not join its window")
+            direct = store.get("ToolCall", direct.name)
+            children = [t for t in tasks.values()
+                        if t.metadata.labels.get("acp.tpu/parent-toolcall") == direct.name]
+            if direct.status.phase != "Succeeded" or len(children) != 1 or \
+                    children[0].status.phase != "FinalAnswer" or \
+                    direct.status.result != children[0].status.output:
+                fail(f"operator {label}: the applied delegation is {direct.status.phase}, "
+                     f"children {[(c.name, c.status.phase) for c in children]}")
+            joined = [m for m in tasks[parent.name].status.context_window
+                      if m.role == "tool" and m.tool_call_id == "call_direct"]
+            if not joined or joined[0].content != children[0].status.output:
+                fail(f"operator {label}: the child's output did not join {parent.name}'s window")
+            kinds["delegate"]["applied_to_child_final_ms"] = (
+                seen[("final", children[0].name)] - created[direct.name]) * 1e3
+            kinds["delegate"]["applied_to_succeeded_ms"] = (
+                seen[("terminal", direct.name)] - created[direct.name]) * 1e3
+            kinds["delegate"]["applied_to_joined_ms"] = (
+                seen[("joined", parent.name)] - created[direct.name]) * 1e3
+            first_prompt = {}
+            for name in names:
+                lens = [n for n, text, _ in prompts[n_prompts:] if f"{name}: check" in text]
+                first_prompt[name] = lens[0] if lens else None
+                if lens and lens[0] > max_bucket:
+                    fail(f"operator {label}: {name}'s prompt, {lens[0]} tokens, is past the "
+                         f"largest prefill bucket ({max_bucket})")
+            return {"agents_ready_ms": ready_ms, "probes": probes, "kinds": kinds,
+                    "table_warmup_s": table_s,
+                    "first_prompt_tokens": first_prompt,
+                    "max_prompt_tokens": max(n for n, _, _ in prompts[n_prompts:]),
+                    "requests": len(prompts) - n_prompts, "tasks": len(tasks),
+                    "toolcalls": len(store.list("ToolCall")), "decode_steps": steps,
+                    "launches": launches, "int8_launches": int8_launches,
+                    "drain_s": drain_s}
+
+        out = asyncio.run(run())
+    steps, launches, int8_launches = out["decode_steps"], out["launches"], out["int8_launches"]
+    walk = int8_launches if int8_walk else launches - int8_launches
+    other = launches - walk
+    if steps == 0 or walk != engine.config.n_layers * steps or other:
+        fail(f"operator {label}: {walk} walk launches (other walk {other}) for {steps} decode "
+             f"steps x {engine.config.n_layers} layers")
+    phase_s = time.monotonic() - t_phase
+    kinds = out["kinds"]
+    say(f"operator {label}: Agents Ready {out['agents_ready_ms']:.1f} ms after apply "
+        f"({out['probes']} probes); JSON table warm-up {out['table_warmup_s']:.2f} s; first-turn prompts {out['first_prompt_tokens']} tokens "
+        f"(largest bucket {max_bucket}); {out['requests']} engine requests, {out['tasks']} "
+        f"Tasks, {out['toolcalls']} ToolCalls  [{card}]")
+    for kind, k in kinds.items():
+        say(f"operator {label} {kind}, first turn: create -> submit "
+            f"{_fmt(_ms_stats(k['create_to_submit_ms']))}; TTFT (queue + prefill) "
+            f"{_fmt(_ms_stats(k['ttft_ms']))}; tokens {k['turn_tokens']}" + (
+                "" if kind == "plain" else "; first token -> ToolCall CR " +
+                _fmt(_ms_stats(k["first_token_to_toolcall_ms"]))) + f"  [{card}]")
+        if kind == "plain":
+            say(f"operator {label} {kind}: create -> FinalAnswer "
+                f"{_fmt(_ms_stats(k['create_to_final_ms']))}  [{card}]")
+            continue
+        line = (f"operator {label} {kind}: create -> first ToolCall CR "
+                f"{_fmt(_ms_stats(k['create_to_first_toolcall_ms']))} ({', '.join(k['how'])}); "
+                f"-> {'/'.join(k['terminal'])} {_fmt(_ms_stats(k['create_to_terminal_ms']))}; "
+                f"-> result joined {_fmt(_ms_stats(k['create_to_joined_ms']))}")
+        if kind == "human":
+            line += (f"; create -> AwaitingHumanInput {_fmt(_ms_stats(k['create_to_awaiting_ms']))}"
+                     f", respond -> joined {_fmt(_ms_stats(k['respond_to_joined_ms']))}")
+        if kind == "delegate":
+            line += (f"; applied delegation -> child FinalAnswer "
+                     f"{k['applied_to_child_final_ms']:.1f} ms, -> Succeeded "
+                     f"{k['applied_to_succeeded_ms']:.1f} ms, -> child output joined "
+                     f"{k['applied_to_joined_ms']:.1f} ms")
+        say(line + f"  [{card}]")
+    all_first = [v for k in kinds.values() for v in k["create_to_first_toolcall_ms"]]
+    say(f"operator {label}: Task create -> first ToolCall CR over all 6 tool Tasks "
+        f"{_fmt(_ms_stats(all_first))}; {steps} decode steps, "
+        f"{walk} {'int8' if int8_walk else 'bf16'}-walk launches, other walk {other}; "
+        f"drain {out['drain_s']:.2f} s; phase {phase_s:.1f} s  [{card}]")
+    return {**out, "card": card, "walk_launches": walk, "first_toolcall_ms": _ms_stats(all_first),
+            "phase_s": phase_s, "toolcall_poll_s": TOOLCALL_POLL_S,
+            "agent_requeue_s": AGENT_REQUEUE_S}
+
+
+def _fmt(st: dict) -> str:
+    """p50 (the median) and max; with two values or fewer, each value."""
+    if not st:
+        return "none"
+    if st["n"] <= 2:
+        return " and ".join(f"{v:.1f}" for v in st["values"]) + " ms"
+    return f"p50 {st['p50']:.1f} / max {st['max']:.1f} ms"
+
+
 def first_step_logits(params, cfg, group, device, quantize_kv: bool = False):
     """Logits of a fixed 20-token prompt's paged prefill and of the decode
     step after it, on a scratch pool of 4 pages of 16 (this rank's slice of
@@ -1847,13 +2276,16 @@ def main() -> int:
     perf = timed("serving_bf16", serving_phase, card, "bf16", constrained=True)
     walls["constrained"] = perf["constrained"]["phase_s"]
     walls["control_plane_bf16"] = perf["control_plane"]["phase_s"]
-    walls["serving_bf16"] -= walls["constrained"] + walls["control_plane_bf16"]
+    walls["operator_bf16"] = perf["operator"]["phase_s"]
+    walls["serving_bf16"] -= (walls["constrained"] + walls["control_plane_bf16"]
+                              + walls["operator_bf16"])
     gc.collect()
     torch.cuda.empty_cache()
     perf_int8 = timed("serving_int8", serving_phase, card, "int8", quantize_weights=True,
                       quantize_kv=True)
     walls["control_plane_int8"] = perf_int8["control_plane"]["phase_s"]
-    walls["serving_int8"] -= walls["control_plane_int8"]
+    walls["operator_int8"] = perf_int8["operator"]["phase_s"]
+    walls["serving_int8"] -= walls["control_plane_int8"] + walls["operator_int8"]
     say(f"serving int8 vs bf16: weights {perf_int8['weight_bytes'] / 1e9:.3f} / "
         f"{perf['weight_bytes'] / 1e9:.3f} GB, KV pool {perf_int8['pool_bytes'] / 1e9:.3f} / "
         f"{perf['pool_bytes'] / 1e9:.3f} GB for {perf['num_pages']} pages  [{card}]")
@@ -1923,7 +2355,7 @@ def main() -> int:
          "parallel": par, "walls_s": walls, "seconds": time.monotonic() - t_start}, indent=1,
         default=str))
     say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
-        + " s (serving phases without the constrained and control-plane phases)")
+        + " s (serving phases without the constrained, control-plane and operator phases)")
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

@@ -51,6 +51,12 @@ def test_scan_covers_the_port_and_catches_offenders():
         "agentcontrolplane_tpu_torch/kernel/store.py",
         "agentcontrolplane_tpu_torch/controllers/llm.py",
         "agentcontrolplane_tpu_torch/api/resources.py",
+        "agentcontrolplane_tpu_torch/controllers/task.py",
+        "agentcontrolplane_tpu_torch/controllers/toolcall.py",
+        "agentcontrolplane_tpu_torch/mcp/stdio.py",
+        "agentcontrolplane_tpu_torch/humanlayer/local.py",
+        "agentcontrolplane_tpu_torch/observability/tracing.py",
+        "agentcontrolplane_tpu_torch/operator.py",
         "chip_smoke.py",
         "tests/torch_parallel_ranks.py",
     ):
