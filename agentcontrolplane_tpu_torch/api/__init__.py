@@ -1,5 +1,5 @@
 """The object model (``resources.py``), its metadata (``meta.py``) and the
-JSON manifest reader (``manifests.py``)."""
+manifest reader (``manifests.py``, YAML through ``yamlsubset.py``)."""
 
 from .meta import ObjectMeta, OwnerReference, Resource, new_meta
 from .resources import *  # noqa: F401,F403

@@ -1,11 +1,12 @@
 """Manifest loading, the ``kubectl apply`` equivalent (the port's copy of
 the reference's ``api/manifests.py``).
 
-Field names accept snake_case and camelCase (``schema.APIModel``). The
-reference reads YAML; the port reads and writes JSON, since the card's
-machine has no YAML library: a document is one object, a list of objects,
-or ``{"items": [...]}``. JSON text is also YAML, so a file written here
-loads in the reference too.
+Field names accept snake_case and camelCase (``schema.APIModel``). Text is
+read as YAML, multi-document, through ``yamlsubset`` (the card's machine
+has no YAML library; the subset covers ``examples/*.yaml`` and refuses what
+it does not read); JSON text goes through ``json`` first. A document is
+one object, a list of objects, or ``{"items": [...]}``. ``dump_manifests``
+writes YAML that the reference's reader loads too.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Any, Iterable
 from ..kernel.errors import Invalid
 from .meta import Resource
 from .resources import KINDS
+from .yamlsubset import dump_all, load_all
 
 
 def resource_from_manifest(doc: dict[str, Any]) -> Resource:
@@ -41,18 +43,22 @@ def resource_from_manifest(doc: dict[str, Any]) -> Resource:
 
 
 def load_manifests(text: str) -> list[Resource]:
-    """Parse a JSON manifest document into resources."""
+    """Parse a (multi-document) YAML or JSON string into resources."""
     try:
-        doc = json.loads(text)
-    except ValueError as e:
-        raise Invalid(f"manifest is not valid JSON: {e}") from e
-    if doc is None:
-        return []
-    if isinstance(doc, dict) and "kind" not in doc and isinstance(doc.get("items"), list):
-        doc = doc["items"]
-    if isinstance(doc, list):
-        return [resource_from_manifest(d) for d in doc]
-    return [resource_from_manifest(doc)]
+        docs = [json.loads(text)]
+    except ValueError:
+        docs = load_all(text)
+    out: list[Resource] = []
+    for doc in docs:
+        if doc is None:
+            continue
+        if isinstance(doc, dict) and "kind" not in doc and isinstance(doc.get("items"), list):
+            doc = doc["items"]
+        if isinstance(doc, list):
+            out.extend(resource_from_manifest(d) for d in doc)
+        else:
+            out.append(resource_from_manifest(doc))
+    return out
 
 
 def apply_resources(store, resources: Iterable[Resource]) -> list[tuple[str, Resource]]:
@@ -83,5 +89,5 @@ def resource_to_manifest(res: Resource, include_status: bool = True) -> dict[str
 
 
 def dump_manifests(resources: Iterable[Resource]) -> str:
-    """A JSON list of manifests, ``load_manifests``' input form."""
-    return json.dumps([resource_to_manifest(r) for r in resources], indent=2)
+    """Multi-document YAML, ``load_manifests``' input form."""
+    return dump_all(resource_to_manifest(r) for r in resources)

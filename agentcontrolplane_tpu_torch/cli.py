@@ -1,0 +1,536 @@
+"""The port's command line (``python -m agentcontrolplane_tpu_torch``): the
+operator and kubectl-style resource management, as the reference's
+``acp-tpu`` (``agentcontrolplane_tpu/cli.py``), plus the engine's own
+front door (``serve``):
+
+  run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--device cpu]
+  apply -f manifests.yaml
+  get <Kind> [name] [-o yaml]
+  delete <Kind> <name>
+  events
+  approvals [approve|reject <call-id> [--comment ...]]
+  contacts [respond <call-id> <text>]
+  task create <agent> <message> [--follow]
+  task show <name>
+  engine
+  chat [--system ...]
+  serve --preset llama3-8b [--tp N --sp M]
+
+Every command but ``run`` and ``serve`` is an HTTP call to the operator's
+REST API at ``--server`` (``$ACP_TPU_SERVER``, default
+``http://127.0.0.1:8082``) with ``--token`` (``$ACP_API_TOKEN``) as the
+bearer token, over the standard library (the card's machine has no httpx).
+``run`` builds its engine on the card unless ``--device cpu`` is given and
+raises without CUDA. Not served yet: checkpoints and LoRA (ROADMAP A.9,
+A.15), the served store (A.12), prewarm (A.3), multi-host serving
+(A.14), and the ``perf``, ``timeline``, ``trace`` (A.11), ``fleet``,
+``replay``, ``chaos`` (A.12), ``engine-follower`` (A.14) and ``train``
+(A.15) commands.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import http.client
+import json
+import logging
+import os
+import signal
+import sys
+import time
+import urllib.error
+import urllib.parse
+import urllib.request
+from typing import Any, Optional
+
+DEFAULT_SERVER = os.environ.get("ACP_TPU_SERVER", "http://127.0.0.1:8082")
+
+
+class _Response:
+    def __init__(self, status_code: int, text: str):
+        self.status_code, self.text = status_code, text
+
+    def json(self) -> Any:
+        return json.loads(self.text)
+
+
+class _Client:
+    """A small JSON client for the REST API (``urllib``)."""
+
+    def __init__(self, server: str, token: Optional[str], timeout: float = 30.0):
+        self.server = server.rstrip("/")
+        self.timeout = timeout
+        self.headers = {"Authorization": f"Bearer {token}"} if token else {}
+
+    def request(self, method: str, path: str, body: Any = None, content: Optional[str] = None,
+                params: Optional[dict] = None) -> _Response:
+        url = self.server + path
+        if params:
+            url += "?" + urllib.parse.urlencode(params)
+        headers = dict(self.headers)
+        data = None
+        if body is not None:
+            data = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        elif content is not None:
+            data = content.encode()
+        req = urllib.request.Request(url, data=data, headers=headers, method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+                return _Response(resp.status, resp.read().decode())
+        except urllib.error.HTTPError as e:
+            return _Response(e.code, e.read().decode())
+
+    def get(self, path: str, **kw) -> _Response:
+        return self.request("GET", path, **kw)
+
+    def post(self, path: str, **kw) -> _Response:
+        return self.request("POST", path, **kw)
+
+    def delete(self, path: str, **kw) -> _Response:
+        return self.request("DELETE", path, **kw)
+
+
+def _client(args) -> _Client:
+    token = getattr(args, "token", None) or os.environ.get("ACP_API_TOKEN")
+    return _Client(args.server, token)
+
+
+# -- run / serve --------------------------------------------------------------
+
+
+def cmd_run(args) -> int:
+    from .operator import Operator, OperatorOptions, serve_until_signalled
+
+    logging.basicConfig(level=os.environ.get("ACP_TPU_LOG_LEVEL", "INFO"))
+    engine = None
+    if args.tpu_preset:
+        from .engine.engine import Engine
+
+        engine = Engine(args.tpu_preset, device=args.device, seed=args.seed,
+                        max_slots=args.tpu_slots, max_ctx=args.tpu_ctx,
+                        max_queue=args.tpu_max_queue,
+                        quantize_weights=args.tpu_quantize_weights,
+                        quantize_kv=args.tpu_quantize_kv)
+        engine.start()
+    options = OperatorOptions(
+        db_path=args.db,
+        identity=args.identity or f"acp-tpu-{os.getpid()}",
+        leader_election=args.leader_elect,
+        api_port=args.port,
+        api_host=args.host,
+        api_token=args.api_token,
+        tls_cert_path=args.tls_cert,
+        tls_key_path=args.tls_key,
+        tls_client_ca_path=args.tls_client_ca,
+        engine=engine,
+    )
+
+    async def main() -> None:
+        op = Operator(options)
+        await op.start()
+        try:
+            port = args.port
+            if not args.leader_elect:  # a follower binds only once it leads
+                for _ in range(500):
+                    if op.rest_server.bound_port:
+                        port = op.rest_server.bound_port
+                        break
+                    await asyncio.sleep(0.01)
+            print(f"operator running; REST API on :{port}", flush=True)
+            await serve_until_signalled()
+            print("shutting down", flush=True)
+        finally:
+            await op.stop()
+            if engine is not None:
+                engine.stop()
+
+    try:
+        asyncio.run(main())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_serve(args) -> int:
+    logging.basicConfig(level=logging.INFO)
+    from .server.rest import serve, serve_parallel
+
+    engine_kw = dict(
+        max_slots=args.max_slots, max_ctx=args.max_ctx, page_size=args.page_size,
+        decode_block_size=args.decode_block, quantize_weights=args.quantize_weights,
+        quantize_kv=args.quantize_kv,
+    )
+    # a terminated server exits through its finally blocks: the ranks'
+    # launcher then kills every rank it started
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+    try:
+        if args.tp * args.sp > 1:
+            serve_parallel(args.preset, tp=args.tp, sp=args.sp, seed=args.seed, host=args.host,
+                           port=args.port, device=args.device, backend=args.dist_backend,
+                           **engine_kw)
+        else:
+            serve(args.preset, seed=args.seed, host=args.host, port=args.port,
+                  device=args.device, **engine_kw)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+# -- resources ----------------------------------------------------------------
+
+
+def cmd_apply(args) -> int:
+    with open(args.filename) as f:
+        text = f.read()
+    resp = _client(args).post("/v1/apply", content=text)
+    if resp.status_code != 200:
+        print(f"error: {resp.text}", file=sys.stderr)
+        return 1
+    for item in resp.json():
+        print(f"{item['kind'].lower()}/{item['name']} {item['action']}")
+    return 0
+
+
+def cmd_get(args) -> int:
+    from .api.yamlsubset import dump_all
+
+    http = _client(args)
+    path = f"/v1/resources/{args.kind}" + (f"/{args.name}" if args.name else "")
+    resp = http.get(path)
+    if resp.status_code != 200:
+        print(f"error: {resp.text}", file=sys.stderr)
+        return 1
+    docs = [resp.json()] if args.name else resp.json()
+    if args.output == "yaml":
+        print(dump_all(docs), end="")
+        return 0
+    rows = [
+        (
+            d["metadata"]["name"],
+            (d.get("status") or {}).get("phase") or (d.get("status") or {}).get("status", ""),
+            (d.get("status") or {}).get("status_detail", "")[:60],
+        )
+        for d in docs
+    ]
+    width = max([len(r[0]) for r in rows], default=4) + 2
+    print(f"{'NAME':<{width}}{'STATUS':<14}DETAIL")
+    for name, status, detail in rows:
+        print(f"{name:<{width}}{status:<14}{detail}")
+    return 0
+
+
+def cmd_delete(args) -> int:
+    resp = _client(args).delete(f"/v1/resources/{args.kind}/{args.name}")
+    if resp.status_code != 200:
+        print(f"error: {resp.text}", file=sys.stderr)
+        return 1
+    print(f"{args.kind.lower()}/{args.name} deleted")
+    return 0
+
+
+def cmd_events(args) -> int:
+    for e in _client(args).get("/v1/events").json():
+        print(f"{e['type']:<8}{e['reason']:<28}{e['involved']:<36}{e['message']}")
+    return 0
+
+
+# -- the human steps ----------------------------------------------------------
+
+
+def cmd_approvals(args) -> int:
+    http = _client(args)
+    if args.action == "list" or args.action is None:
+        for a in http.get("/v1/approvals").json():
+            print(f"{a['callId']:<16}{a['fn']:<32}{json.dumps(a['kwargs'])[:60]}")
+        return 0
+    if not args.call_id:
+        print("error: approvals approve/reject requires a call-id", file=sys.stderr)
+        return 2
+    resp = http.post(f"/v1/approvals/{args.call_id}/{args.action}",
+                     params={"comment": args.comment or ""})
+    print(resp.json() if resp.status_code == 200 else resp.text)
+    return 0 if resp.status_code == 200 else 1
+
+
+def cmd_contacts(args) -> int:
+    http = _client(args)
+    if args.action == "list" or args.action is None:
+        for c in http.get("/v1/contacts").json():
+            print(f"{c['callId']:<16}{c['message'][:80]}")
+        return 0
+    if not args.call_id or args.text is None:
+        print("error: contacts respond requires <call-id> <text>", file=sys.stderr)
+        return 2
+    resp = http.post(f"/v1/contacts/{args.call_id}/respond", body={"response": args.text})
+    print(resp.json() if resp.status_code == 200 else resp.text)
+    return 0 if resp.status_code == 200 else 1
+
+
+# -- tasks --------------------------------------------------------------------
+
+
+def cmd_task_create(args) -> int:
+    """Create a Task; with ``--follow``, poll it (one GET every 0.5 s, so
+    no server thread waits on it) until FinalAnswer or Failed."""
+    http = _client(args)
+    resp = http.post("/v1/tasks", body={"agentName": args.agent, "userMessage": args.message})
+    if resp.status_code != 201:
+        print(f"error: {resp.text}", file=sys.stderr)
+        return 1
+    task = resp.json()
+    print(f"task/{task['name']} created")
+    if not args.follow:
+        return 0
+    last_phase = ""
+    while True:
+        resp = http.get(f"/v1/tasks/{task['name']}")
+        if resp.status_code != 200:
+            print(f"error: {resp.text}", file=sys.stderr)
+            return 1
+        t = resp.json()
+        if t["phase"] != last_phase:
+            print(f"  phase: {t['phase']}  {t.get('statusDetail', '')}")
+            last_phase = t["phase"]
+        if t["phase"] in ("FinalAnswer", "Failed"):
+            print(t.get("output") or t.get("error", ""))
+            return 0 if t["phase"] == "FinalAnswer" else 1
+        time.sleep(0.5)
+
+
+def cmd_task_show(args) -> int:
+    """Print a task's checkpointed conversation (its execution state)."""
+    resp = _client(args).get(f"/v1/tasks/{args.name}")
+    if resp.status_code != 200:
+        print(f"error: {resp.text}", file=sys.stderr)
+        return 1
+    t = resp.json()
+    print(f"task/{t['name']}  agent={t['agentName']}  phase={t['phase']}  {t['statusDetail']}")
+    for m in t["contextWindow"]:
+        role = m["role"].upper()
+        content = m.get("content", "")
+        if content:
+            print(f"  [{role}] {content if len(content) <= 200 else content[:197] + '...'}")
+        if m.get("tool_calls"):
+            calls = ", ".join(f"{tc['function']['name']}({tc['function']['arguments']})"
+                              for tc in m["tool_calls"])
+            print(f"  [{role}] -> {calls}")
+        if not content and not m.get("tool_calls"):
+            print(f"  [{role}]")
+    if t.get("error"):
+        print(f"  ERROR: {t['error']}")
+    return 0
+
+
+# -- the engine ---------------------------------------------------------------
+
+
+def cmd_engine(args) -> int:
+    resp = _client(args).get("/v1/engine")
+    if resp.status_code != 200:
+        print(f"error: {resp.text}", file=sys.stderr)
+        return 1
+    print(json.dumps(resp.json(), indent=2))
+    return 0
+
+
+def _post_stream(server: str, token: Optional[str], payload: dict):
+    """POST a streamed chat completion (``http.client``, no timeout) ->
+    (connection, response); the caller reads the SSE lines and closes."""
+    url = urllib.parse.urlsplit(server)
+    conn_cls = http.client.HTTPSConnection if url.scheme == "https" else http.client.HTTPConnection
+    conn = conn_cls(url.hostname, url.port or (443 if url.scheme == "https" else 80))
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    conn.request("POST", url.path.rstrip("/") + "/v1/chat/completions",
+                 body=json.dumps(payload).encode(), headers=headers)
+    return conn, conn.getresponse()
+
+
+def cmd_chat(args) -> int:
+    """A REPL against the operator's OpenAI-compatible chat route, streamed
+    (SSE): the quickest way to poke the engine by hand."""
+    token = getattr(args, "token", None) or os.environ.get("ACP_API_TOKEN")
+    messages: list[dict] = []
+    if args.system:
+        messages.append({"role": "system", "content": args.system})
+    print("chatting with the engine; empty line or Ctrl-D to exit", flush=True)
+    while True:
+        try:
+            line = input("> ").strip()
+        except (EOFError, KeyboardInterrupt):
+            print(flush=True)
+            return 0
+        if not line:
+            return 0
+        messages.append({"role": "user", "content": line})
+        payload = {"messages": messages, "max_tokens": args.max_tokens,
+                   "temperature": args.temperature, "stream": True}
+        reply: list[str] = []
+        errored = False
+        conn = None
+        try:
+            conn, resp = _post_stream(args.server, token, payload)
+            if resp.status != 200:
+                print(f"error: {resp.read().decode()}", file=sys.stderr)
+                messages.pop()
+                continue
+            for line in resp:
+                raw = line.decode().rstrip("\r\n")
+                if not raw.startswith("data: ") or raw == "data: [DONE]":
+                    continue
+                event = json.loads(raw[len("data: "):])
+                if "error" in event:
+                    print(f"\nerror: {event['error']['message']}", file=sys.stderr)
+                    errored = True
+                    break
+                delta = event["choices"][0]["delta"]
+                chunk = delta.get("content") or ""
+                if chunk:
+                    reply.append(chunk)
+                    print(chunk, end="", flush=True)
+                for tc in delta.get("tool_calls") or []:
+                    print(f"\n[tool call] {tc['function']['name']}"
+                          f"({tc['function']['arguments']})", flush=True)
+        except (OSError, http.client.HTTPException, KeyboardInterrupt) as e:
+            print(f"\nerror: {e}", file=sys.stderr)
+            errored = True
+        finally:
+            if conn is not None:
+                conn.close()
+        if errored:
+            # drop the failed exchange, so the next turn's conversation
+            # holds no partial assistant turn
+            messages.pop()
+            continue
+        print(flush=True)
+        messages.append({"role": "assistant", "content": "".join(reply)})
+
+
+# -- the parser ---------------------------------------------------------------
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m agentcontrolplane_tpu_torch",
+                                description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--server", default=DEFAULT_SERVER, help="operator REST URL")
+    p.add_argument("--token", default=None,
+                   help="bearer token for the REST API (default: $ACP_API_TOKEN)")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    run = sub.add_parser("run", help="run the operator and its REST API")
+    run.add_argument("--db", default=None, help="sqlite state path (default: in-memory)")
+    run.add_argument("--port", type=int, default=8082, help="REST port (0: a free one)")
+    run.add_argument("--host", default="127.0.0.1",
+                     help="REST bind address (0.0.0.0 inside containers)")
+    run.add_argument("--identity", default=None)
+    run.add_argument("--leader-elect", action="store_true")
+    run.add_argument("--api-token", default=os.environ.get("ACP_API_TOKEN", ""),
+                     help="require this bearer token on the REST API (default: $ACP_API_TOKEN)")
+    run.add_argument("--tls-cert", default=os.environ.get("ACP_TLS_CERT") or None,
+                     help="serve the REST API over HTTPS with this certificate (PEM); "
+                          "rotated files are picked up without restart")
+    run.add_argument("--tls-key", default=os.environ.get("ACP_TLS_KEY") or None,
+                     help="private key (PEM) for --tls-cert")
+    run.add_argument("--tls-client-ca", default=os.environ.get("ACP_TLS_CLIENT_CA") or None,
+                     help="require client certificates signed by this CA (mTLS)")
+    run.add_argument("--tpu-preset", default=None,
+                     help="serve a model preset (random weights from --seed) for provider: tpu")
+    run.add_argument("--tpu-slots", type=int, default=64)
+    run.add_argument("--tpu-ctx", type=int, default=2048)
+    run.add_argument("--tpu-max-queue", type=int, default=0,
+                     help="admission-queue cap (beyond it a request is shed with 503 + "
+                          "Retry-After); 0 = unbounded")
+    run.add_argument("--tpu-quantize-weights", "--quantize-weights", action="store_true",
+                     help="int8 per-output-channel layer weights (weight-only)")
+    run.add_argument("--tpu-quantize-kv", "--quantize-kv", action="store_true",
+                     help="int8 KV pages with per-row-per-head f32 scales")
+    run.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    run.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    run.set_defaults(fn=cmd_run)
+
+    ap = sub.add_parser("apply", help="apply manifests (YAML or JSON)")
+    ap.add_argument("-f", "--filename", required=True)
+    ap.set_defaults(fn=cmd_apply)
+
+    get = sub.add_parser("get", help="get resources")
+    get.add_argument("kind")
+    get.add_argument("name", nargs="?")
+    get.add_argument("-o", "--output", choices=["table", "yaml"], default="table")
+    get.set_defaults(fn=cmd_get)
+
+    de = sub.add_parser("delete", help="delete a resource")
+    de.add_argument("kind")
+    de.add_argument("name")
+    de.set_defaults(fn=cmd_delete)
+
+    ev = sub.add_parser("events", help="execution history")
+    ev.set_defaults(fn=cmd_events)
+
+    apr = sub.add_parser("approvals", help="pending human approvals")
+    apr.add_argument("action", nargs="?", choices=["list", "approve", "reject"])
+    apr.add_argument("call_id", nargs="?")
+    apr.add_argument("--comment", default="")
+    apr.set_defaults(fn=cmd_approvals)
+
+    con = sub.add_parser("contacts", help="pending human contacts")
+    con.add_argument("action", nargs="?", choices=["list", "respond"])
+    con.add_argument("call_id", nargs="?")
+    con.add_argument("text", nargs="?")
+    con.set_defaults(fn=cmd_contacts)
+
+    task = sub.add_parser("task", help="task operations")
+    tsub = task.add_subparsers(dest="task_command", required=True)
+    tc = tsub.add_parser("create")
+    tc.add_argument("agent")
+    tc.add_argument("message")
+    tc.add_argument("--follow", action="store_true")
+    tc.set_defaults(fn=cmd_task_create)
+    ts = tsub.add_parser("show", help="print a task's conversation")
+    ts.add_argument("name")
+    ts.set_defaults(fn=cmd_task_show)
+
+    eng = sub.add_parser("engine", help="engine status")
+    eng.set_defaults(fn=cmd_engine)
+
+    chat = sub.add_parser("chat", help="interactive chat with the engine (SSE)")
+    chat.add_argument("--system", default="")
+    chat.add_argument("--max-tokens", type=int, default=256)
+    chat.add_argument("--temperature", type=float, default=0.7)
+    chat.set_defaults(fn=cmd_chat)
+
+    s = sub.add_parser("serve", help="serve a preset over HTTP (the engine's front door alone)")
+    s.add_argument("--preset", default="llama3-8b")
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.add_argument("--max-slots", type=int, default=8)
+    s.add_argument("--max-ctx", type=int, default=2048)
+    s.add_argument("--page-size", type=int, default=16)
+    s.add_argument("--decode-block", type=int, default=8)
+    s.add_argument("--quantize-weights", action="store_true",
+                   help="int8 per-output-channel layer weights (weight-only)")
+    s.add_argument("--quantize-kv", action="store_true",
+                   help="int8 KV pages with per-row-per-head f32 scales "
+                        "(relaxes greedy byte identity; accuracy-gated)")
+    s.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (heads, ffn, vocab)")
+    s.add_argument("--sp", type=int, default=1,
+                   help="context-parallel ranks (a slice of every KV page each)")
+    s.add_argument("--dist-backend", choices=("gloo", "nccl"), default=None,
+                   help="torch.distributed backend for --tp/--sp (default: nccl with a card "
+                        "per rank, else gloo)")
+    s.set_defaults(fn=cmd_serve)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

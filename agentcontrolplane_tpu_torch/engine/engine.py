@@ -76,6 +76,7 @@ from ..models.llama import (
     init_paged_cache,
     prefill_paged_batch,
 )
+from ..ops.cuda import paged_attention as walk
 from ..ops.paged import TRASH_PAGE, PageAllocator
 from ..ops.quant import QUANTIZABLE, QuantizedTensor, quantize_stacked
 from ..ops.sampling import advance_constraint, constrain_logits, sample
@@ -588,6 +589,13 @@ class Engine:
             "constraint_table_bytes": self.constraint_table_bytes,
             "constraint_table_build_s": round(self.constraint_table_build_s, 4),
             "tool_calls_early": self.tool_calls_early,
+            # this process's CUDA walk launches (all walks and forms, the
+            # int8 walk, the state form); 0 while tensors are on the CPU
+            "walk_launches": {
+                "total": walk.LAUNCHES,
+                "int8": walk.INT8_LAUNCHES,
+                "state": walk.STATE_LAUNCHES,
+            },
             "memory": {
                 # int8 KV cache: at a fixed byte budget the pool holds ~1.94x
                 # the tokens (head_dim 128)

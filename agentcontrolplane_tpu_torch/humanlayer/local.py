@@ -3,13 +3,18 @@
 external service.
 
 Pending approvals and contacts are held here; a human (or a test) answers
-them through ``approve`` / ``reject`` / ``respond``. The operator's REST
-routes over them are ROADMAP A.2(b) part 3. The ``should_fail`` /
-``auto_approve`` / ``auto_respond`` knobs make it the scriptable mock too.
+them through ``approve`` / ``reject`` / ``respond``, over the operator's
+REST routes (``server/operator_rest.py``) or directly. The REST routes run
+on the HTTP server's worker threads while the controllers' clients run on
+the operator's event loop, so every read and write of the two tables takes
+the backend's lock (each hold is a few dict operations; nothing awaits
+under it). The ``should_fail`` / ``auto_approve`` / ``auto_respond`` knobs
+make it the scriptable mock too.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 import uuid
 from dataclasses import dataclass, field
@@ -51,25 +56,31 @@ class LocalHumanBackend:
     should_fail: bool = False
     auto_approve: Optional[bool] = None  # True/False = instant verdict
     auto_respond: Optional[str] = None
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
     # -- human-side API (REST server / tests call these) -----------------
 
     def approve(self, call_id: str, comment: str = "") -> None:
-        self.approvals[call_id].approved = True
-        self.approvals[call_id].comment = comment
+        with self.lock:
+            self.approvals[call_id].approved = True
+            self.approvals[call_id].comment = comment
 
     def reject(self, call_id: str, comment: str = "") -> None:
-        self.approvals[call_id].approved = False
-        self.approvals[call_id].comment = comment
+        with self.lock:
+            self.approvals[call_id].approved = False
+            self.approvals[call_id].comment = comment
 
     def respond(self, call_id: str, response: str) -> None:
-        self.contacts[call_id].response = response
+        with self.lock:
+            self.contacts[call_id].response = response
 
     def pending_approvals(self) -> list[PendingApproval]:
-        return [a for a in self.approvals.values() if a.approved is None]
+        with self.lock:
+            return [a for a in self.approvals.values() if a.approved is None]
 
     def pending_contacts(self) -> list[PendingContact]:
-        return [c for c in self.contacts.values() if c.response is None]
+        with self.lock:
+            return [c for c in self.contacts.values() if c.response is None]
 
 
 class LocalHumanLayerClient:
@@ -82,7 +93,7 @@ class LocalHumanLayerClient:
         if self._b.should_fail:
             raise RuntimeError("human backend unavailable (scripted failure)")
         call_id = call_id or uuid.uuid4().hex[:12]
-        self._b.approvals[call_id] = PendingApproval(
+        pending = PendingApproval(
             call_id=call_id,
             run_id=run_id,
             fn=spec.fn,
@@ -92,13 +103,16 @@ class LocalHumanLayerClient:
             approved=self._b.auto_approve,
             comment="" if self._b.auto_approve is None else "auto",
         )
+        with self._b.lock:
+            self._b.approvals[call_id] = pending
         return call_id
 
     async def get_function_call_status(self, call_id: str) -> ApprovalStatus:
         if self._b.should_fail:
             raise RuntimeError("human backend unavailable (scripted failure)")
-        a = self._b.approvals[call_id]
-        return ApprovalStatus(approved=a.approved, comment=a.comment)
+        with self._b.lock:
+            a = self._b.approvals[call_id]
+            return ApprovalStatus(approved=a.approved, comment=a.comment)
 
     async def request_human_contact(
         self, run_id: str, call_id: str, message: str, channel: Optional[dict[str, Any]] = None
@@ -106,7 +120,7 @@ class LocalHumanLayerClient:
         if self._b.should_fail:
             raise RuntimeError("human backend unavailable (scripted failure)")
         call_id = call_id or uuid.uuid4().hex[:12]
-        self._b.contacts[call_id] = PendingContact(
+        pending = PendingContact(
             call_id=call_id,
             run_id=run_id,
             message=message,
@@ -114,12 +128,15 @@ class LocalHumanLayerClient:
             created=time.time(),
             response=self._b.auto_respond,
         )
+        with self._b.lock:
+            self._b.contacts[call_id] = pending
         return call_id
 
     async def get_human_contact_status(self, call_id: str) -> HumanContactStatus:
         if self._b.should_fail:
             raise RuntimeError("human backend unavailable (scripted failure)")
-        return HumanContactStatus(response=self._b.contacts[call_id].response)
+        with self._b.lock:
+            return HumanContactStatus(response=self._b.contacts[call_id].response)
 
     async def verify_project(self) -> dict[str, Any]:
         if self._b.should_fail:

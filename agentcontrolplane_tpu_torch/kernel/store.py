@@ -17,9 +17,11 @@ Kubernetes semantics in-tree, so the control plane runs standalone:
   interchangeable.
 
 Thread safety: every mutation takes an RLock, so the engine thread can read
-objects; watch delivery is asyncio-native. The reference's raw-document
-``subscribe`` and ``phase_counts`` serve its cross-process store server and
-its metrics; they come with those (ROADMAP A.12, A.11).
+objects and the REST server's worker threads can read and write; watch
+delivery is asyncio-native (``call_soon_threadsafe`` from other threads).
+``phase_counts`` feeds ``/metrics``. The reference's raw-document
+``subscribe`` serves its cross-process store server and comes with it
+(ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -273,6 +275,18 @@ class Store:
             return self.get(kind, name, namespace)
         except NotFound:
             return None
+
+    def phase_counts(self) -> dict[tuple[str, str], int]:
+        """(kind, phase) -> live object count, in one pass under one lock
+        hold (the ``/metrics`` scrape). The phase falls back to
+        ``status.status`` (LLM/Agent-style readiness), then "unknown"."""
+        out: dict[tuple[str, str], int] = {}
+        with self._lock:
+            for (kind, _ns, _name), doc in self._objects.items():
+                st = doc.get("status") or {}
+                phase = str(st.get("phase") or st.get("status") or "unknown")
+                out[(kind, phase)] = out.get((kind, phase), 0) + 1
+        return out
 
     def list(
         self,

@@ -2,9 +2,10 @@
 histograms (the port's copy of the reference's ``observability/metrics.py``).
 
 The Task controller counts its early-dispatched and orphaned ToolCalls
-into ``REGISTRY``. Serving it at ``/metrics`` and the OTLP metrics push
-come with the operator's REST server and the rest of the observability
-layer (ROADMAP A.2(b) part 3, A.11).
+into ``REGISTRY``; the operator's REST server serves it at ``/metrics``
+with the object and engine gauges it sets at scrape time. The OTLP
+metrics push comes with the rest of the observability layer (ROADMAP
+A.11).
 """
 
 from __future__ import annotations

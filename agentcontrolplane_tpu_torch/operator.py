@@ -2,16 +2,16 @@
 the reference's ``operator.py``).
 
 Build the manager, register all six controllers with a shared
-``MCPManager``, the in-tree human backend and a tracer, and start. The
-serving engine, when given, is handed to the LLM client factory as the
-``provider: tpu`` backend.
+``MCPManager``, the in-tree human backend and a tracer, add the REST server
+(``server/operator_rest.py``) as a runnable, leader-gated under leader
+election, and start. The serving engine, when given, is handed to the LLM
+client factory as the ``provider: tpu`` backend and served by the REST
+chat route.
 
-Not ported yet, and refused with ``Invalid`` at construction: the REST
-server (``enable_rest``, ROADMAP A.2(b) part 3; the port's default is off
-until then), the served store (``store_address``, ``serve_store``,
-``store_token``) and the fleet router (``fleet``), both ROADMAP A.12. The
-engine's flight-recorder tracer and the OTLP metrics push come with the
-observability layer (A.11).
+Not ported yet, and refused with ``Invalid`` at construction: the served
+store (``store_address``, ``serve_store``, ``store_token``) and the fleet
+router (``fleet``), both ROADMAP A.12. The engine's flight-recorder tracer
+and the OTLP metrics push come with the observability layer (A.11).
 """
 
 from __future__ import annotations
@@ -50,8 +50,19 @@ class OperatorOptions:
     store_token: str = ""
     identity: str = "acp-tpu-0"
     leader_election: bool = False
-    # the REST server: ROADMAP A.2(b) part 3
-    enable_rest: bool = False
+    api_port: int = 8082  # 0 binds a free port (``rest_server.bound_port``)
+    # bind address; 0.0.0.0 inside a container, where loopback is
+    # unreachable from outside
+    api_host: str = "127.0.0.1"
+    # non-empty = every REST route but the health probes needs
+    # "Authorization: Bearer <token>"
+    api_token: str = ""
+    # cert + key = HTTPS; a client CA also demands verified client
+    # certificates (mTLS). Rotated files are served without a restart.
+    tls_cert_path: Optional[str] = None
+    tls_key_path: Optional[str] = None
+    tls_client_ca_path: Optional[str] = None
+    enable_rest: bool = True
     llm_probe: bool = True
     verify_channel_credentials: bool = True
     engine: object | None = None  # engine.Engine for provider: tpu
@@ -67,8 +78,6 @@ class OperatorOptions:
 
 
 def _refuse_unported(options: OperatorOptions) -> None:
-    if options.enable_rest:
-        raise Invalid("OperatorOptions.enable_rest is not ported yet (ROADMAP A.2(b) part 3)")
     for name in ("store_address", "serve_store", "store_token", "fleet"):
         if getattr(options, name):
             raise Invalid(f"OperatorOptions.{name} is not ported yet (ROADMAP A.12)")
@@ -119,6 +128,14 @@ class Operator:
             tracer=self.tracer,
         )
         self._register_controllers()
+        self.rest_server = None
+        if self.options.enable_rest:
+            from .server.operator_rest import RestServer
+
+            self.rest_server = RestServer(self, host=self.options.api_host)
+            self.manager.add_runnable(
+                self.rest_server.run, leader_gated=self.options.leader_election
+            )
 
     def _register_controllers(self) -> None:
         m = self.manager
@@ -160,14 +177,17 @@ class Operator:
         await self.manager.start()
 
     async def stop(self) -> None:
-        """Stop the controllers (a Task turn still in flight is cancelled:
-        the engine frees its slot and the Task stays ReadyForLLM, to resume
-        from the store), close the MCP subprocesses and the store."""
+        """Stop the controllers and the REST server (a Task turn still in
+        flight is cancelled: the engine frees its slot and the Task stays
+        ReadyForLLM, to resume from the store), close the MCP subprocesses
+        and the store."""
         await self.manager.stop()
         await self.mcp_manager.close()
         closer = getattr(self.llm_factory, "aclose", None)
         if closer is not None:
             await closer()
+        if self.rest_server is not None:
+            await self.rest_server.stop()
         self.store.close()
 
 
@@ -195,8 +215,8 @@ async def serve_until_signalled() -> None:
 
 async def run_operator(options: OperatorOptions) -> None:
     """Blocking entry point: serves until signalled, then shuts everything
-    down (controllers, MCP subprocesses, sqlite, and the engine if one was
-    given)."""
+    down (controllers, MCP subprocesses, sqlite, REST, and the engine if one
+    was given)."""
     op = Operator(options)
     await op.start()
     try:

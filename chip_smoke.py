@@ -88,7 +88,20 @@ without printing a result:
    must go through the expected walk (the state form on every sp rank),
    and the first-step logits must agree with the single card's for the
    same seed; ms per decode step, the step's collectives replayed alone,
-   and memory per rank are recorded.
+   and memory per rank are recorded;
+7. quick start — the README's quick start through the port's own entry
+   points, after every earlier engine is freed: ``python -m
+   agentcontrolplane_tpu_torch run --tpu-preset llama3-8b`` as a subprocess
+   (its own bf16 engine, a sqlite store, a bearer token), then the CLI in
+   this process: ``apply -f`` of ``examples/gpu-quickstart.yaml`` and of a
+   YAML manifest of the smoke's (forced echo and human-contact LLMs), ``get``
+   until every Agent is Ready, ``task create --follow`` to FinalAnswer on
+   two Agents and ``task show``, an MCP echo call gated by ``approvals
+   approve`` and a human contact answered by ``contacts respond`` (the forced
+   Tasks then deleted), ``events``, ``chat``, ``/v1/models``, ``/metrics``
+   (the Task phase and engine gauges), a request without the token (401),
+   and SIGTERM with exit code 0; the subprocess's decode steps and walk
+   launches (read from its ``/v1/engine``) must match.
 
 ``--kernels-only`` stops after the kernel phase (a first check of a new
 kernel; it prints no result line).
@@ -1605,7 +1618,8 @@ def operator_phase(engine, card: str, label: str) -> dict:
 
         async def run() -> dict:
             op = Operator(OperatorOptions(db_path=str(Path(tmp) / "operator.db"), llm_probe=True,
-                                          engine=recording, identity=f"chip-smoke-op-{label}"))
+                                          engine=recording, identity=f"chip-smoke-op-{label}",
+                                          enable_rest=False))
             op.agent_reconciler.requeue_delay = AGENT_REQUEUE_S
             op.toolcall_reconciler.poll_interval = TOOLCALL_POLL_S
             store = op.store
@@ -2199,6 +2213,427 @@ def parallel_serving_phase(card: str, label: str, tp: int, sp: int, ref_logits,
             "ranks": [{k: v for k, v in r.items() if k != "finished"} for r in ranks]}
 
 
+# -- quick-start phase ------------------------------------------------------
+
+# the README's quick start over provider: tpu applies
+# examples/gpu-quickstart.yaml; beside it the smoke's own manifest: a plain
+# Agent, an Agent whose LLM forces the MCP echo tool, served behind an
+# approval channel (as examples/mcp-and-approval.yaml sets it up), and an
+# Agent whose LLM forces the human-contact tool
+QUICKSTART_YAML = """\
+# Written by chip_smoke.py: the quick start over provider: tpu.
+kind: Secret
+metadata:
+  name: smoke-hl-key
+spec:
+  data:
+    api-key: "local"
+---
+kind: ContactChannel
+metadata:
+  name: oncall
+spec:
+  type: email
+  apiKeyFrom:
+    name: smoke-hl-key
+    key: api-key
+  email:
+    address: "oncall@example.com"
+    contextAboutUser: "The on-call engineer who approves tool use"
+---
+kind: MCPServer
+metadata:
+  name: echotool
+spec:
+  transport: stdio
+  command: {python}
+  args: [{echo_server}]
+  approvalContactChannel: oncall
+  resources:
+    limits:
+      memory: 1Gi
+---
+kind: LLM
+metadata:
+  name: llama3-tpu
+spec:
+  provider: tpu
+  parameters:
+    model: llama3-8b
+    temperature: 0
+    maxTokens: 16
+  tpu:
+    preset: llama3-8b
+    requestTimeoutSeconds: 120
+---
+kind: LLM
+metadata:
+  name: llama3-tpu-echo
+spec:
+  provider: tpu
+  parameters:
+    model: llama3-8b
+    temperature: 0
+    maxTokens: 32
+  tpu:
+    preset: llama3-8b
+    requestTimeoutSeconds: 120
+  providerConfig: {{tool_choice: echotool__echo}}
+---
+kind: LLM
+metadata:
+  name: llama3-tpu-ask
+spec:
+  provider: tpu
+  parameters:
+    model: llama3-8b
+    temperature: 0
+    maxTokens: 32
+  tpu:
+    preset: llama3-8b
+    requestTimeoutSeconds: 120
+  providerConfig:
+    tool_choice: oncall__human_contact_email
+---
+kind: Agent
+metadata:
+  name: my-assistant
+spec:
+  llmRef:
+    name: llama3-tpu
+  system: |
+    You are a helpful assistant running on one GPU.
+---
+kind: Agent
+metadata:
+  name: echoer
+spec:
+  llmRef:
+    name: llama3-tpu-echo
+  system: "Use the echo tool."
+  mcpServers:
+    - name: echotool
+---
+kind: Agent
+metadata:
+  name: asker
+spec:
+  llmRef:
+    name: llama3-tpu-ask
+  system: "Ask the on-call engineer first."
+  humanContactChannels:
+    - name: oncall
+"""
+QUICKSTART_AGENTS = ("gpu-assistant", "gpu-echoer", "my-assistant", "echoer", "asker")
+QUICKSTART_EXAMPLE = ROOT / "examples" / "gpu-quickstart.yaml"  # the README's manifest
+QUICKSTART_ANSWER = "yes, go ahead"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get(base: str, path: str, token: str = "") -> tuple[int, object]:
+    req = urllib.request.Request(base + path,
+                                 headers={"Authorization": f"Bearer {token}"} if token else {})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            raw, ctype = r.read().decode(), r.headers.get_content_type()
+            status = r.status
+    except urllib.error.HTTPError as e:
+        raw, ctype, status = e.read().decode(), e.headers.get_content_type(), e.code
+    return status, json.loads(raw) if ctype == "application/json" else raw
+
+
+def quickstart_phase(card: str) -> dict:
+    """The README's quick start through the port's own entry points: ``python
+    -m agentcontrolplane_tpu_torch run --tpu-preset llama3-8b`` as a
+    subprocess (its own bf16 engine), driven by the port's CLI in this
+    process (``main([...])`` with ``--server`` and ``--token``): ``apply -f``
+    of a YAML manifest, ``get``, ``task create --follow`` to FinalAnswer,
+    ``task show``, an approval and a human contact answered through
+    ``approvals approve`` and ``contacts respond``, ``delete`` of the forced
+    Tasks, ``events``, ``chat``, the REST routes (``/v1/models``,
+    ``/metrics``, ``/v1/engine``, a 401), then SIGTERM and exit code 0. The
+    subprocess's decode steps and walk launches are read from its
+    ``/v1/engine`` before and after the drive."""
+    import contextlib
+    import io
+    import os
+    import signal
+    import tempfile
+
+    import torch
+
+    from agentcontrolplane_tpu_torch.api.yamlsubset import load_all
+    from agentcontrolplane_tpu_torch.cli import main as cli_main
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0, total = torch.cuda.mem_get_info()
+    parent_reserved = torch.cuda.memory_reserved()
+    say(f"quick start: before the subprocess, {free0 / 1e9:.2f} of {total / 1e9:.2f} GB free on "
+        f"the card, this process holds {parent_reserved / 1e9:.3f} GB reserved by torch "
+        f"(plus its CUDA context)  [{card}]")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    token = "quickstart-" + os.urandom(8).hex()
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        log_path = out_dir / "quickstart_run.log"
+        log = open(log_path, "w")
+        env = dict(os.environ, ACP_TPU_LOG_LEVEL="WARNING", PYTHONUNBUFFERED="1")
+        env.pop("ACP_API_TOKEN", None)
+        t_start = time.monotonic()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "agentcontrolplane_tpu_torch", "run",
+             "--tpu-preset", "llama3-8b", "--tpu-slots", "8", "--tpu-ctx", "2048",
+             "--db", str(Path(tmp) / "acp.db"), "--port", str(port), "--api-token", token],
+            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)
+
+        def stop_failed(msg: str):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+            log.flush()
+            tail = log_path.read_text()[-3000:]
+            fail(f"quick start: {msg}; the operator's log ends:\n{tail}")
+
+        def cli(*argv, stdin: str | None = None) -> tuple[int, str, str]:
+            out, err = io.StringIO(), io.StringIO()
+            saved = sys.stdin
+            if stdin is not None:
+                sys.stdin = io.StringIO(stdin)
+            try:
+                with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                    rc = cli_main(["--server", base, "--token", token, *argv])
+            except SystemExit as e:
+                rc = e.code
+            finally:
+                sys.stdin = saved
+            return rc, out.getvalue(), err.getvalue()
+
+        def api(path: str):
+            return _get(base, path, token)
+
+        def wait(pred, what: str, timeout: float = 120.0, poll: float = 0.02):
+            deadline = time.monotonic() + timeout
+            while True:
+                got = pred()
+                if got:
+                    return got
+                if proc.poll() is not None:
+                    stop_failed(f"the operator exited with {proc.returncode} waiting for {what}")
+                if time.monotonic() > deadline:
+                    stop_failed(f"timed out waiting for {what}")
+                time.sleep(poll)
+
+        try:
+            # 1. start: the subprocess builds its own engine, then serves REST
+            def ready():
+                try:
+                    return _get(base, "/readyz")[0] == 200
+                except OSError:
+                    return False
+            wait(ready, "/readyz", timeout=600, poll=0.2)
+            ready_s = time.monotonic() - t_start
+            free1, _ = torch.cuda.mem_get_info()
+            st, eng0 = api("/v1/engine")
+            if st != 200 or not eng0.get("configured"):
+                stop_failed(f"/v1/engine before the drive: {st} {eng0}")
+            say(f"quick start: `run --tpu-preset llama3-8b` -> /readyz in {ready_s:.2f} s; the "
+                f"operator process holds {(free0 - free1) / 1e9:.2f} GB of the card "
+                f"({eng0['model']['weight_bytes'] / 1e9:.3f} GB of bf16 weights, "
+                f"{eng0['rank']['pool_bytes'] / 1e9:.3f} GB of KV pool); "
+                f"{free1 / 1e9:.2f} GB left free  [{card}]")
+
+            # 2. apply the README's example and a YAML manifest of the
+            # smoke's, then get until the Agents are Ready
+            manifest = Path(tmp) / "quickstart.yaml"
+            manifest.write_text(QUICKSTART_YAML.format(python=sys.executable,
+                                                       echo_server=ECHO_SERVER))
+            t0 = time.monotonic()
+            for path, n in ((QUICKSTART_EXAMPLE, 6), (manifest, 9)):
+                rc, text, err = cli("apply", "-f", str(path))
+                if rc != 0 or text.count(" created") != n:
+                    stop_failed(f"apply -f {path.name}: rc {rc}, {text!r} {err!r}")
+
+            def agents_ready():
+                rc, table, err = cli("get", "Agent")
+                rows = {ln.split()[0]: ln.split()[1:2] for ln in table.splitlines()[1:] if ln}
+                return rc == 0 and all(rows.get(a) == ["Ready"] for a in QUICKSTART_AGENTS)
+            wait(agents_ready, "the three Agents Ready", poll=0.1)
+            apply_ready_ms = (time.monotonic() - t0) * 1e3
+            rc, text, err = cli("get", "LLM", "llama3-tpu", "-o", "yaml")
+            docs = load_all(text) if rc == 0 else []
+            if not docs or not (docs[0].get("status") or {}).get("ready"):
+                stop_failed(f"get LLM llama3-tpu -o yaml: rc {rc}, {text[:400]!r} {err!r}")
+            n_docs = len(load_all(QUICKSTART_EXAMPLE.read_text())) + len(
+                load_all(manifest.read_text()))
+            say(f"quick start: apply -f examples/{QUICKSTART_EXAMPLE.name} and the smoke's "
+                f"manifest ({n_docs} YAML documents) -> every Agent Ready in "
+                f"{apply_ready_ms:.1f} ms (get Agent polled)  [{card}]")
+
+            # 3. Tasks to FinalAnswer through task create --follow: the
+            # README's (up to 256 tokens) and the smoke's plain Agent's (16)
+            final_ms = {}
+            for agent, message in (("gpu-assistant", "What's the capital of France?"),
+                                   ("my-assistant", "Say hello in one line.")):
+                t0 = time.monotonic()
+                rc, text, err = cli("task", "create", agent, message, "--follow")
+                final_ms[agent] = (time.monotonic() - t0) * 1e3
+                if rc != 0 or "phase: FinalAnswer" not in text:
+                    stop_failed(f"task create {agent} --follow: rc {rc}, {text!r} {err!r}")
+                task_name = text.split()[0].split("/", 1)[1]
+                rc, shown, err = cli("task", "show", task_name)
+                if rc != 0 or "[SYSTEM]" not in shown or "[USER]" not in shown \
+                        or "[ASSISTANT]" not in shown:
+                    stop_failed(f"task show {task_name}: rc {rc}, {shown!r} {err!r}")
+            say("quick start: task create --follow -> FinalAnswer in "
+                + ", ".join(f"{v:.1f} ms ({k})" for k, v in final_ms.items())
+                + f" (0.5 s polls); task show OK  [{card}]")
+
+            def toolcalls(task: str) -> list:
+                st, docs = api(f"/v1/resources/ToolCall?labelSelector=acp.tpu/task={task}")
+                return docs if st == 200 else []
+
+            # 4a. the approval: echo__echo behind the approvals channel
+            rc, text, err = cli("task", "create", "echoer", "Echo the word hello.")
+            if rc != 0:
+                stop_failed(f"task create echoer: rc {rc} {err!r}")
+            echo_task = text.split()[0].split("/", 1)[1]
+
+            def pending(route: str, command: str):
+                """The first pending call id that ``command`` lists (its
+                table runs a long id into the next column, so the id is
+                read from the route)."""
+                st, rows = api(route)
+                if st != 200 or not rows:
+                    return None
+                rc, table, err = cli(command)
+                return rows[0]["callId"] if rc == 0 and rows[0]["callId"] in table else None
+            call_id = wait(lambda: pending("/v1/approvals", "approvals"), "a pending approval",
+                           poll=0.1)
+            tcs = toolcalls(echo_task)
+            if not any((tc.get("status") or {}).get("phase") == "AwaitingHumanApproval"
+                       for tc in tcs):
+                stop_failed(f"no ToolCall of {echo_task} AwaitingHumanApproval: {tcs}")
+            t0 = time.monotonic()
+            rc, text, err = cli("approvals", "approve", call_id, "--comment", "ok")
+            if rc != 0:
+                stop_failed(f"approvals approve {call_id}: rc {rc}, {text!r} {err!r}")
+            succeeded = wait(lambda: [tc for tc in toolcalls(echo_task)
+                                      if (tc.get("status") or {}).get("phase") == "Succeeded"],
+                             "the approved ToolCall Succeeded")
+            approve_ms = (time.monotonic() - t0) * 1e3
+            echo_result = succeeded[0]["status"].get("result", "")
+            if not echo_result.startswith("echo: "):
+                stop_failed(f"the approved echo ToolCall's result: {echo_result!r}")
+
+            # 4b. the human contact, answered through contacts respond
+            rc, text, err = cli("task", "create", "asker", "Check the deploy with a human.")
+            if rc != 0:
+                stop_failed(f"task create asker: rc {rc} {err!r}")
+            ask_task = text.split()[0].split("/", 1)[1]
+
+            contact_id = wait(lambda: pending("/v1/contacts", "contacts"),
+                              "a pending human contact", poll=0.1)
+            if not any((tc.get("status") or {}).get("phase") == "AwaitingHumanInput"
+                       for tc in toolcalls(ask_task)):
+                stop_failed(f"no ToolCall of {ask_task} AwaitingHumanInput")
+            t0 = time.monotonic()
+            rc, text, err = cli("contacts", "respond", contact_id, QUICKSTART_ANSWER)
+            if rc != 0:
+                stop_failed(f"contacts respond {contact_id}: rc {rc}, {text!r} {err!r}")
+
+            def answer_joined():
+                st, t = api(f"/v1/tasks/{ask_task}")
+                return st == 200 and any(m.get("role") == "tool"
+                                         and m.get("content") == QUICKSTART_ANSWER
+                                         for m in t["contextWindow"])
+            wait(answer_joined, "the human's answer in the Task's window")
+            respond_ms = (time.monotonic() - t0) * 1e3
+            # forced Tasks never end with random weights: take them away
+            for name in (echo_task, ask_task):
+                rc, text, err = cli("delete", "Task", name)
+                if rc != 0:
+                    stop_failed(f"delete Task {name}: rc {rc}, {text!r} {err!r}")
+            say(f"quick start: approvals approve -> echo ToolCall Succeeded in {approve_ms:.1f} "
+                f"ms; contacts respond -> answer in the Task's window in {respond_ms:.1f} ms; "
+                f"both forced Tasks deleted  [{card}]")
+
+            # 5. the other routes
+            rc, events, err = cli("events")
+            if rc != 0 or not events.strip():
+                stop_failed(f"events: rc {rc} {err!r}")
+            st, models = api("/v1/models")
+            ids = {m["id"]: m for m in models["data"]} if st == 200 else {}
+            if "tpu" not in ids or not all(ids.get(n, {}).get("ready") for n in (
+                    "llama3-tpu", "llama3-tpu-echo", "llama3-tpu-ask")):
+                stop_failed(f"/v1/models: {st} {models}")
+            st, metrics = api("/metrics")
+            if st != 200 or 'acp_objects{kind="Task",phase="' not in metrics \
+                    or "acp_engine_active_slots" not in metrics:
+                stop_failed(f"/metrics lacks the Task phase gauges or the engine's: {st}")
+            task_gauges = [ln for ln in metrics.splitlines()
+                           if ln.startswith('acp_objects{kind="Task"')]
+            st, anon = _get(base, "/v1/tasks")
+            if st != 401:
+                stop_failed(f"/v1/tasks without the token answered {st}, not 401")
+            rc, chat_out, chat_err = cli("chat", "--max-tokens", "8", "--temperature", "0",
+                                         stdin="Hello there.\n")
+            if rc != 0 or chat_err or not chat_out.startswith("chatting with the engine"):
+                stop_failed(f"chat: rc {rc}, {chat_out!r} {chat_err!r}")
+            st, eng1 = api("/v1/engine")
+            if st != 200:
+                stop_failed(f"/v1/engine after the drive: {st}")
+            steps = eng1["decode_steps"] - eng0["decode_steps"]
+            launches = eng1["walk_launches"]["total"] - eng0["walk_launches"]["total"]
+            int8 = eng1["walk_launches"]["int8"] - eng0["walk_launches"]["int8"]
+            n_layers = eng1["model"]["layers"]
+            if steps <= 0 or launches != n_layers * steps or int8 != 0:
+                stop_failed(f"walk launches {launches} (int8 {int8}) != {n_layers} x {steps} "
+                            f"decode steps")
+            say(f"quick start: events {len(events.splitlines())} lines; /v1/models "
+                f"{sorted(ids)}; /metrics {task_gauges}; no token -> 401; chat OK; the operator "
+                f"process ran {steps} decode steps and {launches} walk launches "
+                f"(= {n_layers} x {steps}, bf16 walk) during the drive, "
+                f"{eng1['walk_launches']['total']} since it started  [{card}]")
+
+            # 6. stop: SIGTERM, exit code 0
+            t0 = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(90)
+            except subprocess.TimeoutExpired:
+                stop_failed("the operator did not exit within 90 s of SIGTERM")
+            if rc != 0:
+                stop_failed(f"the operator exited with {rc} after SIGTERM")
+            stop_s = time.monotonic() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+            log.close()
+    phase_s = time.monotonic() - t_phase
+    say(f"quick start: SIGTERM -> exit 0 in {stop_s:.2f} s; phase {phase_s:.1f} s  [{card}]")
+    return {"card": card, "ready_s": ready_s, "apply_ready_ms": apply_ready_ms,
+            "final_answer_ms": final_ms, "approve_ms": approve_ms, "respond_ms": respond_ms,
+            "decode_steps": steps, "walk_launches": launches,
+            "walk_launches_since_start": eng1["walk_launches"]["total"],
+            "card_bytes_free_before": free0, "card_bytes_free_after_start": free1,
+            "parent_reserved_bytes": parent_reserved, "task_gauges": task_gauges,
+            "stop_s": stop_s, "phase_s": phase_s}
+
+
 def _ptxas_summary(logs: dict) -> dict:
     """Per library: registers and spill bytes of every kernel instantiation
     from ``-Xptxas -v``, keyed by the mangled name."""
@@ -2301,6 +2736,8 @@ def main() -> int:
         "sp2xtp2_int8": timed("sp2xtp2_int8", parallel_serving_phase, card, "sp2xtp2-int8", 2, 2,
                               ref_int8, max_tokens=12, quantize_weights=True, quantize_kv=True),
     }
+    # the README's quick start, against an operator process of its own
+    quickstart = timed("quickstart", quickstart_phase, card)
 
     docs = []
     for walk, name, source, replaces, serving in (
@@ -2352,7 +2789,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "ptxas": ptxas, "kernels": docs,
          "kernel_cases": kernels, "model": model, "serving": perf, "serving_int8": perf_int8,
-         "parallel": par, "walls_s": walls, "seconds": time.monotonic() - t_start}, indent=1,
+         "parallel": par, "quickstart": quickstart, "walls_s": walls, "seconds": time.monotonic() - t_start}, indent=1,
         default=str))
     say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + " s (serving phases without the constrained, control-plane and operator phases)")

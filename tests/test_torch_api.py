@@ -1,14 +1,14 @@
 """The port's object model and manifest reader against the JAX package's, on
 the CPU.
 
-- Every document of the five ``examples/*.yaml`` (loaded with ``yaml`` here,
+- Every document of the six ``examples/*.yaml`` (loaded with ``yaml`` here,
   in the test) goes through both ``resource_from_manifest``s: the storage
   form (``model_dump()``, snake_case) and the manifest form
   (``model_dump(by_alias=True)``, camelCase) are equal, with the uid and
   the timestamp pinned, and so are ``resource_to_manifest``'s.
 - The same JSON text through the reference's ``load_manifests`` (YAML) and
-  the port's (JSON) gives equal objects; the port's ``dump_manifests``
-  output loads back in both.
+  the port's (JSON first, then its YAML subset) gives equal objects; the
+  port's ``dump_manifests`` output (YAML) loads back in both.
 - Bad kinds, names, Literals, bounds and types raise ``Invalid`` on both;
   messages are compared by their ``invalid {kind} manifest:`` prefix where
   the tail is pydantic's text.
@@ -53,7 +53,7 @@ def _pin(res):
 
 
 def test_the_examples_hold_every_kind_the_slice_runs():
-    assert len(EXAMPLES) == 5
+    assert len(EXAMPLES) == 6
     kinds = {p.values[0]["kind"] for p in DOCS}
     assert {"LLM", "Agent", "Task", "MCPServer", "ContactChannel", "Secret"} <= kinds
 
@@ -86,13 +86,14 @@ def test_json_text_loads_alike_in_both_packages():
     assert [_pin(r).model_dump() for r in manifests.load_manifests(items)] == \
         [r.model_dump() for r in ref[:3]]
     assert manifests.load_manifests("null") == []
-    # the port's dump is JSON, which the reference's YAML reader also takes
+    # the port's dump is YAML, which the reference's reader also takes
     dumped = manifests.dump_manifests(ours)
     back = manifests.load_manifests(dumped)
     assert [r.model_dump() for r in back] == [r.model_dump() for r in ours]
     assert [r.model_dump() for r in ref_manifests.load_manifests(dumped)] == \
         [r.model_dump() for r in ours]
-    with pytest.raises(Invalid, match="not valid JSON"):
+    # text that is not JSON is read as YAML: this one lacks its name
+    with pytest.raises(Invalid, match="requires metadata.name"):
         manifests.load_manifests("kind: LLM\n")
 
 

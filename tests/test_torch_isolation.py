@@ -57,6 +57,10 @@ def test_scan_covers_the_port_and_catches_offenders():
         "agentcontrolplane_tpu_torch/humanlayer/local.py",
         "agentcontrolplane_tpu_torch/observability/tracing.py",
         "agentcontrolplane_tpu_torch/operator.py",
+        "agentcontrolplane_tpu_torch/server/operator_rest.py",
+        "agentcontrolplane_tpu_torch/cli.py",
+        "agentcontrolplane_tpu_torch/api/yamlsubset.py",
+        "agentcontrolplane_tpu_torch/utils/tokens.py",
         "chip_smoke.py",
         "tests/torch_parallel_ranks.py",
     ):

@@ -20,7 +20,9 @@
   frees the slot, the Task stays ReadyForLLM with its lease released, and
   a new ``Operator`` over the same sqlite file resumes it to FinalAnswer.
 - The options the port does not serve yet raise ``Invalid`` at
-  construction, and the operator wires six controllers.
+  construction, and the operator wires six controllers. Every operator
+  here runs without its REST server (``enable_rest=False``; the REST
+  routes are ``tests/test_torch_rest.py``'s).
 """
 
 import asyncio
@@ -188,8 +190,8 @@ def _view(store) -> list:
 async def _run_forced_tasks(ns, engine) -> tuple:
     factory = OneTurnFactory(ns.factory.DefaultLLMClientFactory(engine))
     op = ns.operator.Operator(ns.operator.OperatorOptions(
-        llm_probe=False, engine=engine, identity=f"{ns.name}-op",
-        **({"enable_rest": False} if ns is REF else {})), llm_factory=factory)
+        llm_probe=False, engine=engine, identity=f"{ns.name}-op", enable_rest=False),
+        llm_factory=factory)
     _tune(op)
     store = op.store
     for kind, doc in MANIFEST:
@@ -261,7 +263,7 @@ async def test_stop_with_a_turn_in_flight_then_resume(engines, tmp_path):
 
     async def start(factory=None):
         op = port_operator.Operator(port_operator.OperatorOptions(
-            db_path=db, llm_probe=False, engine=port), llm_factory=factory)
+            db_path=db, llm_probe=False, engine=port, enable_rest=False), llm_factory=factory)
         _tune(op)
         await op.start()
         return op
@@ -301,7 +303,6 @@ async def test_stop_with_a_turn_in_flight_then_resume(engines, tmp_path):
 
 
 @pytest.mark.parametrize("option,value,message", [
-    ("enable_rest", True, r"enable_rest is not ported yet \(ROADMAP A.2\(b\) part 3\)"),
     ("store_address", "unix:///tmp/x.sock", r"store_address is not ported yet \(ROADMAP A.12\)"),
     ("serve_store", "tcp://127.0.0.1:0", r"serve_store is not ported yet \(ROADMAP A.12\)"),
     ("store_token", "secret", r"store_token is not ported yet \(ROADMAP A.12\)"),
@@ -315,9 +316,8 @@ def test_unported_options_are_refused(option, value, message):
 async def test_operator_wires_six_controllers_like_the_reference():
     views = []
     for ns in (REF, PORT):
-        kw = {"enable_rest": False} if ns is REF else {}
         op = ns.operator.Operator(ns.operator.OperatorOptions(
-            task_workers=3, toolcall_workers=2, identity="x", **kw))
+            task_workers=3, toolcall_workers=2, identity="x", enable_rest=False))
         try:
             views.append(sorted((c.name, c.kind, c.workers, sorted(c.mappers))
                                 for c in op.manager._controllers))
@@ -340,5 +340,5 @@ async def test_run_operator_stops_the_engine_once_signalled(monkeypatch):
 
     monkeypatch.setattr(port_operator, "serve_until_signalled", signalled)
     await asyncio.wait_for(port_operator.run_operator(
-        port_operator.OperatorOptions(engine=Engine(), llm_probe=False)), 30)
+        port_operator.OperatorOptions(engine=Engine(), llm_probe=False, enable_rest=False)), 30)
     assert stopped == [True]
