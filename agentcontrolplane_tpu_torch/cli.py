@@ -3,7 +3,8 @@ operator and kubectl-style resource management, as the reference's
 ``acp-tpu`` (``agentcontrolplane_tpu/cli.py``), plus the engine's own
 front door (``serve``):
 
-  run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--device cpu]
+  run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--tpu-park-max-s 30]
+      [--device cpu]
   apply -f manifests.yaml
   get <Kind> [name] [-o yaml]
   delete <Kind> <name>
@@ -112,7 +113,8 @@ def cmd_run(args) -> int:
                         max_slots=args.tpu_slots, max_ctx=args.tpu_ctx,
                         max_queue=args.tpu_max_queue,
                         quantize_weights=args.tpu_quantize_weights,
-                        quantize_kv=args.tpu_quantize_kv)
+                        quantize_kv=args.tpu_quantize_kv,
+                        park_max_s=args.tpu_park_max_s)
         engine.start()
     options = OperatorOptions(
         db_path=args.db,
@@ -448,6 +450,10 @@ def build_parser() -> argparse.ArgumentParser:
                      help="int8 per-output-channel layer weights (weight-only)")
     run.add_argument("--tpu-quantize-kv", "--quantize-kv", action="store_true",
                      help="int8 KV pages with per-row-per-head f32 scales")
+    run.add_argument("--tpu-park-max-s", type=float, default=30.0,
+                     help="seconds a slot parked at generation end (prompt KV resident) "
+                          "waits for the conversation's next turn before it is released; "
+                          "0 disables parking")
     run.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     run.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     run.set_defaults(fn=cmd_run)

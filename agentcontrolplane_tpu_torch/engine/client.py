@@ -4,9 +4,9 @@ port's copy of the reference's ``agentcontrolplane_tpu/engine/client.py``.
 The engine is stateless with respect to conversations (the whole context
 window arrives every time); the KV cache is per-request state inside it.
 
-Not passed yet, because the port's engine does not have them: ``park=``
-(parked slots, ROADMAP A.8), ``affinity_key=`` (fleet routing, A.12) and
-``trace=`` (the flight recorder's phase spans, A.11).
+Not passed yet, because the port's engine does not have them:
+``affinity_key=`` (fleet routing, A.12) and ``trace=`` (the flight
+recorder's phase spans, A.11).
 """
 
 from __future__ import annotations
@@ -111,7 +111,8 @@ class TPUEngineClient(LLMClient):
         )
         allowed = {t.function.name for t in tools} if tools else None
         engine_cb = None
-        if self.overlap_tool_calls and tools and on_tool_call is not None:
+        overlap = self.overlap_tool_calls and bool(tools)
+        if overlap and on_tool_call is not None:
             loop = asyncio.get_running_loop()
             seen = {"n": 0}  # re-index past filtered (hallucinated) names
 
@@ -125,8 +126,13 @@ class TPUEngineClient(LLMClient):
 
         # the queue deadline rides INTO the engine: a request that would
         # outwait it is failed there without a prefill
-        future = self.engine.submit(prompt, sampling, timeout_s=self.queue_timeout_s,
-                                    on_tool_call=engine_cb)
+        future = self.engine.submit(
+            prompt, sampling, timeout_s=self.queue_timeout_s, on_tool_call=engine_cb,
+            # park the finished slot: the conversation's next turn (sent as
+            # soon as the overlapped tools complete) adopts it and prefills
+            # only its suffix
+            park=overlap,
+        )
         try:
             result = await self._await_result(future)
         except asyncio.TimeoutError as e:

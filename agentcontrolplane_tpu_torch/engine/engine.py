@@ -4,13 +4,35 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
 - One **engine thread** owns the device state (params, page pools, the
   decode carry). Requests arrive on a thread-safe queue and resolve
   ``concurrent.futures.Future``s.
-- **Admission** is strict FIFO. A request reserves a slot and KV pages for
-  its whole generation (prompt + ``max_tokens``, capped at the context) at
-  admission; when the pool cannot cover the head of the queue it waits
-  there (backpressure) until finishing requests free pages. Admitted
-  requests prefill in batches of up to ``prefill_batch_max`` prompts, rows
-  padded to a page-multiple bucket, pad pages routed to ``TRASH_PAGE``,
-  and sample their first token.
+- **Admission** is strict FIFO. A request reserves a slot and the KV
+  pages of its prefill row only (prompt + forced prefix); when the pool
+  cannot cover the head of the queue, parked slots and then prefix-cache
+  entries yield, and otherwise it waits there (backpressure). Admitted
+  requests prefill in batches of up to ``prefill_batch_max`` rows, padded
+  to a page-multiple bucket, pad pages routed to ``TRASH_PAGE``, and
+  sample their first token.
+- **KV reuse across an agent's turns** (the reference's defaults):
+  - the **prefix cache** (``prefix_cache_entries`` / ``_max_tokens``):
+    after a prefill, an LRU entry takes a reference on the row's leading
+    whole prompt pages (zero copy, ``PageAllocator.share``); a later row
+    extending that prefix borrows the pages and prefills only its suffix
+    (``prefill_paged_continue``). Shared pages are never written: every
+    cut is page-aligned and below the row's last token;
+  - **parked slots** (``submit(park=True)``, ``park_max_s``): a finished
+    turn resolves its future but keeps its slot and prompt pages, so the
+    conversation's next turn adopts the slot in place and prefills only
+    its suffix. Parked slots yield first under pressure and expire
+    unclaimed; under a serving ``group`` parking is off (expiry reads the
+    wall clock, which would fork the ranks);
+  - **lazy page growth with preempt-and-resume**: before every decode
+    block each slot's table must cover ``seq_len + K``; a slot that
+    crosses a page grows by ``page_lookahead_blocks`` blocks of pages. A
+    pool that runs short reclaims others' lookahead, releases parked
+    slots, evicts cache entries and then preempts a victim (parked
+    first, then fewest sampled tokens, ties to the most recently
+    admitted): its sampled tokens are saved, its pages freed, and it is
+    requeued at the front to resume with a prompt + partial prefill that
+    streams nothing twice. ``GenerationResult.preempt_count`` counts it.
 - **Decode** runs K-step blocks at the smallest width bucket covering the
   live slots: every step runs ``decode_step_paged`` (the CUDA paged
   attention kernel in every layer on the card), samples, and detects
@@ -44,11 +66,10 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   one frame per loop iteration; followers refuse ``submit`` and replay the
   frames. Sampling generators are seeded identically on every rank.
 
-Left out for now (each is in ROADMAP): preemption, the prefix cache,
-chunked prefill and the megastep, speculative decoding, parked slots
-(``submit(park=)``), fleet affinity and trace export (``affinity_key=``,
-``trace=``), dedup, the host KV tier, the flight recorder, the metrics
-registry and fault sites, and multi-host.
+Left out for now (each is in ROADMAP): chunked prefill and the megastep,
+speculative decoding, fleet affinity and trace export (``affinity_key=``,
+``trace=``), shared-prefix dedup, the host KV tier, the flight recorder,
+fault sites, and multi-host.
 """
 
 from __future__ import annotations
@@ -60,7 +81,7 @@ import queue
 import threading
 import time
 import uuid
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -75,7 +96,9 @@ from ..models.llama import (
     decode_step_paged,
     init_paged_cache,
     prefill_paged_batch,
+    prefill_paged_continue,
 )
+from ..observability.metrics import REGISTRY
 from ..ops.cuda import paged_attention as walk
 from ..ops.paged import TRASH_PAGE, PageAllocator
 from ..ops.quant import QUANTIZABLE, QuantizedTensor, quantize_stacked
@@ -127,7 +150,9 @@ class GenerationResult:
     prompt_tokens: int
     ttft_ms: float
     latency_ms: float
-    preempt_count: int = 0  # always 0: the port does not preempt yet
+    # times this request was preempted under KV pool pressure and resumed;
+    # preemption is invisible in the output, this is its only trace
+    preempt_count: int = 0
     kv_handoff: Optional[object] = None  # always None: no disaggregation yet
 
 
@@ -157,6 +182,14 @@ class _Request:
     # future.admitted — a client's generation clock starts here, so queue
     # wait does not eat its budget
     admitted: Future = field(default_factory=Future)
+    # park at a normal finish: keep the slot and its prompt KV so the
+    # conversation's next turn prefills only its suffix (Engine._park)
+    park: bool = False
+    # preempt-and-resume: the tokens already SAMPLED (past any forced
+    # prefix) before a preemption freed the slot; the resumed prefill row is
+    # prompt + forced prefix + these, so decode continues where it stopped
+    resume_tokens: list[int] = field(default_factory=list)
+    preempt_count: int = 0
 
     def emit(self, tokens: list[int]) -> None:
         if self.on_tokens is not None and tokens:
@@ -174,6 +207,13 @@ class _Slot:
     prompt_len: int = 0
     prefix_len: int = 0  # leading forced tokens in ``generated``
     first_token_at: float = 0.0
+    admit_seq: int = 0  # admission order (the victim policy's tie-break)
+    # parked: the future resolved, the slot lingers with its prompt KV for
+    # the conversation's next turn; it never decodes, yields first under
+    # pressure, and expires after park_max_s
+    parked: bool = False
+    parked_at: float = 0.0
+    park_cut: int = 0  # KV rows valid for adoption (page-aligned)
 
 
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -226,6 +266,17 @@ class Engine:
         decode_block_size: int = 8,
         page_size: int = 16,
         kv_pages: int = 0,  # total pages (0 = every slot can hold max_ctx)
+        # prefix cache: LRU entries of refcounted prompt pages; 0 disables.
+        # The token bound counts distinct pages (entries of one growing
+        # conversation share theirs)
+        prefix_cache_entries: int = 4,
+        prefix_cache_max_tokens: int = 4096,
+        # decode blocks of pages a slot grows by when it crosses a page, so
+        # its block table is not re-uploaded every block
+        page_lookahead_blocks: int = 8,
+        # parked slots (submit(park=True)) expire after this long unclaimed;
+        # 0 disables parking. Forced to 0 under a serving group
+        park_max_s: float = 30.0,
         max_queue: int = 0,  # 0 = unbounded
         quantize: Optional[str] = None,  # "int8" = weight-only int8 serving
         # alias for quantize="int8", matching the reference's knob names
@@ -267,7 +318,16 @@ class Engine:
         self.max_queue = max(0, max_queue)
         self.max_pages_per_seq = self.max_ctx // page_size
         self.num_pages = kv_pages or (max_slots * self.max_pages_per_seq + 1)
+        self.page_lookahead_blocks = max(1, page_lookahead_blocks)
         self.group = group
+        # the prefix cache and preemption read no clock, so every rank of a
+        # group takes the same decisions from the same frames; parking's
+        # expiry reads the wall clock, so it is off in a group
+        self._prefix_enabled = prefix_cache_entries > 0
+        self._prefix_cache_entries = prefix_cache_entries
+        self._prefix_cache_max_tokens = prefix_cache_max_tokens
+        self._prefix_lock = threading.Lock()  # the engine thread writes, stats() reads
+        self.park_max_s = 0.0 if group is not None else max(0.0, park_max_s)
         # axis sizes, read by the LLM controller (``engine.mesh.shape``)
         self.mesh = ServingMesh.of(group)
         # lockstep frame stream across the group's ranks (None on one rank)
@@ -350,10 +410,17 @@ class Engine:
         self.finished: deque[tuple[str, tuple, str]] = deque(maxlen=4096)
         self.decode_steps = 0
         self.requests_prefilled = 0
+        self.prefill_tokens = 0  # rows run through the model at prefill (suffixes on reuse)
         self.tokens_generated = 0
         self.table_uploads = 0
         self.sheds = 0
         self.tool_calls_early = 0
+        self.preemptions = 0  # pool-pressure preempt-and-resume events
+        self.parks = 0  # slots parked at generation end
+        self.park_adoptions = 0  # parked slots adopted by a follow-up turn
+        self.park_releases = 0  # parked slots released (pressure, expiry, stop)
+        self._prefix_hits = 0
+        self._prefix_misses = 0
 
     def _init_kv_state(self) -> None:
         """(Re)build the page pools and the host bookkeeping — shared by
@@ -364,11 +431,17 @@ class Engine:
         )
         self.pool_bytes = sum(t.numel() * t.element_size() for t in self.cache.values())
         self._allocator = PageAllocator(self.num_pages)
+        # prompt-prefix tokens -> {"cut", "pages"}, LRU order; each entry
+        # holds one reference on its pages
+        with self._prefix_lock:
+            self._prefix_cache: OrderedDict[tuple, dict] = OrderedDict()
         self._slot_pages: dict[int, list[int]] = {}
         self._block_tables = np.full(
             (self.max_slots, self.max_pages_per_seq), TRASH_PAGE, dtype=np.int32
         )
         self._slots: dict[int, _Slot] = {}
+        self._parked_count = 0  # slots in _slots with parked=True
+        self._admit_seq = 0
         self._free = list(range(self.max_slots))
         # host mirrors of per-slot decode state
         self._seq_lens = np.zeros(self.max_slots, dtype=np.int32)
@@ -383,6 +456,7 @@ class Engine:
         # when slot assignment changed (admission, finish, cancel)
         self._dev: Optional[dict] = None
         self._state_dirty = True
+        self._tables_dirty = True  # block tables changed (pages appended or freed)
 
     # -- public API ------------------------------------------------------
 
@@ -453,6 +527,7 @@ class Engine:
         on_tokens=None,
         timeout_s: Optional[float] = None,
         on_tool_call=None,
+        park: bool = False,
     ) -> Future:
         """Thread-safe; returns a Future[GenerationResult]. ``timeout_s``
         fails the request fast (DeadlineExceededError) if it is still queued
@@ -464,7 +539,13 @@ class Engine:
         MessageToolCall)`` the moment a streamed tool call's braces close,
         and the calls are also on ``future.early_tool_calls``. Both must not
         block, and neither changes what is generated.
-        ``future.admitted`` completes when the request takes a slot."""
+        ``future.admitted`` completes when the request takes a slot.
+
+        ``park=True`` keeps the slot parked after a normal finish, holding
+        the prompt's KV, so the conversation's next turn (a prompt that
+        extends this one) adopts it and prefills only its suffix. It
+        changes when KV is computed, never what is generated; a truncated
+        prompt (its tail kept) never parks."""
         s = sampling or SamplingParams()
         tokens = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         prefix_len = len(s.forced_prefix)
@@ -485,6 +566,7 @@ class Engine:
             deadline=(time.monotonic() + timeout_s) if timeout_s else None,
             on_tokens=on_tokens,
             on_tool_call=on_tool_call,
+            park=bool(park) and self.park_max_s > 0 and not truncated,
         )
         if on_tool_call is not None:
             req.tool_parser = ToolStreamParser()
@@ -546,7 +628,7 @@ class Engine:
     def stats(self) -> dict:
         """Point-in-time status (served at /v1/engine). Cross-thread reads
         of ints and lengths only."""
-        return {
+        out = {
             "model": {
                 "dim": self.config.dim,
                 "layers": self.config.n_layers,
@@ -567,13 +649,17 @@ class Engine:
             "kv_layout": "paged",
             "max_slots": self.max_slots,
             "max_ctx": self.max_ctx,
-            "active_slots": len(self._slots),
+            "active_slots": self._n_active(),
+            "parked_slots": self._parked_count,
             "waiting": len(self._waiting) + self._queue.qsize(),
             "max_queue": self.max_queue,
             "sheds": self.sheds,
+            "preemptions": self.preemptions,
+            "preempted_waiting": self._preempted_waiting(),
             "decode_block_size": self.decode_block_size,
             "decode_steps": self.decode_steps,
             "requests_prefilled": self.requests_prefilled,
+            "prefill_tokens": self.prefill_tokens,
             "tokens_generated": self.tokens_generated,
             "tokens_per_decode_step": (
                 round(self.tokens_generated / self.decode_steps, 4) if self.decode_steps else 0.0
@@ -589,6 +675,13 @@ class Engine:
             "constraint_table_bytes": self.constraint_table_bytes,
             "constraint_table_build_s": round(self.constraint_table_build_s, 4),
             "tool_calls_early": self.tool_calls_early,
+            "tool_overlap": {
+                "early_calls": self.tool_calls_early,
+                "parks": self.parks,
+                "park_adoptions": self.park_adoptions,
+                "park_releases": self.park_releases,
+                "park_max_s": self.park_max_s,
+            },
             # this process's CUDA walk launches (all walks and forms, the
             # int8 walk, the state form); 0 while tensors are on the CPU
             "walk_launches": {
@@ -605,6 +698,39 @@ class Engine:
                 },
             },
         }
+        if self._prefix_enabled:
+            with self._prefix_lock:
+                out["prefix_cache"] = {
+                    "entries": len(self._prefix_cache),
+                    "capacity": self._prefix_cache_entries,
+                    "hits": self._prefix_hits,
+                    "misses": self._prefix_misses,
+                    # distinct pages the entries hold, in tokens
+                    "cached_tokens": self._cached_tokens_locked(),
+                }
+        return out
+
+    def _preempted_waiting(self) -> int:
+        """Requeued-after-preemption requests waiting. They are requeued at
+        the front and fresh arrivals append at the back, so they form a
+        prefix of the queue. A racy cross-thread read: a deque mutated
+        while it is read raises, and the count is then partial."""
+        n = 0
+        try:
+            for r in self._waiting:
+                if not r.preempt_count:
+                    break
+                n += 1
+        except RuntimeError:
+            pass
+        return n
+
+    def _n_active(self) -> int:
+        """Slots decoding: parked slots linger without work."""
+        return len(self._slots) - self._parked_count
+
+    def _has_work(self) -> bool:
+        return self._n_active() > 0
 
     # -- engine loop -----------------------------------------------------
 
@@ -612,14 +738,16 @@ class Engine:
         try:
             with torch.inference_mode():
                 while not self._stopping:
-                    self._admit(block=not self._slots)
+                    self._admit(block=not self._has_work())
                     if self._stopping:
                         break
-                    if self._slots:
+                    self._sweep_parked()
+                    if self._has_work():
                         self._decode_once()
         except Exception as e:  # an engine crash must not hang callers
             log.exception("engine loop crashed")
             self._slots.clear()
+            self._parked_count = 0
             self._stopping = True
             self._crashed = True
             for fut in list(self._outstanding):
@@ -700,7 +828,7 @@ class Engine:
         if self._channel is None:
             self._expire_deadlines()
         if held:
-            if not self._slots:
+            if not self._has_work():
                 time.sleep(0.002)
             return False
         return self._fill_slots()
@@ -746,40 +874,130 @@ class Engine:
 
     @staticmethod
     def _full_row(req: _Request) -> list[int]:
-        """The tokens a request prefills: prompt + teacher-forced prefix."""
-        return list(req.prompt) + list(req.sampling.forced_prefix)
+        """The tokens a request prefills: prompt + teacher-forced prefix,
+        plus, after a preemption, everything it had sampled, so the resumed
+        decode continues where it stopped."""
+        return list(req.prompt) + list(req.sampling.forced_prefix) + list(req.resume_tokens)
 
-    def _pages_needed(self, req: _Request) -> int:
-        """Pages for the whole generation: the prompt, the forced prefix and
-        max_tokens, capped at the context (decode never allocates)."""
-        rows = min(len(req.prompt) + len(req.sampling.forced_prefix) + req.sampling.max_tokens,
-                   self.max_ctx)
-        return -(-rows // self.page_size)
+    # -- prefix cache ----------------------------------------------------
+
+    def _match_prefix(self, req: _Request) -> Optional[tuple]:
+        """The longest entry whose key is a strict prefix of the row (at
+        least one token must remain to give logits); touches it in the LRU."""
+        full = self._full_row(req)
+        with self._prefix_lock:
+            best_key, best = None, None
+            for key, entry in self._prefix_cache.items():
+                cut = entry["cut"]
+                if cut < len(full) and (best is None or cut > best["cut"]):
+                    if tuple(full[:cut]) == key:
+                        best_key, best = key, entry
+            if best_key is None:
+                return None
+            self._prefix_cache.move_to_end(best_key)
+            return best_key, best
+
+    def _save_prefix(self, full: list[int], prompt_len: int, slot: int) -> None:
+        """After a prefill, an entry takes a reference on the slot's leading
+        whole pages (zero copy). The cut never reaches past the PROMPT into
+        the forced prefix (the next turn re-renders the assistant message,
+        not the raw forced tokens, so such a key could never match again)
+        nor to the row's last token, so no entry's page is written again."""
+        if not self._prefix_enabled:
+            return
+        cut = (min(prompt_len, len(full) - 1) // self.page_size) * self.page_size
+        if cut < min(self.prefill_buckets[0], 4 * self.page_size):
+            return  # too short to be worth caching
+        key = tuple(full[:cut])
+        with self._prefix_lock:
+            if key in self._prefix_cache:
+                self._prefix_cache.move_to_end(key)
+                return
+        pages = self._slot_pages[slot][: cut // self.page_size]
+        self._allocator.share(pages)
+        evicted: list[int] = []
+        with self._prefix_lock:
+            self._prefix_cache[key] = {"cut": cut, "pages": list(pages)}
+            while len(self._prefix_cache) > self._prefix_cache_entries or (
+                len(self._prefix_cache) > 1
+                and self._cached_tokens_locked() > self._prefix_cache_max_tokens
+            ):
+                _, old = self._prefix_cache.popitem(last=False)  # the LRU entry
+                evicted.extend(old["pages"])
+        self._allocator.free(evicted)
+
+    def _cached_tokens_locked(self) -> int:
+        """Tokens pinned by the cache, by distinct pages (hold _prefix_lock):
+        entries of one growing conversation share pages, and counting each
+        entry's cut would evict too early."""
+        pages: set[int] = set()
+        for e in self._prefix_cache.values():
+            pages.update(e["pages"])
+        return len(pages) * self.page_size
+
+    def _evict_one_prefix_entry(self) -> bool:
+        """Evict the LRU entry (allocation pressure). True if one went."""
+        with self._prefix_lock:
+            if not self._prefix_cache:
+                return False
+            _, old = self._prefix_cache.popitem(last=False)
+        self._allocator.free(old["pages"])
+        return True
+
+    # -- admission -------------------------------------------------------
 
     def _fill_slots(self) -> bool:
         admitted = False
-        while self._waiting and self._free:
+        while self._waiting and (self._free or self._parked_count):
             group = self._collect_group()
             if not group:
                 break  # the head can't get pages yet; FIFO, it waits
             admitted = True
-            for req, slot, pages in group:
+            starts: list[int] = []
+            for req, slot, pages, match in group:
                 # starts the client's generation clock; a caller that gave
                 # up may have cancelled the future already
                 with contextlib.suppress(InvalidStateError):
                     req.admitted.set_result(True)
+                start = 0
+                if match is not None:
+                    # a hit borrows the entry's pages; an adopted slot kept
+                    # its own: either way the prefix is in the table already
+                    start = match[1]["cut"]
+                    if not match[1].get("in_slot"):
+                        self._prefix_hits += 1
+                        REGISTRY.counter_add("acp_engine_prefix_cache_hit_requests", 1.0,
+                                             help="admissions that hit the prefix cache")
+                elif self._prefix_enabled and not req.truncated:
+                    self._prefix_misses += 1
+                    REGISTRY.counter_add("acp_engine_prefix_cache_miss_requests", 1.0,
+                                         help="admissions that missed the prefix cache")
+                starts.append(start)
                 self._slot_pages[slot] = pages
                 self._block_tables[slot, :] = TRASH_PAGE
                 self._block_tables[slot, : len(pages)] = pages
-            for chunk in _pow2_chunks(group, self.prefill_batch_max):
+                self._tables_dirty = True
+            items = [(item[:3], start) for item, start in zip(group, starts)]
+            plain = [it for it, st in items if st == 0]  # the cheaper causal program
+            conts = [(it, st) for it, st in items if st > 0]  # suffix continuations
+            for chunk in _pow2_chunks(plain, self.prefill_batch_max):
                 self._prefill_group(chunk)
+            for chunk in _pow2_chunks(conts, self.prefill_batch_max):
+                self._prefill_group([it for it, _ in chunk],
+                                    starts=np.asarray([st for _, st in chunk], dtype=np.int64))
         return admitted
 
-    def _collect_group(self) -> list[tuple[_Request, int, list[int]]]:
+    def _collect_group(self) -> list[tuple[_Request, int, list[int], Optional[tuple]]]:
         """Pop up to prefill_batch_max head requests, reserving a slot and
-        pages for each. Stops at the first request the pool can't cover."""
-        group: list[tuple[_Request, int, list[int]]] = []
-        while self._waiting and len(group) < self.prefill_batch_max and self._free:
+        the pages of each one's row, and resolving its KV reuse: adopting
+        the parked slot of its conversation's previous turn, or borrowing a
+        prefix-cache entry's pages (the longer cut wins; a tie goes to the
+        adoption, which moves nothing). Under pressure parked slots and then
+        cache entries yield. Stops at the first request the pool can't
+        cover (FIFO)."""
+        group: list[tuple[_Request, int, list[int], Optional[tuple]]] = []
+        while (self._waiting and len(group) < self.prefill_batch_max
+               and (self._free or self._parked_count)):
             req = self._waiting[0]
             s = req.sampling
             if s.json_only and s.forced_prefix and self._seed_con_state(s.forced_prefix) < 0:
@@ -789,23 +1007,59 @@ class Engine:
                 self._waiting.popleft()
                 req.future.set_exception(RuntimeError("forced_prefix is not a legal JSON prefix"))
                 continue
-            need = self._pages_needed(req)
-            if need > self._allocator.num_pages - 1:
-                # bigger than the whole pool: waiting would spin forever
-                self._waiting.popleft()
-                req.future.set_exception(RuntimeError(
-                    f"request needs {need} KV pages but the pool has "
-                    f"{self._allocator.num_pages - 1}"
-                ))
+            match = None
+            if self._prefix_enabled and not req.truncated:
+                match = self._match_prefix(req)
+            adopt = self._match_parked(req)
+            adopt_cut = self._slots[adopt].park_cut if adopt is not None else 0
+            if adopt is not None and adopt_cut >= (match[1]["cut"] if match else 0):
+                item = self._adopt_parked(req, adopt)
+                if item is None:
+                    break  # pages short even after yielding; the head waits
+                group.extend(item)  # [] when the head was refused
                 continue
-            try:
-                pages = self._allocator.alloc(need)
-            except MemoryError:
+            # no adoption: parked capacity yields a slot id
+            if not self._free and not self._release_lru_parked():
+                break
+            total_pages = -(-len(self._full_row(req)) // self.page_size)
+            if self._reject_oversize_head(req, total_pages):
+                continue
+            shared = list(match[1]["pages"]) if match is not None else []
+            # share FIRST: if pressure evicts the matched entry below, this
+            # reference keeps its pages alive
+            self._allocator.share(shared)
+            fresh = self._alloc_yielding(total_pages - len(shared))
+            if fresh is None:
+                self._allocator.free(shared)  # undo; the head waits
                 break
             self._waiting.popleft()
             # lowest slot first keeps occupancy compact (narrow decode widths)
-            group.append((req, heapq.heappop(self._free), pages))
+            group.append((req, heapq.heappop(self._free), shared + fresh, match))
         return group
+
+    def _alloc_yielding(self, n: int, exclude: Optional[int] = None) -> Optional[list[int]]:
+        """Admission's allocation: on exhaustion parked slots (but
+        ``exclude``) yield first, then prefix-cache entries; None when
+        nothing more can yield."""
+        while True:
+            try:
+                return self._allocator.alloc(n)
+            except MemoryError:
+                if self._release_lru_parked(exclude=exclude):
+                    continue
+                if not self._evict_one_prefix_entry():
+                    return None
+
+    def _reject_oversize_head(self, req: _Request, total_pages: int) -> bool:
+        """A row bigger than the whole pool can never fit: fail the head up
+        front (waiting would spin forever). True if it was refused."""
+        if total_pages <= self._allocator.num_pages - 1:
+            return False
+        self._waiting.popleft()
+        req.future.set_exception(RuntimeError(
+            f"prompt needs {total_pages} KV pages but the pool has {self._allocator.num_pages - 1}"
+        ))
+        return True
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -846,14 +1100,22 @@ class Engine:
                          self.constraint_table_bytes, self.device, build_s)
         return self._token_table
 
-    def _prefill_group(self, chunk: list[tuple[_Request, int, list[int]]]) -> None:
-        """One batched prefill of prompt + forced prefix for B reserved
-        requests, then first-token sampling (masked and advanced for
-        json_only lanes) and one host read of the results."""
+    def _prefill_group(self, chunk: list[tuple[_Request, int, list[int]]],
+                       starts: Optional[np.ndarray] = None) -> None:
+        """One batched prefill for B reserved requests, then first-token
+        sampling (masked and advanced for json_only lanes) and one host read
+        of the results. With ``starts`` (prefix-cache hits, adopted parked
+        slots) only each row's SUFFIX runs through the model
+        (``prefill_paged_continue``): the rows below its start are already
+        in the slot's block table and are never written."""
         B = len(chunk)
         P = self.page_size
+        if starts is None:
+            starts = np.zeros(B, dtype=np.int64)
         rows = [self._full_row(r) for r, _, _ in chunk]
-        bucket = max(_next_bucket(len(row), self.prefill_buckets) for row in rows)
+        # bucket over what runs through the model: the suffix on a hit
+        bucket = max(_next_bucket(len(row) - int(st), self.prefill_buckets)
+                     for row, st in zip(rows, starts))
         tokens = np.zeros((B, bucket), dtype=np.int64)
         lengths = np.zeros(B, dtype=np.int64)
         page_ids = np.full((B, bucket // P), TRASH_PAGE, dtype=np.int64)
@@ -861,17 +1123,27 @@ class Engine:
         top_ks = np.zeros(B, dtype=np.int64)
         top_ps = np.ones(B, dtype=np.float32)
         for i, (req, _slot, pages) in enumerate(chunk):
-            plen = len(rows[i])
-            tokens[i, :plen] = rows[i]
-            lengths[i] = plen
-            n = -(-plen // P)  # row pages; the rest of the bucket is trash
-            page_ids[i, :n] = pages[:n]
+            suffix = rows[i][int(starts[i]):]
+            tokens[i, : len(suffix)] = suffix
+            lengths[i] = len(suffix)
+            # the row's pages from its start on (a page-aligned cut, so only
+            # fresh pages); the rest of the bucket is trash
+            fresh = pages[int(starts[i]) // P:]
+            page_ids[i, : len(fresh)] = fresh
             s = req.sampling
             temps[i], top_ks[i], top_ps[i] = s.temperature, s.top_k, s.top_p
-        self.cache, logits = prefill_paged_batch(
-            self.params, self.cache, self._upload(tokens), self._upload(lengths),
-            self._upload(page_ids), self.config, group=self.group,
-        )
+        if starts.any():
+            self.cache, logits = prefill_paged_continue(
+                self.params, self.cache, self._upload(tokens), self._upload(lengths),
+                self._upload(starts), self._upload(page_ids),
+                self._upload(self._block_tables[[slot for _, slot, _ in chunk]]),
+                self.config, group=self.group,
+            )
+        else:
+            self.cache, logits = prefill_paged_batch(
+                self.params, self.cache, self._upload(tokens), self._upload(lengths),
+                self._upload(page_ids), self.config, group=self.group,
+            )
         con_states = np.zeros(B, dtype=np.int32)
         json_lanes = any(r.sampling.json_only for r, _, _ in chunk)
         if json_lanes:
@@ -880,12 +1152,14 @@ class Engine:
             budgets = np.zeros(B, dtype=np.int32)
             for i, (req, _slot, _pages) in enumerate(chunk):
                 s = req.sampling
-                # 1 token now + decode capacity to the ctx edge
-                budgets[i] = min(s.max_tokens, 1 + max(0, self.max_ctx - 1 - len(rows[i])))
+                # 1 token now + decode capacity to the ctx edge; a resumed
+                # request's budget excludes what it already sampled
+                budgets[i] = min(s.max_tokens - len(req.resume_tokens),
+                                 1 + max(0, self.max_ctx - 1 - len(rows[i])))
                 if s.json_only:
                     constrained[i] = True
-                    con_states[i] = (self._seed_con_state(s.forced_prefix)
-                                     if s.forced_prefix else self._table_start)
+                    seed = tuple(s.forced_prefix) + tuple(req.resume_tokens)
+                    con_states[i] = self._seed_con_state(seed) if seed else self._table_start
             dev_states, dev_constrained = self._upload(con_states), self._upload(constrained)
             logits = constrain_logits(logits, table, dev_states, dev_constrained,
                                       self._min_close, self._upload(budgets))
@@ -898,17 +1172,27 @@ class Engine:
             firsts, con_states = both[0], both[1].astype(np.int32)
         else:
             firsts = firsts.cpu().numpy()
+        # entries for later turns; a hit or an adopted slot saves too: its
+        # table now holds the whole prompt, so the next turn reuses all of it
+        if self._prefix_enabled:
+            for i, (req, slot, _pages) in enumerate(chunk):
+                if not req.truncated:
+                    self._save_prefix(rows[i], len(req.prompt), slot)
         now = time.monotonic()
         self._state_dirty = True
         self.requests_prefilled += B
+        self.prefill_tokens += int(lengths.sum())
         for i, (req, slot, _pages) in enumerate(chunk):
             s = req.sampling
             first = int(firsts[i])
-            if req.first_token_at == 0.0:
+            if req.first_token_at == 0.0:  # once per request, not per resume
                 req.first_token_at = now
+            self._admit_seq += 1
             sl = _Slot(request=req, prompt_len=len(req.prompt),
-                       prefix_len=len(s.forced_prefix), first_token_at=req.first_token_at)
+                       prefix_len=len(s.forced_prefix), first_token_at=req.first_token_at,
+                       admit_seq=self._admit_seq)
             sl.generated.extend(s.forced_prefix)
+            sl.generated.extend(req.resume_tokens)
             sl.generated.append(first)
             self._slots[slot] = sl
             self._seq_lens[slot] = len(rows[i])
@@ -919,7 +1203,10 @@ class Engine:
             self._con_states[slot] = con_states[i]
             self._constrained[slot] = s.json_only
             stop = first in self.tokenizer.stop_tokens
-            self._stream(req, list(s.forced_prefix) + ([] if stop else [first]))
+            # a resumed request streamed its prefix and earlier tokens before
+            # it was preempted: only the fresh token goes out
+            shown = [] if req.resume_tokens else list(s.forced_prefix)
+            self._stream(req, shown + ([] if stop else [first]))
             if stop or len(sl.generated) - sl.prefix_len >= s.max_tokens:
                 self._finish(slot, "stop" if stop else "length")
 
@@ -935,14 +1222,15 @@ class Engine:
         active, and the constraint states when a lane is constrained) and
         its per-slot constants. Re-uploaded from the host mirrors only when
         slot assignment changed; otherwise the previous block's carry feeds
-        the next block directly."""
+        the next block directly. The block tables ride their own flag: a
+        slot growing by a lookahead window re-uploads them alone."""
         if self._state_dirty or self._dev is None:
-            max_active = max(self._slots) + 1
-            W = next(w for w in self.width_buckets if w >= max_active)
+            live = [slot for slot, sl in self._slots.items() if not sl.parked]
+            W = next(w for w in self.width_buckets if w >= max(live) + 1)
             active = np.zeros(W, dtype=bool)
-            for slot, sl in self._slots.items():
+            for slot in live:
                 active[slot] = True
-                self._budgets[slot] = self._slot_budget(slot, sl)
+                self._budgets[slot] = self._slot_budget(slot, self._slots[slot])
             # host-side: a block with no constrained lane issues no mask op
             constrained = bool(self._constrained[:W].any())
             self._dev = {
@@ -954,7 +1242,6 @@ class Engine:
                 "temps": self._upload(self._temps[:W]),
                 "top_ks": self._upload(self._top_ks[:W]),
                 "top_ps": self._upload(self._top_ps[:W]),
-                "block_tables": self._upload(self._block_tables[:W]),
                 "constrained_any": constrained,
             }
             if constrained:
@@ -963,14 +1250,23 @@ class Engine:
                     con_states=self._upload(self._con_states[:W]),
                     constrained=self._upload(self._constrained[:W]),
                 )
-            self.table_uploads += 1
             self._state_dirty = False
-        return self._dev
+            self._tables_dirty = True
+        d = self._dev
+        if self._tables_dirty:
+            d["block_tables"] = self._upload(self._block_tables[: d["W"]])
+            self._tables_dirty = False
+            self.table_uploads += 1
+        return d
 
     def _decode_once(self) -> None:
-        """One K-step decode block over the live slots."""
+        """One K-step decode block over the live slots, after every slot's
+        table was grown to cover the block (which may preempt)."""
         self._apply_cancels()
-        if not self._slots:
+        if not self._has_work():
+            return
+        self._ensure_pages_for_block()
+        if not self._has_work():
             return
         d = self._ensure_dev_state()
         tokens, seq_lens, budgets, active = d["tokens"], d["seq_lens"], d["budgets"], d["active"]
@@ -1013,7 +1309,7 @@ class Engine:
         d.update(tokens=tokens, seq_lens=seq_lens, budgets=budgets, active=active)
         self.decode_steps += self.decode_block_size
         for slot, sl in list(self._slots.items()):
-            if slot < d["W"]:
+            if slot < d["W"] and not sl.parked:
                 self._consume_tokens(slot, sl, tok_block[:, slot])
 
     def _consume_tokens(self, slot: int, sl: _Slot, toks) -> None:
@@ -1092,15 +1388,31 @@ class Engine:
                 self._finish(slot, "cancelled")
 
     def _finish(self, slot: int, reason: str) -> None:
-        sl = self._slots.pop(slot, None)
+        sl = self._slots.get(slot)
         if sl is None:
+            return
+        if sl.parked:
+            # its future resolved when it parked; a finish now is a cancel,
+            # a stop or the drain
+            self._release_parked(slot, reason=reason)
             return
         req = sl.request
         if reason in ("stop", "length"):
             # a cancelled or drained request fires no late tool calls
             self._stream_flush(req)
-        self._state_dirty = True  # the lane must be re-uploaded inactive
+        if (req.park and reason in ("stop", "length") and not self._stopping
+                and self._park_cut_for(sl) > 0):
+            self._park(slot, sl)
+            self._resolve_result(sl, reason)
+            return
+        self._slots.pop(slot)
+        self._release_slot(slot)
         self._applied.discard(req.rid)
+        self._resolve_result(sl, reason)
+
+    def _release_slot(self, slot: int) -> None:
+        """A vacated slot: its mirrors zeroed, its id and pages returned."""
+        self._state_dirty = True  # the lane must be re-uploaded inactive
         self._seq_lens[slot] = 0
         self._last_tokens[slot] = 0
         self._con_states[slot] = 0
@@ -1108,6 +1420,12 @@ class Engine:
         heapq.heappush(self._free, slot)
         self._allocator.free(self._slot_pages.pop(slot, []))
         self._block_tables[slot, :] = TRASH_PAGE
+        self._tables_dirty = True
+
+    def _resolve_result(self, sl: _Slot, reason: str) -> None:
+        """Resolve a slot's future with its result: at a finish, and at a
+        park (the caller gets its result at once; only the KV lingers)."""
+        req = sl.request
         gen = sl.generated
         if gen and gen[-1] in self.tokenizer.stop_tokens:
             gen = gen[:-1]
@@ -1120,6 +1438,279 @@ class Engine:
             prompt_tokens=sl.prompt_len,
             ttft_ms=(sl.first_token_at - req.enqueued) * 1e3,
             latency_ms=(now - req.enqueued) * 1e3,
+            preempt_count=req.preempt_count,
         )
         if not req.future.done():
             req.future.set_result(result)
+
+    # -- lazy page growth and preempt-and-resume -------------------------
+
+    def _ensure_pages_for_block(self) -> None:
+        """Every decoding slot's table must cover the block's K tokens
+        before dispatch; the CUDA walk reads only its table, so a short
+        table would silently drop rows. Pass 1 gives each slot exactly the
+        pages this block needs (preempting when the pool can't). Pass 2
+        tops the slots whose table changed this round up to
+        ``page_lookahead_blocks`` blocks ahead, so a slot re-uploads its
+        table once per window, not at every page crossing; a failed top-up
+        is harmless."""
+        K = self.decode_block_size
+        crossed: list[int] = []
+        for slot in list(self._slots):
+            sl = self._slots.get(slot)
+            if sl is None or sl.parked:
+                continue  # preempted for an earlier slot, or never decodes
+            # the context edge deactivates the lane on the device at
+            # max_ctx - 1, so a full table always suffices
+            needed = min(-(-(int(self._seq_lens[slot]) + K) // self.page_size),
+                         self.max_pages_per_seq)
+            have = len(self._slot_pages.get(slot, []))
+            if needed <= have:
+                continue
+            new_pages = self._alloc_with_preemption(needed - have, slot)
+            if new_pages is None:
+                continue  # the slot itself was preempted
+            self._append_pages(slot, new_pages)
+            crossed.append(slot)
+        ahead = K * self.page_lookahead_blocks
+        for slot in crossed:
+            if slot not in self._slot_pages:
+                continue
+            want = min(-(-(int(self._seq_lens[slot]) + ahead) // self.page_size),
+                       self.max_pages_per_seq)
+            have = len(self._slot_pages[slot])
+            if want <= have:
+                continue
+            try:
+                self._append_pages(slot, self._allocator.alloc(want - have))
+            except MemoryError:
+                pass  # the pool is tight: strict coverage already holds
+
+    def _alloc_reclaiming_lookahead(self, n: int, requester: int) -> Optional[list[int]]:
+        """Allocate ``n`` pages; on exhaustion take back other slots'
+        unused lookahead (pages past their strict next-block need) and
+        retry, so earlier top-ups never preempt a slot that strictly fits."""
+        try:
+            return self._allocator.alloc(n)
+        except MemoryError:
+            pass
+        K = self.decode_block_size
+        reclaimed = False
+        for slot, sl in self._slots.items():
+            table = self._slot_pages.get(slot)
+            if slot == requester or not table or sl.parked:
+                continue  # a parked slot is already trimmed to its cut
+            strict = min(-(-(int(self._seq_lens[slot]) + K) // self.page_size),
+                         self.max_pages_per_seq)
+            if len(table) > strict:
+                excess = table[strict:]
+                del table[strict:]
+                self._block_tables[slot, strict: strict + len(excess)] = TRASH_PAGE
+                self._allocator.free(excess)
+                self._tables_dirty = True
+                reclaimed = True
+        if not reclaimed:
+            return None
+        try:
+            return self._allocator.alloc(n)
+        except MemoryError:
+            return None
+
+    def _alloc_with_preemption(self, n: int, requester: int) -> Optional[list[int]]:
+        """Allocate ``n`` pages for a decoding slot, escalating: others'
+        lookahead, parked slots, prefix-cache entries (cache never starves
+        live work), then policy victims until it fits or the requester is
+        the victim. None iff the requester was preempted."""
+        while True:
+            pages = self._alloc_reclaiming_lookahead(n, requester)
+            if pages is not None:
+                return pages
+            if self._release_lru_parked():
+                continue
+            if self._evict_one_prefix_entry():
+                continue
+            victim = self._pick_victim()
+            if victim is None:
+                victim = requester
+            self._preempt(victim)
+            if victim == requester:
+                return None
+
+    def _pick_victim(self) -> Optional[int]:
+        """Parked slots first (oldest park: their callers have their
+        results), then the fewest sampled tokens (least work lost, the
+        cheapest resume), ties to the most recently admitted (the oldest
+        keep their progress, as front-of-queue resumes do)."""
+        if not self._slots:
+            return None
+        parked = [(sl.parked_at, s) for s, sl in self._slots.items() if sl.parked]
+        if parked:
+            return min(parked)[1]
+        return min(self._slots, key=lambda s: (
+            len(self._slots[s].generated) - self._slots[s].prefix_len,
+            -self._slots[s].admit_seq,
+        ))
+
+    def _preempt(self, slot: int, reason: str = "pool_pressure") -> None:
+        """Evacuate a decoding slot without finishing it: save its sampled
+        tokens on the request, free its pages and requeue it at the FRONT.
+        Re-admitted, it prefills prompt + partial and decodes on; its
+        greedy result is byte-identical to an uncontended run and only
+        ``preempt_count`` shows it."""
+        if self._slots[slot].parked:
+            self._release_parked(slot, reason=reason)  # nothing to save
+            return
+        sl = self._slots.pop(slot)
+        req = sl.request
+        req.resume_tokens = list(sl.generated[sl.prefix_len:])
+        req.preempt_count += 1
+        self.preemptions += 1
+        self._release_slot(slot)
+        REGISTRY.counter_add("acp_engine_preemptions_total", 1.0,
+                             help="slots preempted (and requeued) under KV pool pressure")
+        # a request that can't fit the WHOLE pool can never resume: finish
+        # it at its current length (real exhaustion, not contention)
+        ever = min(-(-(len(self._full_row(req)) + self.decode_block_size) // self.page_size),
+                   self.max_pages_per_seq)
+        if ever > self._allocator.num_pages - 1:
+            log.warning("rid %s needs %d pages to resume but the pool has %d; finishing at "
+                        "its current length", req.rid, ever, self._allocator.num_pages - 1)
+            self._resolve_preempted_as_length(req)
+            return
+        self._waiting.appendleft(req)
+        log.info("preempted rid %s (slot %d, %d tokens sampled, preempt #%d); requeued at "
+                 "the front", req.rid, slot, len(req.resume_tokens), req.preempt_count)
+
+    def _resolve_preempted_as_length(self, req: _Request) -> None:
+        """The end of a preempted request that can never fit the pool
+        again: resolve with what it generated, finish reason "length"."""
+        gen = list(req.sampling.forced_prefix) + list(req.resume_tokens)
+        if gen and gen[-1] in self.tokenizer.stop_tokens:
+            gen = gen[:-1]
+        self.finished.append((req.rid, tuple(gen), "length"))
+        now = time.monotonic()
+        result = GenerationResult(
+            text=self.tokenizer.decode(gen),
+            tokens=gen,
+            finish_reason="length",
+            prompt_tokens=len(req.prompt),
+            ttft_ms=(req.first_token_at - req.enqueued) * 1e3,
+            latency_ms=(now - req.enqueued) * 1e3,
+            preempt_count=req.preempt_count,
+        )
+        if not req.future.done():
+            req.future.set_result(result)
+
+    def _append_pages(self, slot: int, new_pages: list[int]) -> None:
+        table = self._slot_pages[slot]
+        have = len(table)
+        self._block_tables[slot, have: have + len(new_pages)] = new_pages
+        table.extend(new_pages)
+        self._tables_dirty = True
+
+    # -- parked slots ----------------------------------------------------
+
+    def _park_cut_for(self, sl: _Slot) -> int:
+        """The rows a parked slot lends the next turn: its PROMPT rows only
+        (the next turn re-renders the assistant message, so generated KV
+        never matches), page-aligned (a continuation starts on a page)."""
+        return (sl.prompt_len // self.page_size) * self.page_size
+
+    def _park(self, slot: int, sl: _Slot) -> None:
+        """Park a finished slot: it keeps its id and its prompt's pages
+        (the rest are freed) until the conversation's next turn adopts it,
+        pressure releases it or it expires. The lane is inactive from the
+        next block on."""
+        self._state_dirty = True
+        self._applied.discard(sl.request.rid)
+        cut = self._park_cut_for(sl)
+        sl.parked = True
+        sl.parked_at = time.monotonic()
+        sl.park_cut = cut
+        self._parked_count += 1
+        self._seq_lens[slot] = cut  # the rows that stay meaningful
+        self._last_tokens[slot] = 0
+        self._con_states[slot] = 0
+        self._constrained[slot] = False
+        self._budgets[slot] = 0
+        keep = cut // self.page_size
+        table = self._slot_pages.get(slot, [])
+        if len(table) > keep:
+            excess = table[keep:]
+            del table[keep:]
+            self._block_tables[slot, keep: keep + len(excess)] = TRASH_PAGE
+            self._allocator.free(excess)
+            self._tables_dirty = True
+        self.parks += 1
+        REGISTRY.counter_add("acp_engine_parks_total", 1.0,
+                             help="slots parked at generation end awaiting the "
+                             "conversation's next turn")
+
+    def _release_parked(self, slot: int, reason: str = "pressure") -> None:
+        """Free a parked slot entirely (pressure, expiry, stop, or a
+        preemption landing on it): pure bookkeeping, its future resolved
+        at park time."""
+        sl = self._slots.get(slot)
+        if sl is None or not sl.parked:
+            return
+        self._slots.pop(slot)
+        self._parked_count -= 1
+        self._release_slot(slot)
+        self.park_releases += 1
+        log.debug("released parked slot %d (%s)", slot, reason)
+
+    def _release_lru_parked(self, exclude: Optional[int] = None) -> bool:
+        """Release the longest-parked slot but ``exclude``. True if one
+        yielded."""
+        parked = [(sl.parked_at, s) for s, sl in self._slots.items()
+                  if sl.parked and s != exclude]
+        if not parked:
+            return False
+        self._release_parked(min(parked)[1])
+        return True
+
+    def _sweep_parked(self) -> None:
+        """Expire parked slots whose next turn never came. Reads the wall
+        clock: never under a group, where park_max_s is 0."""
+        if not self.park_max_s or not self._parked_count:
+            return
+        now = time.monotonic()
+        for slot in [s for s, sl in self._slots.items()
+                     if sl.parked and now - sl.parked_at > self.park_max_s]:
+            self._release_parked(slot, reason="expired")
+
+    def _match_parked(self, req: _Request) -> Optional[int]:
+        """The parked slot whose prompt covers the longest strict prefix of
+        this request's row: the conversation's previous turn."""
+        if req.truncated or not self._parked_count:
+            return None
+        full = self._full_row(req)
+        best, best_cut = None, 0
+        for slot, sl in self._slots.items():
+            cut = sl.park_cut
+            if (sl.parked and 0 < cut < len(full) and cut > best_cut
+                    and list(sl.request.prompt[:cut]) == full[:cut]):
+                best, best_cut = slot, cut
+        return best
+
+    def _adopt_parked(self, req: _Request, slot: int) -> Optional[list]:
+        """Hand a parked slot to the head request, its conversation's next
+        turn: ``[group item]``, ``[]`` when the head was refused (bigger
+        than the pool), or None when pages ran short even after other
+        parked slots and cache entries yielded (the slot stays parked)."""
+        cut = self._slots[slot].park_cut
+        total_pages = -(-len(self._full_row(req)) // self.page_size)
+        if self._reject_oversize_head(req, total_pages):
+            return []
+        kept = list(self._slot_pages.get(slot, []))
+        fresh = self._alloc_yielding(total_pages - len(kept), exclude=slot)
+        if fresh is None:
+            return None
+        self._slots.pop(slot)  # the new turn takes the slot over in place
+        self._parked_count -= 1
+        self.park_adoptions += 1
+        REGISTRY.counter_add("acp_engine_park_adoptions_total", 1.0,
+                             help="parked slots adopted by their conversation's next turn "
+                             "(suffix-only prefill)")
+        self._waiting.popleft()
+        return [(req, slot, kept + fresh, (None, {"cut": cut, "in_slot": True}))]

@@ -47,15 +47,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import blocked_causal_attention, causal_attention
+from ..ops.attention import (
+    NEG_INF,
+    blocked_causal_attention,
+    causal_attention,
+    continue_state,
+    online_softmax_finalize,
+)
 from ..ops.cuda.paged_attention import (
     paged_decode_attention_cache_plus_new,
     paged_decode_attention_cache_plus_new_sharded,
 )
 from ..ops.norms import rms_norm
-from ..ops.paged import TRASH_PAGE, init_kv_pages
+from ..ops.paged import TRASH_PAGE, init_kv_pages, merge_sp_states
 from ..ops import quant
-from ..ops.quant import QuantizedTensor, kv_quantize
+from ..ops.quant import QuantizedTensor, kv_dequantize, kv_quantize
 from ..ops.quant import matmul as mm
 from ..ops.rope import apply_rope
 from ..parallel.mesh import ServingGroup, local_heads, param_slice, vocab_range
@@ -487,6 +493,119 @@ def _commit_whole_pages(
         arr[:, flat_ids] = blocks[:, :, lo : lo + P_local]
 
     return _kv_commit(pages, new_k, new_v, setter)
+
+
+def _kv_rows(pool: torch.Tensor, scales: Optional[torch.Tensor], idx: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Gather one layer's pages by ``idx`` (a block table) and dequantize
+    int8 pages with their scale twins AFTER the gather, so only the
+    gathered rows ever exist in float."""
+    if scales is not None:
+        return kv_dequantize(pool[idx], scales[idx], dtype)
+    return pool[idx].to(dtype)
+
+
+def _merge_sp_prefix(group: ServingGroup, state: tuple) -> tuple:
+    """Merge the sp ranks' prefix states ``(m, l, acc)`` with
+    ``merge_sp_states``. A rank's state of a query none of its rows are
+    valid for has ``m`` at ``NEG_INF`` (clamped there, never -inf, so the
+    merge stays finite) and weighs 0 beside any rank's real row."""
+    m, l, acc = state
+    acc, m, l = merge_sp_states(acc, torch.clamp_min(m, NEG_INF), l, group.sp_max, group.sp_sum)
+    return m, l, acc
+
+
+def _paged_continue_forward(
+    params: dict,
+    pages: dict,  # read only
+    tokens: torch.Tensor,  # [B, T] int — the new tokens (rows padded)
+    lengths: torch.Tensor,  # [B] int — true token counts
+    starts: torch.Tensor,  # [B] int — absolute position of each row's first token
+    block_tables: torch.Tensor,  # [B, max_pages] int
+    config: LlamaConfig,
+    group: Optional[ServingGroup] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each row's new tokens through the model, attending over its prefix
+    rows (positions < start, gathered from its pages) and then its own
+    tokens causally, one online softmax over both. Returns ``(new_k [L, B,
+    T, H_kv, d], new_v, x_normed [B, T, D])``, uncommitted.
+
+    Only the table columns that hold prefix rows are gathered, in page
+    order; the reference's offset-major row order is a layout device of
+    its sharding and every order masked by key position computes the same
+    function. Over tp a rank computes its heads. Over sp a rank holds rows
+    ``[sp_rank * P/sp, ...)`` of every page: it walks its rows, the ranks'
+    unnormalized states merge over the sp group, and the suffix's own
+    causal block (replicated) is folded in after the merge."""
+    c = config
+    B, T = tokens.shape
+    dev = tokens.device
+    ar = torch.arange(T, device=dev)
+    lengths, starts = lengths.long(), starts.long()
+    positions = torch.where(ar[None, :] < lengths[:, None], starts[:, None] + ar[None, :], -1)
+    x = _embed(params, tokens, c, group)
+    P_local = pages["k"].shape[2]
+    sp = group.sp if group is not None else 1
+    P = P_local * sp
+    lo = group.sp_rank * P_local if sp > 1 else 0
+    cols = min(block_tables.shape[1], -(-int(starts.max()) // P))
+    tables = block_tables[:, :cols].long()
+    row_pos = (torch.arange(cols, device=dev)[:, None] * P + lo
+               + torch.arange(P_local, device=dev)[None, :]).reshape(-1)
+    cache_pos = torch.where(row_pos[None, :] < starts[:, None], row_pos[None, :], -1)
+    quantized = "ks" in pages
+    new_k, new_v = [], []
+    for i in range(c.n_layers):
+        k_pool, v_pool = pages["k"][i], pages["v"][i]
+        k_sc, v_sc = (pages["ks"][i], pages["vs"][i]) if quantized else (None, None)
+
+        def attn(q, k, v):
+            def rows(pool, sc):
+                # int8 rows dequantize straight to f32, as the int8 walk
+                # reads them; the walk below computes in f32 either way
+                dtype = torch.float32 if sc is not None else q.dtype
+                return _kv_rows(pool, sc, tables, dtype).reshape(B, cols * P_local,
+                                                                 *pool.shape[2:])
+
+            state = continue_state(q, rows(k_pool, k_sc), rows(v_pool, v_sc), positions,
+                                   cache_pos)
+            if sp > 1:
+                state = _merge_sp_prefix(group, state)
+            _m, l, acc = continue_state(q, k, v, positions, positions, state=state)
+            return online_softmax_finalize(l, acc, q.dtype)
+
+        x, k, v = _attn_mlp(x, _layer(params, i), c, positions, attn, group)
+        new_k.append(k)
+        new_v.append(v)
+    x = rms_norm(x, _final_norm_w(params, c), c.norm_eps)
+    return torch.stack(new_k), torch.stack(new_v), x
+
+
+def prefill_paged_continue(
+    params: dict,
+    pages: dict,  # updated in place (the suffix pages only)
+    tokens: torch.Tensor,  # [B, T] int — SUFFIX tokens (rows padded)
+    lengths: torch.Tensor,  # [B] int — true suffix lengths
+    starts: torch.Tensor,  # [B] int — absolute suffix start (page-aligned)
+    page_ids: torch.Tensor,  # [B, T // P] int — the SUFFIX pages
+    block_tables: torch.Tensor,  # [B, max_pages] int — prefix + suffix pages
+    config: LlamaConfig,
+    group: Optional[ServingGroup] = None,
+) -> tuple[dict, torch.Tensor]:
+    """Paged continuation (a prefix-cache hit, an adopted parked slot, a
+    resumed preemption): the prefix pages in each row's block table are
+    already written — shared with a cache entry or kept by the slot, never
+    written here. Starts are page-aligned, so the suffix commit
+    (:func:`_commit_whole_pages`) lands in fresh pages only. Returns
+    (pages, last-token logits [B, V])."""
+    c = config
+    check_supported(c)
+    B = tokens.shape[0]
+    new_k, new_v, x = _paged_continue_forward(params, pages, tokens, lengths, starts,
+                                              block_tables, c, group)
+    _commit_whole_pages(pages, new_k, new_v, page_ids, group)
+    last = x[torch.arange(B, device=x.device), lengths.long() - 1]
+    return pages, _head_logits(last, params, c, group)
 
 
 def decode_step_paged(

@@ -117,3 +117,59 @@ def blocked_causal_attention(
             m, l, acc = online_softmax_step(qf, kf, vf, mask, m, l, acc, scale)
         outs.append(online_softmax_finalize(l, acc, q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def continue_state(
+    q: torch.Tensor,  # [B, T, H, d] — suffix queries
+    k_rows: torch.Tensor,  # [B, C, H_kv, d] — keys (cache rows and/or suffix keys)
+    v_rows: torch.Tensor,
+    positions: torch.Tensor,  # [B, T] absolute query positions (-1 = padding)
+    key_positions: Optional[torch.Tensor] = None,  # [B, C]; -1 = invalid key
+    block_size: int = 512,
+    state: Optional[tuple] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unnormalized online-softmax state ``(m [B,H,T], l [B,H,T], acc
+    [B,H,T,d])`` of suffix queries over keys with explicit positions: a
+    query attends to every valid key at or before its own position. The
+    keys are walked ``block_size`` at a time, so the f32 logits never exceed
+    ``[B, H, T, block_size]``; ``state`` continues an earlier walk (the
+    keys of several walks fold into one softmax, in walk order)."""
+    B, T, H, d = q.shape
+    C = k_rows.shape[1]
+    n_rep = H // k_rows.shape[-2]
+    scale = 1.0 / (d**0.5)
+    if key_positions is None:
+        key_positions = torch.arange(C, device=q.device).expand(B, C)
+    if state is None:
+        m = torch.full((B, H, T), float("-inf"), device=q.device)
+        l = torch.zeros((B, H, T), device=q.device)
+        acc = torch.zeros((B, H, T, d), device=q.device)
+    else:
+        m, l, acc = state
+    qf = q.float()
+    q_pos = positions[:, None, :, None]
+    for s in range(0, C, block_size):
+        kf = repeat_kv(k_rows[:, s : s + block_size], n_rep).float()
+        vf = repeat_kv(v_rows[:, s : s + block_size], n_rep).float()
+        kv_pos = key_positions[:, None, None, s : s + block_size]
+        mask = (kv_pos <= q_pos) & (kv_pos >= 0) & (q_pos >= 0)
+        m, l, acc = online_softmax_step(qf, kf, vf, mask, m, l, acc, scale)
+    return m, l, acc
+
+
+def continue_attention(
+    q: torch.Tensor,  # [B, T, H, d] — suffix queries
+    k_rows: torch.Tensor,  # [B, C, H_kv, d]
+    v_rows: torch.Tensor,
+    positions: torch.Tensor,  # [B, T] (-1 = padding)
+    key_positions: Optional[torch.Tensor] = None,  # [B, C]; -1 = invalid key
+    block_size: int = 512,
+) -> torch.Tensor:
+    """Suffix-over-cache attention (the reference's ``continue_attention``):
+    each query attends to every valid key whose absolute position is <= its
+    own — exactly causal. Without ``key_positions`` the keys sit at
+    positions 0..C-1. Walked in key blocks (:func:`continue_state`), so a
+    long suffix over a long table never holds its whole ``[B, H, T, C]``
+    logits."""
+    _m, l, acc = continue_state(q, k_rows, v_rows, positions, key_positions, block_size)
+    return online_softmax_finalize(l, acc, q.dtype)

@@ -258,13 +258,21 @@ def fold_self_term(q, k_new, v_new, acc, m, l) -> torch.Tensor:
 class PageAllocator:
     """Host-side page free list with reference counts (engine-thread owned;
     no locking). Page 0 is the reserved trash page and is never handed out.
-    The reference's allocator, less the prefix-sharing and int8 scale-row
-    bookkeeping that arrive with the features that use them."""
+
+    Refcounts make prefix sharing zero-copy: a prefix-cache entry keeps a
+    reference on its (whole, never rewritten) prompt pages, and every
+    sequence whose block table borrows them takes another; a page returns
+    to the pool only when its last reference drops. The reference's
+    allocator, less the int8 scale-row bookkeeping of its invariant
+    checker."""
 
     def __init__(self, num_pages: int):
         self.num_pages = num_pages
         self._free = list(range(num_pages - 1, 0, -1))  # pop() yields 1,2,...
         self._refs: dict[int, int] = {}
+        # pages with refcount >= 2, kept incrementally so a reader gets an
+        # int instead of scanning the refcounts
+        self._shared = 0
 
     @property
     def free_count(self) -> int:
@@ -275,6 +283,16 @@ class PageAllocator:
         """Pages currently referenced."""
         return len(self._refs)
 
+    @property
+    def shared_count(self) -> int:
+        """Pages referenced by more than one owner."""
+        return self._shared
+
+    def snapshot(self) -> tuple[list[int], dict[int, int]]:
+        """Copies of ``(free pages, {page: refcount})`` — the reference's
+        ``audit()``: the two partition ``1..num_pages-1`` exactly."""
+        return list(self._free), dict(self._refs)
+
     def alloc(self, n: int) -> list[int]:
         if n > len(self._free):
             raise MemoryError(f"out of KV pages: need {n}, have {len(self._free)}")
@@ -282,6 +300,15 @@ class PageAllocator:
         for p in pages:
             self._refs[p] = 1
         return pages
+
+    def share(self, pages: list[int]) -> None:
+        """Take one more reference on already-allocated pages."""
+        for p in pages:
+            if p != TRASH_PAGE:
+                n = self._refs[p] + 1
+                self._refs[p] = n
+                if n == 2:
+                    self._shared += 1
 
     def free(self, pages: list[int]) -> None:
         """Drop one reference per page; pool it when the last ref drops. A
@@ -291,6 +318,8 @@ class PageAllocator:
             if p == TRASH_PAGE:
                 continue
             left = self._refs[p] - 1
+            if left == 1:
+                self._shared -= 1
             if left <= 0:
                 del self._refs[p]
                 self._free.append(p)

@@ -35,7 +35,11 @@ without printing a result:
    llama3-8b variant of either walk fails the run);
 4. model — the tiny f32 model's paged prefill + decode on the card (kernel)
    against the same on the CPU (plain version), unquantized and with int8
-   weights and an int8 KV cache (the int8 walk);
+   weights and an int8 KV cache (the int8 walk); then its engines on the
+   card and on the CPU: six requests on a 9-page pool (preempted and
+   resumed) and a two-turn conversation whose second turn adopts the
+   first's parked slot, greedy tokens equal to uncontended runs and to the
+   CPU's;
 5. serving — llama3-8b at full width and depth with random weights from
    seed 0 behind the HTTP server, first in bf16, then (after the bf16
    engine is freed) with int8 weights and int8 KV pages: five chat
@@ -54,7 +58,16 @@ without printing a result:
    unconstrained ones over as many steps (medians of repeats), device ops
    per step of each (a profile window each, less a window of the same
    requests' prefill alone), the masks' own ops and time at the decode
-   shape, and a forced request's TTFT; last, on each of the two engines,
+   shape, and a forced request's TTFT; then, on each of the two engines,
+   the kv-reuse phase: a 1,024-token row's last 64 tokens continued over
+   its first 960 against the row prefilled whole (2e-2 relative L2; with
+   int8 KV against a whole-row pass reading the prefix as the int8 pool
+   holds it), 4 conversations x 3 turns parked (8 adoptions, no miss, only
+   suffixes prefilled; 3 repeats), the same traffic hitting the prefix
+   cache (8 hits), and 8 x (512 + 192) tokens on a second engine of 256
+   pages over the same weights (preemption, token counts equal to an
+   uncontended run, the pool whole after), every part's decode steps
+   through the walk; last, on each of the two engines,
    the control-plane phase: JSON manifests (three ``provider: tpu`` LLMs
    and two Agents) applied to a sqlite store, a Manager under a
    LeaderElector (lease 2 s) running the LLM controller (a one-token probe
@@ -734,7 +747,85 @@ def model_phase() -> dict:
             + (f"; int8 pool entries differing by one step: k {entry['k_int8_diffs']}, "
                f"v {entry['v_int8_diffs']}" if quantized else ""))
         doc[label] = entry
+    doc["engines"] = tiny_engine_runs(cfg, dense)
     return doc
+
+
+TWO_CALLS = '{"name": "t1", "arguments": {"x": 1}} {"name": "t2", "arguments": {}}'
+
+
+def tiny_engine_runs(cfg, dense: dict) -> dict:
+    """The tiny f32 model's engines on the card and on the CPU, same
+    weights: six 20-token prompts (12 tokens each) on a 9-page pool, so
+    they preempt and resume, and a two-turn conversation whose second turn
+    adopts the first's parked slot. Greedy tokens must equal an
+    uncontended run's (each prompt alone; the turns on an engine without
+    parking or prefix cache) on the card, and the CPU engines' tokens."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
+    from agentcontrolplane_tpu_torch.engine.tokenizer import ByteTokenizer
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    kw = dict(max_slots=4, max_ctx=256, prefill_buckets=(32, 64, 128, 256), decode_block_size=4,
+              page_size=8)
+    prompts = [ch * 20 for ch in "abcdef"]
+    turn1 = "user question " * 4
+    turn2 = turn1 + "assistant said things; tool results; next question"
+    forced = tuple(ByteTokenizer().encode(TWO_CALLS))
+
+    def runs(dev: str) -> dict:
+        params = dense if dev == "cpu" else {
+            k: ({n: t.cuda() for n, t in v.items()} if k == "layers" else v.cuda())
+            for k, v in dense.items()}
+        engines = {"roomy": Engine(cfg, params, device=dev, **kw),
+                   "tight": Engine(cfg, params, device=dev, kv_pages=10, **kw),
+                   "plain": Engine(cfg, params, device=dev, park_max_s=0,
+                                   prefix_cache_entries=0, **kw)}
+        for e in engines.values():
+            e.start()
+        try:
+            sp = SamplingParams(max_tokens=12)
+            out = {"uncontended": [engines["roomy"].generate(p, sp).tokens for p in prompts]}
+            tight = engines["tight"]
+            with tight.hold_admission():
+                futs = [tight.submit(p, sp) for p in prompts]
+            res = [f.result(timeout=120) for f in futs]
+            out["preempted"] = [r.tokens for r in res]
+            out["preempt_counts"] = [r.preempt_count for r in res]
+            roomy, plain = engines["roomy"], engines["plain"]
+            s1, s2 = SamplingParams(max_tokens=16, forced_prefix=forced), SamplingParams(
+                max_tokens=8)
+            r1 = roomy.submit(turn1, s1, on_tool_call=lambda i, tc: None, park=True).result(120)
+            r2 = roomy.submit(turn2, s2).result(120)
+            out["parked"] = [r1.tokens, r2.tokens]
+            out["adoptions"] = roomy.stats()["tool_overlap"]["park_adoptions"]
+            out["unparked"] = [plain.generate(turn1, s1).tokens, plain.generate(turn2, s2).tokens]
+            out["decode_steps"] = sum(e.decode_steps for e in engines.values())
+            return out
+        finally:
+            for e in engines.values():
+                e.stop()
+
+    cpu = runs("cpu")
+    pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+    card = runs("cuda")
+    walk = _walk_check("model engines", card["decode_steps"], cfg.n_layers, False)
+    for name, ok in (
+        ("preempted", sum(card["preempt_counts"]) >= 1),
+        ("preempted = uncontended on the card", card["preempted"] == card["uncontended"]),
+        ("adopted", card["adoptions"] == 1),
+        ("parked turns = unparked on the card", card["parked"] == card["unparked"]),
+        ("the card's streams = the CPU's", {k: v for k, v in card.items() if k != "decode_steps"}
+         == {k: v for k, v in cpu.items() if k != "decode_steps"}),
+    ):
+        if not ok:
+            fail(f"model engines: not {name}: card {card}, cpu {cpu}")
+    say(f"model engines tiny-f32: 6 requests on a 9-page pool, preempt counts "
+        f"{card['preempt_counts']}, tokens = each prompt alone; two turns, the second adopting "
+        f"the first's parked slot, = an engine without parking or cache; all = the CPU "
+        f"engines' tokens; walk launches {walk} = {cfg.n_layers} x {card['decode_steps']}")
+    return {"card": card, "cpu": cpu, "launches": walk}
 
 
 # -- serving phase -------------------------------------------------------
@@ -981,9 +1072,12 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
             f"launches {walk_launches} = {cfg.n_layers} layers x {steps} decode steps, "
             f"other walk {other}")
         stats = engine.stats()
-        if stats["kv_pages"]["free"] != engine.num_pages - 1 or stats["active_slots"]:
+        if not _pool_whole(engine):
             fail(f"serving {label}: pages or slots not released after the run: {stats}")
-        if stats["memory"]["quantized_kv"] != {"enabled": int8_walk, "pages": 0}:
+        # the pages still allocated are the prefix-cache entries'
+        held = engine.num_pages - 1 - stats["kv_pages"]["free"]
+        if stats["memory"]["quantized_kv"] != {"enabled": int8_walk,
+                                               "pages": held if int8_walk else 0}:
             fail(f"serving {label}: stats quantized_kv {stats['memory']['quantized_kv']}")
 
         # a greedy batch admitted as one group, run twice: identical tokens
@@ -1023,6 +1117,7 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
         perf["first_step_logits"] = ref_logits
         if constrained:
             perf["constrained"] = constrained_phase(engine, base, card, perf["profile"])
+        perf["kv_reuse"] = kv_reuse_phase(engine, card, label)
         perf["control_plane"] = control_plane_phase(engine, card, label)
         perf["operator"] = operator_phase(engine, card, label)
         return perf
@@ -1173,8 +1268,10 @@ def constrained_phase(engine, base: str, card: str, plain_profile: dict) -> dict
     except ValueError as e:
         fail(f"constrained: {e}")
     # the same group again, the stream's body unstreamed: the stream must
-    # carry exactly its reply, and every other reply must repeat
+    # carry exactly its reply, and every other reply must repeat. The cache
+    # is emptied first, so the repeat prefills as the first group did
     parts["first_group"] = wall_s
+    _forget_prefixes(engine)
     t0 = time.monotonic()
     second = group(stream=False)
     parts["second_group"] = time.monotonic() - t0
@@ -1191,7 +1288,7 @@ def constrained_phase(engine, base: str, card: str, plain_profile: dict) -> dict
     table_bytes, build_s = stats["constraint_table_bytes"], stats["constraint_table_build_s"]
     if not 0 < table_bytes < 8 * 2**20:
         fail(f"constrained: the JSON table takes {table_bytes} bytes on the card")
-    if stats["active_slots"] or stats["kv_pages"]["free"] != engine.num_pages - 1:
+    if not _pool_whole(engine):
         fail(f"constrained: pages or slots not released: {stats}")
     say(f"constrained: 8 concurrent requests OK in {wall_s:.2f} s (4 json_object, one of 24 "
         f"tokens; 2 forced tools; 1 required; 1 SSE stream = its unstreamed reply, last event "
@@ -1306,6 +1403,332 @@ def constrained_phase(engine, base: str, card: str, plain_profile: dict) -> dict
             "table_bytes": table_bytes, "table_build_s": build_s, "timing": timing,
             "device_ops": ops, "masks": mask, "ttft_ms": ttft,
             "replies": views}
+
+
+# -- kv reuse phase ------------------------------------------------------
+
+KV_CONVERSATIONS = 4
+KV_TURNS = 3
+KV_FIRST_PROMPT = 768  # tokens of each conversation's first prompt
+KV_TURN_TOKENS = 32  # sampled tokens a turn (greedy)
+KV_TOOL_RESULT = 64  # tokens of the tool result appended after each turn
+KV_REPEATS = 3
+CONT_ROW, CONT_CUT = 1024, 960  # the continuation check's row and its cached prefix
+CONT_TOL = 2e-2  # relative L2 of the continuation's last-token logits vs the whole row's
+PREEMPT_PAGES = 257  # the preemption engine's pool: 256 usable pages of 16
+PREEMPT_REQUESTS, PREEMPT_PROMPT, PREEMPT_TOKENS = 8, 512, 192
+
+
+def _idle_parked(engine) -> None:
+    """Let the engine expire its parked slots itself (its loop owns them),
+    then restore the knob."""
+    keep, engine.park_max_s = engine.park_max_s, 1e-3
+    deadline = time.monotonic() + 60
+    while engine.stats()["parked_slots"] and time.monotonic() < deadline:
+        time.sleep(0.005)
+    engine.park_max_s = keep
+    if engine.stats()["parked_slots"]:
+        fail("parked slots did not expire")
+
+
+def _forget_prefixes(engine) -> None:
+    """Evict every prefix-cache entry. Only while the engine idles: its
+    thread touches the allocator only when it admits or decodes."""
+    while engine._evict_one_prefix_entry():
+        pass
+
+
+def _pool_whole(engine) -> bool:
+    """Idle and every page free or held by a prefix-cache entry or a parked
+    slot."""
+    held = {p for e in list(engine._prefix_cache.values()) for p in e["pages"]}
+    held |= {p for s, sl in list(engine._slots.items()) if sl.parked
+             for p in engine._slot_pages.get(s, [])}
+    s = engine.stats()
+    return not s["active_slots"] and s["kv_pages"]["free"] + len(held) == engine.num_pages - 1
+
+
+def _walk_check(what: str, steps: int, n_layers: int, int8_walk: bool) -> int:
+    """The counted part's walk launches (counts set to 0 just before it):
+    n_layers x decode steps of the expected walk, none of the other."""
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    walk = pa.INT8_LAUNCHES if int8_walk else pa.LAUNCHES - pa.INT8_LAUNCHES
+    other = pa.LAUNCHES - walk
+    if steps <= 0 or walk != n_layers * steps or other:
+        fail(f"{what}: {walk} walk launches (other walk {other}) for {steps} decode steps x "
+             f"{n_layers} layers")
+    return walk
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _whole_row_int8_prefix(engine, row):
+    """Last-token logits of one pass over the whole row in which rows from
+    CONT_CUT on attend rows [0, CONT_CUT) as an int8 pool holds them
+    (quantized, then dequantized in f32) and their own rows at full
+    precision, while the rows before CONT_CUT attend at full precision as
+    their prefill did: the function the continuation computes over int8
+    pages, without the cache."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.models import llama
+    from agentcontrolplane_tpu_torch.ops.attention import blocked_causal_attention
+    from agentcontrolplane_tpu_torch.ops.norms import rms_norm
+    from agentcontrolplane_tpu_torch.ops.quant import kv_dequantize, kv_quantize
+
+    cfg, params = engine.config, engine.params
+    positions = torch.arange(row.shape[1], device=row.device)[None]
+
+    def as_pool(t):
+        q8, scale = kv_quantize(t[:, :CONT_CUT])
+        return torch.cat([kv_dequantize(q8, scale, torch.float32), t[:, CONT_CUT:].float()], 1)
+
+    with torch.inference_mode():
+        x = llama._embed(params, row, cfg)
+        def attn(q, k, v):
+            full = blocked_causal_attention(q, k, v, positions)
+            pooled = blocked_causal_attention(q, as_pool(k), as_pool(v), positions)
+            return torch.cat([full[:, :CONT_CUT], pooled[:, CONT_CUT:]], 1)
+
+        for i in range(cfg.n_layers):
+            x, _, _ = llama._attn_mlp(x, llama._layer(params, i), cfg, positions, attn)
+        x = rms_norm(x[:, -1], params["norm"], cfg.norm_eps)
+        return llama._head_logits(x, params, cfg)
+
+
+def continuation_check(engine, card: str, label: str) -> dict:
+    """The model's continuation against a whole prefill: a 1,024-token row
+    prefilled whole, and its first 960 tokens prefilled then its last 64
+    continued over the pages just written (a 128-column table, the
+    engine's); the last-token logits must agree within CONT_TOL. With int8
+    KV the continuation reads the prefix as the int8 pool holds it, so it
+    is held against a whole-row pass that reads the same values
+    (``_whole_row_int8_prefix``); its distance from the plain whole-row
+    prefill, which attends the prefix at full precision, is reported."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.models import llama
+
+    cfg, P, dev = engine.config, engine.page_size, "cuda"
+    n_pages = CONT_ROW // P
+    row = torch.randint(0, 256, (1, CONT_ROW), generator=torch.Generator().manual_seed(11))
+    row = row.to(dev)
+    with torch.inference_mode():
+        pages = llama.init_paged_cache(cfg, 1 + 2 * n_pages, P, device=dev,
+                                       quantize_kv=engine.quantize_kv)
+        whole_ids = torch.arange(1, 1 + n_pages, device=dev)[None]
+        pages, whole = llama.prefill_paged_batch(
+            engine.params, pages, row, torch.tensor([CONT_ROW], device=dev), whole_ids, cfg)
+        ids = torch.arange(1 + n_pages, 1 + 2 * n_pages, device=dev)[None]
+        table = torch.zeros(1, engine.max_pages_per_seq, dtype=torch.int32, device=dev)
+        table[0, :n_pages] = ids[0]
+        pages, _ = llama.prefill_paged_batch(
+            engine.params, pages, row[:, :CONT_CUT], torch.tensor([CONT_CUT], device=dev),
+            ids[:, : CONT_CUT // P], cfg)
+        walls = []
+        for _ in range(2):  # the second call is the one timed warm
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            pages, cont = llama.prefill_paged_continue(
+                engine.params, pages, row[:, CONT_CUT:], torch.tensor([CONT_ROW - CONT_CUT],
+                                                                      device=dev),
+                torch.tensor([CONT_CUT], device=dev), ids[:, CONT_CUT // P:], table, cfg)
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+    doc = {"rel_l2_whole": _rel_l2(cont[0], whole[0]), "continue_ms": walls[1],
+           "continue_first_ms": walls[0]}
+    if engine.quantize_kv:
+        doc["rel_l2"] = _rel_l2(cont[0], _whole_row_int8_prefix(engine, row)[0])
+        against = "a whole-row pass reading the prefix as the int8 pool holds it"
+    else:
+        doc["rel_l2"] = doc["rel_l2_whole"]
+        against = f"the {CONT_ROW}-token row prefilled whole"
+    if not torch.isfinite(cont).all() or doc["rel_l2"] > CONT_TOL:
+        fail(f"kv reuse {label}: continuation logits {doc['rel_l2']:.3e} relative L2 from "
+             f"{against} (tol {CONT_TOL})")
+    whole_l2 = (f"; vs the row prefilled whole {doc['rel_l2_whole']:.3e}"
+                if engine.quantize_kv else "")
+    say(f"kv reuse {label}: {CONT_ROW - CONT_CUT}-token continuation over {CONT_CUT} cached "
+        f"rows vs {against}: last-token logits {doc['rel_l2']:.3e} relative L2 (tol "
+        f"{CONT_TOL}){whole_l2}; continuation {walls[1]:.2f} ms warm ({walls[0]:.2f} first)  "
+        f"[{card}]")
+    return doc
+
+
+def conversations(engine, card: str, label: str, seed: int, park: bool) -> dict:
+    """KV_CONVERSATIONS conversations of KV_TURNS turns, each turn's four
+    requests admitted as one group (so no save evicts an entry another
+    turn still has to match); every turn's prompt is the last prompt + its
+    sampled tokens + a KV_TOOL_RESULT-token tool result. With ``park`` turn
+    2 on adopts the parked slot of turn 1; without, it hits the prefix
+    cache. Either way only the suffix is prefilled."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, 256, (KV_FIRST_PROMPT,), generator=g).tolist()
+               for _ in range(KV_CONVERSATIONS)]
+    P = engine.page_size
+    turns, reused = [], None
+    for turn in range(KV_TURNS):
+        s0 = engine.stats()
+        with engine.hold_admission():
+            futs = [engine.submit(p, SamplingParams(max_tokens=KV_TURN_TOKENS), park=park)
+                    for p in prompts]
+        res = [f.result(timeout=600) for f in futs]
+        s1 = engine.stats()
+        pc0, pc1 = s0["prefix_cache"], s1["prefix_cache"]
+        doc = {
+            "ttft_ms": [r.ttft_ms for r in res],
+            "prompt_tokens": [len(p) for p in prompts],
+            "prefill_tokens": s1["prefill_tokens"] - s0["prefill_tokens"],
+            "adoptions": s1["tool_overlap"]["park_adoptions"] - s0["tool_overlap"][
+                "park_adoptions"],
+            "hits": pc1["hits"] - pc0["hits"], "misses": pc1["misses"] - pc0["misses"],
+            "decode_steps": s1["decode_steps"] - s0["decode_steps"],
+        }
+        # the rows each request had resident: a parked slot's prompt rows,
+        # or the previous turn's cache entry (its prompt less one row)
+        want = sum(len(p) for p in prompts) if reused is None else sum(
+            len(p) - c for p, c in zip(prompts, reused))
+        doc["expected_prefill_tokens"] = want
+        if doc["prefill_tokens"] != want:
+            fail(f"kv reuse {label} turn {turn + 1}: {doc['prefill_tokens']} rows prefilled, "
+                 f"the suffixes hold {want}")
+        turns.append(doc)
+        reused = [(len(p) // P if park else (len(p) - 1) // P) * P for p in prompts]
+        prompts = [p + r.tokens + torch.randint(0, 256, (KV_TOOL_RESULT,), generator=g).tolist()
+                   for p, r in zip(prompts, res)]
+    later = turns[1:]
+    n = KV_CONVERSATIONS * (KV_TURNS - 1)
+    if park:
+        bad = (sum(t["adoptions"] for t in later), sum(t["misses"] for t in later),
+               sum(t["hits"] for t in later)) != (n, 0, 0)
+    else:
+        bad = (sum(t["hits"] for t in later), sum(t["misses"] for t in later)) != (n, 0)
+    if bad:
+        fail(f"kv reuse {label}: turns 2-{KV_TURNS} {'adopted' if park else 'hit'} "
+             f"{[(t['adoptions'], t['hits'], t['misses']) for t in later]} (adoptions, hits, "
+             f"misses), want {n} {'adoptions' if park else 'hits'} and no miss")
+    return {"turns": turns}
+
+
+def preemption_check(engine, card: str, label: str) -> dict:
+    """A second engine over the SAME params dict (no second copy of the
+    weights) with a 256-page pool: 8 requests of 512-token prompts and
+    max_tokens 192 need 44 pages each, 352 in all, so it must preempt.
+    Every request finishes with as many tokens as the same group run
+    uncontended on the serving engine, and the pool is whole after."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    cfg = engine.config
+    g = torch.Generator().manual_seed(300)
+    prompts = [torch.randint(0, 256, (PREEMPT_PROMPT,), generator=g).tolist()
+               for _ in range(PREEMPT_REQUESTS)]
+    sp = SamplingParams(max_tokens=PREEMPT_TOKENS)
+
+    def group(eng):
+        with eng.hold_admission():
+            futs = [eng.submit(p, sp) for p in prompts]
+        t0 = time.monotonic()
+        res = [f.result(timeout=900) for f in futs]
+        return res, time.monotonic() - t0
+
+    # uncontended: the serving engine's pool holds all eight at once
+    _idle_parked(engine)
+    _forget_prefixes(engine)
+    pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+    s0 = engine.decode_steps
+    solo, solo_s = group(engine)
+    solo_walk = _walk_check(f"kv reuse {label} uncontended", engine.decode_steps - s0,
+                            cfg.n_layers, engine.quantize_kv)
+    if any(r.preempt_count for r in solo):
+        fail(f"kv reuse {label}: the uncontended group was preempted")
+    small = Engine(cfg, engine.params, device="cuda", seed=0, max_slots=8, max_ctx=2048,
+                   page_size=16, decode_block_size=8, kv_pages=PREEMPT_PAGES,
+                   quantize_weights=engine.quantize is not None, quantize_kv=engine.quantize_kv)
+    pool_gb = sum(t.numel() * t.element_size() for t in small.cache.values()) / 1e9
+    small.start()
+    try:
+        pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+        res, wall_s = group(small)
+        walk = _walk_check(f"kv reuse {label} preemption", small.decode_steps, cfg.n_layers,
+                           engine.quantize_kv)
+        st = small.stats()
+        preempts = [r.preempt_count for r in res]
+        lens, solo_lens = [len(r.tokens) for r in res], [len(r.tokens) for r in solo]
+        same = sum(r.tokens == s.tokens for r, s in zip(res, solo))
+        cached_pages = st["prefix_cache"]["cached_tokens"] // small.page_size
+        if sum(preempts) < 1 or st["preemptions"] != sum(preempts):
+            fail(f"kv reuse {label}: preemptions {preempts}, engine {st['preemptions']}")
+        if lens != solo_lens or any(r.finish_reason != s.finish_reason
+                                    for r, s in zip(res, solo)):
+            fail(f"kv reuse {label}: preempted token counts {lens} vs uncontended {solo_lens}")
+        if st["active_slots"] or st["kv_pages"]["free"] + cached_pages != PREEMPT_PAGES - 1:
+            fail(f"kv reuse {label}: after preemption {st['kv_pages']['free']} free + "
+                 f"{cached_pages} cached pages != {PREEMPT_PAGES - 1}")
+        steps = small.decode_steps
+    finally:
+        small.stop()
+        del small
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"kv reuse {label}: preemption on a {PREEMPT_PAGES - 1}-page pool ({pool_gb:.2f} GB, "
+        f"the serving engine's weights): {PREEMPT_REQUESTS} x ({PREEMPT_PROMPT} + "
+        f"{PREEMPT_TOKENS}) tokens, preempt counts {preempts} ({sum(preempts)} preemptions), "
+        f"token counts equal to the uncontended run's ({same} of {PREEMPT_REQUESTS} streams "
+        f"identical), {steps} decode steps in {wall_s:.1f} s vs {solo_s:.1f} s uncontended; "
+        f"free {st['kv_pages']['free']} + cached {cached_pages} = {PREEMPT_PAGES - 1} pages; "
+        f"walk launches {walk} = {cfg.n_layers} x {steps} (uncontended {solo_walk})  [{card}]")
+    return {"preempt_counts": preempts, "token_counts": lens, "identical_streams": same,
+            "decode_steps": steps, "wall_s": wall_s, "uncontended_wall_s": solo_s,
+            "uncontended_decode_steps": solo_walk // cfg.n_layers, "launches": walk,
+            "pool_bytes": pool_gb * 1e9, "free_pages": st["kv_pages"]["free"],
+            "cached_pages": cached_pages}
+
+
+def kv_reuse_phase(engine, card: str, label: str) -> dict:
+    """KV reuse across an agent's turns on the serving llama3-8b engine:
+    the continuation's logits, parked turns (adoption), cache hits, and
+    preemption on a second, smaller engine; every part's decode steps go
+    through the expected walk."""
+    import statistics
+
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    t_phase = time.monotonic()
+    cfg, int8_walk = engine.config, engine.quantize_kv
+    out = {"card": card, "continuation": continuation_check(engine, card, label)}
+    for name, seeds, park in (("parked", [100 + r for r in range(KV_REPEATS)], True),
+                              ("cache", [200], False)):
+        pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+        steps0 = engine.decode_steps
+        runs = [conversations(engine, card, label, seed, park) for seed in seeds]
+        walk = _walk_check(f"kv reuse {label} {name}", engine.decode_steps - steps0,
+                           cfg.n_layers, int8_walk)
+        first = [v for r in runs for v in r["turns"][0]["ttft_ms"]]
+        later = [v for r in runs for t in r["turns"][1:] for v in t["ttft_ms"]]
+        rows = [t["prefill_tokens"] / KV_CONVERSATIONS for t in runs[0]["turns"]]
+        counts = [(t["adoptions"], t["hits"], t["misses"]) for r in runs for t in r["turns"]]
+        out[name] = {"runs": runs, "launches": walk, "ttft_turn1_ms": statistics.median(first),
+                     "ttft_later_ms": statistics.median(later)}
+        say(f"kv reuse {label} {name}: {KV_CONVERSATIONS} conversations x {KV_TURNS} turns "
+            f"x {len(seeds)} run(s), {KV_FIRST_PROMPT}-token first prompts, "
+            f"{KV_TURN_TOKENS} + {KV_TOOL_RESULT} tokens a turn; (adoptions, hits, misses) per "
+            f"turn {counts}; rows prefilled per request {rows}; TTFT median turn 1 "
+            f"{statistics.median(first):.1f} ms, turns 2-{KV_TURNS} "
+            f"{statistics.median(later):.1f} ms; walk launches {walk} = {cfg.n_layers} x "
+            f"{walk // cfg.n_layers} decode steps  [{card}]")
+    out["preemption"] = preemption_check(engine, card, label)
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
 
 
 # -- parallel serving phases ---------------------------------------------
@@ -1879,7 +2302,11 @@ def operator_phase(engine, card: str, label: str) -> dict:
                     "launches": launches, "int8_launches": int8_launches,
                     "drain_s": drain_s}
 
+        overlap0 = engine.stats()["tool_overlap"]
         out = asyncio.run(run())
+        overlap1 = engine.stats()["tool_overlap"]
+        out["parks"] = overlap1["parks"] - overlap0["parks"]
+        out["park_adoptions"] = overlap1["park_adoptions"] - overlap0["park_adoptions"]
     steps, launches, int8_launches = out["decode_steps"], out["launches"], out["int8_launches"]
     walk = int8_launches if int8_walk else launches - int8_launches
     other = launches - walk
@@ -1919,6 +2346,7 @@ def operator_phase(engine, card: str, label: str) -> dict:
     say(f"operator {label}: Task create -> first ToolCall CR over all 6 tool Tasks "
         f"{_fmt(_ms_stats(all_first))}; {steps} decode steps, "
         f"{walk} {'int8' if int8_walk else 'bf16'}-walk launches, other walk {other}; "
+        f"parks {out['parks']}, park adoptions {out['park_adoptions']}; "
         f"drain {out['drain_s']:.2f} s; phase {phase_s:.1f} s  [{card}]")
     return {**out, "card": card, "walk_launches": walk, "first_toolcall_ms": _ms_stats(all_first),
             "phase_s": phase_s, "toolcall_poll_s": TOOLCALL_POLL_S,
@@ -2117,8 +2545,7 @@ def _serving_rank(label: str, tp: int, sp: int, max_tokens: int, engine_kw: dict
             }
             stats = engine.stats()
             doc["stats_mesh"] = stats["mesh"]
-            doc["pages_released"] = (stats["kv_pages"]["free"] == engine.num_pages - 1
-                                     and not stats["active_slots"])
+            doc["pages_released"] = _pool_whole(engine)
         finally:
             server.shutdown()
             server.server_close()
@@ -2602,6 +3029,9 @@ def quickstart_phase(card: str) -> dict:
             if steps <= 0 or launches != n_layers * steps or int8 != 0:
                 stop_failed(f"walk launches {launches} (int8 {int8}) != {n_layers} x {steps} "
                             f"decode steps")
+            overlap = eng1.get("tool_overlap", {})
+            say(f"quick start: the operator process's engine parked {overlap.get('parks')} "
+                f"slots, {overlap.get('park_adoptions')} adopted by a next turn  [{card}]")
             say(f"quick start: events {len(events.splitlines())} lines; /v1/models "
                 f"{sorted(ids)}; /metrics {task_gauges}; no token -> 401; chat OK; the operator "
                 f"process ran {steps} decode steps and {launches} walk launches "
@@ -2629,6 +3059,8 @@ def quickstart_phase(card: str) -> dict:
             "final_answer_ms": final_ms, "approve_ms": approve_ms, "respond_ms": respond_ms,
             "decode_steps": steps, "walk_launches": launches,
             "walk_launches_since_start": eng1["walk_launches"]["total"],
+            "parks": eng1.get("tool_overlap", {}).get("parks"),
+            "park_adoptions": eng1.get("tool_overlap", {}).get("park_adoptions"),
             "card_bytes_free_before": free0, "card_bytes_free_after_start": free1,
             "parent_reserved_bytes": parent_reserved, "task_gauges": task_gauges,
             "stop_s": stop_s, "phase_s": phase_s}
@@ -2710,17 +3142,20 @@ def main() -> int:
     model = timed("model", model_phase)
     perf = timed("serving_bf16", serving_phase, card, "bf16", constrained=True)
     walls["constrained"] = perf["constrained"]["phase_s"]
+    walls["kv_reuse_bf16"] = perf["kv_reuse"]["phase_s"]
     walls["control_plane_bf16"] = perf["control_plane"]["phase_s"]
     walls["operator_bf16"] = perf["operator"]["phase_s"]
-    walls["serving_bf16"] -= (walls["constrained"] + walls["control_plane_bf16"]
-                              + walls["operator_bf16"])
+    walls["serving_bf16"] -= (walls["constrained"] + walls["kv_reuse_bf16"]
+                              + walls["control_plane_bf16"] + walls["operator_bf16"])
     gc.collect()
     torch.cuda.empty_cache()
     perf_int8 = timed("serving_int8", serving_phase, card, "int8", quantize_weights=True,
                       quantize_kv=True)
+    walls["kv_reuse_int8"] = perf_int8["kv_reuse"]["phase_s"]
     walls["control_plane_int8"] = perf_int8["control_plane"]["phase_s"]
     walls["operator_int8"] = perf_int8["operator"]["phase_s"]
-    walls["serving_int8"] -= walls["control_plane_int8"] + walls["operator_int8"]
+    walls["serving_int8"] -= (walls["kv_reuse_int8"] + walls["control_plane_int8"]
+                              + walls["operator_int8"])
     say(f"serving int8 vs bf16: weights {perf_int8['weight_bytes'] / 1e9:.3f} / "
         f"{perf['weight_bytes'] / 1e9:.3f} GB, KV pool {perf_int8['pool_bytes'] / 1e9:.3f} / "
         f"{perf['pool_bytes'] / 1e9:.3f} GB for {perf['num_pages']} pages  [{card}]")
@@ -2792,7 +3227,8 @@ def main() -> int:
          "parallel": par, "quickstart": quickstart, "walls_s": walls, "seconds": time.monotonic() - t_start}, indent=1,
         default=str))
     say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
-        + " s (serving phases without the constrained, control-plane and operator phases)")
+        + " s (serving phases without the constrained, kv-reuse, control-plane and operator "
+          "phases)")
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

@@ -197,13 +197,15 @@ class _StubEngine:
 
     def __init__(self, outcome, calls=(), running=True):
         self.outcome, self.calls, self.running = outcome, calls, running
-        self.cancelled, self.samplings = [], []
+        self.cancelled, self.samplings, self.parks = [], [], []
 
     def ensure_running(self):
         return self.running
 
-    def submit(self, prompt, sampling, on_tokens=None, timeout_s=None, on_tool_call=None):
+    def submit(self, prompt, sampling, on_tokens=None, timeout_s=None, on_tool_call=None,
+               park=False):
         self.samplings.append(sampling)
+        self.parks.append(park)
         fut = Future()
         fut.admitted = Future()
         if isinstance(self.outcome, BaseException):
@@ -275,6 +277,18 @@ async def test_sampling_from_the_llm_params_and_tool_choice():
         eng.tokenizer, TOOLS, "search")
     assert json_tools.json_only and not json_tools.forced_prefix
     assert not no_tools.json_only and no_tools.max_tokens == 512
+
+
+async def test_overlapped_turns_park_their_slot():
+    """As the reference's client (engine/client.py:175-178): a turn with
+    tools and overlap on parks its slot for the next turn; a turn without
+    tools, or with overlap off, does not."""
+    eng = _StubEngine("ok")
+    await TPUEngineClient(eng, BaseConfig()).send_request(MESSAGES, TOOLS)
+    await TPUEngineClient(eng, BaseConfig()).send_request(MESSAGES, [])
+    await TPUEngineClient(eng, BaseConfig(), overlap_tool_calls=False).send_request(
+        MESSAGES, TOOLS)
+    assert eng.parks == [True, False, False]
 
 
 async def test_crashed_engine_is_rebuilt_by_the_next_request():

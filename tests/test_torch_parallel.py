@@ -16,8 +16,11 @@ logits against the reference's (2e-4, the bar of ``test_torch_model.py``)
 and its committed pools (1e-5), and greedy engine streams byte-identical
 across ranks, to the port on one card and to the JAX mesh engine, unquantized
 and with int8 weights + KV, a json_only request and a forced tool-call
-envelope among them. Plus the reference's refusals of bad serving
-configurations, and ``run_ranks``' hard timeout.
+envelope among them, then a two-turn conversation whose second turn hits
+the prefix cache on every rank (a continuation prefill over shared pages:
+each rank's heads under tp, the sp ranks' prefix states merged under sp).
+Plus the reference's refusals of bad serving configurations, and
+``run_ranks``' hard timeout.
 """
 
 import dataclasses
@@ -69,6 +72,12 @@ WORKLOAD = [(p, {"max_tokens": m}) for p, m in BATCH] + [
     ("tool time", {"max_tokens": 12, "json_only": True,
                    "forced_prefix": tuple(b'{"name": "get_weather", "arguments": {')}),
 ]
+
+# two turns of one conversation, served one after the other: the second
+# extends the first (40 -> 52 tokens), so it hits the prefix cache (a 32-row
+# entry) and prefills its 20-token suffix over the shared pages
+TURN1 = "user asks; tool answers. " * 2
+CONVERSATION = [(p, {"max_tokens": 4}) for p in (TURN1[:40], TURN1[:40] + " more words!")]
 
 # paged inputs: S=4 lanes, pages of 8 tokens, 2 KV heads of 8 query heads,
 # d=16. Lengths: 0 (nothing anywhere), 3 (all rows of sp rank 1 masked at
@@ -240,7 +249,7 @@ def inputs():
     return {
         "config": TCFG, "wrappers": _paged_inputs(4), "tree": tree,  # as jax_sharded
         "decode": _decode_inputs(), "stream_tree": _stream_weights(), "batch": WORKLOAD,
-        "engine_kw": ENGINE_KW,
+        "conversation": CONVERSATION, "engine_kw": ENGINE_KW,
     }
 
 
@@ -330,6 +339,10 @@ def _single_card_streams(weights, quantized: bool):
         with port.hold_admission():
             futs = [port.submit(p, SamplingParams(**kw)) for p, kw in WORKLOAD]
         mine = [(f.result(timeout=120).tokens, f.result().finish_reason) for f in futs]
+        for p, kw in CONVERSATION:
+            r = port.submit(p, SamplingParams(**kw)).result(timeout=120)
+            mine.append((r.tokens, r.finish_reason))
+        assert port.stats()["prefix_cache"]["hits"] == 1
     finally:
         port.stop()
     jax_streams = {}
@@ -337,7 +350,7 @@ def _single_card_streams(weights, quantized: bool):
         eng = JaxEngine(
             config=JCFG, params=jax.tree_util.tree_map(jnp.asarray, weights),
             tokenizer=JaxByteTokenizer(), mesh=_mesh(world), kv_layout="paged",
-            prefix_cache_entries=0, quantize_weights=quantized, quantize_kv=quantized,
+            prefix_dedup=False, quantize_weights=quantized, quantize_kv=quantized,
             **ENGINE_KW,
         )
         eng.start()
@@ -345,6 +358,10 @@ def _single_card_streams(weights, quantized: bool):
             futs = [eng.submit(p, JaxSampling(**kw)) for p, kw in WORKLOAD]
             jax_streams[world] = [(f.result(timeout=300).tokens, f.result().finish_reason)
                                   for f in futs]
+            for p, kw in CONVERSATION:
+                r = eng.submit(p, JaxSampling(**kw)).result(timeout=300)
+                jax_streams[world].append((r.tokens, r.finish_reason))
+            assert eng.stats()["prefix_cache"]["hits"] == 1
         finally:
             eng.stop()
     return mine, jax_streams
@@ -365,6 +382,9 @@ def test_engine_streams_identical_across_ranks_single_card_and_jax(
             json.loads(ByteTokenizer().decode(tokens))
     reasons = [reason for _, reason in leader]
     assert "stop" in reasons and "length" in reasons
+    assert len(leader) == len(WORKLOAD) + len(CONVERSATION)
+    for run in runs:  # the conversation's second turn hit on every rank
+        assert run["prefix_hits"] == 1
     for run in runs[1:]:
         assert run["finished"] == runs[0]["finished"]
         assert run["decode_steps"] == runs[0]["decode_steps"] > 0

@@ -69,10 +69,13 @@ def _decode(group, tree: dict, config, d: dict) -> dict:
     return {"logits": logits.numpy(), "k": pages["k"].numpy(), "v": pages["v"].numpy()}
 
 
-def _streams(group, tree: dict, config, batch, engine_kw: dict, quantized: bool) -> dict:
+def _streams(group, tree: dict, config, batch, conversation, engine_kw: dict,
+             quantized: bool) -> dict:
     """A greedy batch of (prompt, sampling keywords) through this rank's
-    engine (submitted on rank 0, as one admission group): the leader's
-    results and every rank's record of finished requests."""
+    engine (submitted on rank 0, as one admission group), then the turns of
+    one conversation one after another (each turn's prompt extends the
+    last, so the second hits the prefix cache): the leader's results, every
+    rank's record of finished requests and its prefix-cache hits."""
     if quantized:  # int8 is applied to the whole model, then sliced
         params = shard_params(quantize_params(params_from_jax(tree, config, device="cpu")), group)
     else:
@@ -85,6 +88,9 @@ def _streams(group, tree: dict, config, batch, engine_kw: dict, quantized: bool)
         with engine.hold_admission():
             futs = [engine.submit(p, SamplingParams(**kw)) for p, kw in batch]
         results = [(f.result(timeout=120).tokens, f.result().finish_reason) for f in futs]
+        for prompt, kw in conversation:
+            r = engine.submit(prompt, SamplingParams(**kw)).result(timeout=120)
+            results.append((r.tokens, r.finish_reason))
         engine.stop()
     else:
         refused = engine.submit("x", SamplingParams(max_tokens=1))
@@ -95,7 +101,7 @@ def _streams(group, tree: dict, config, batch, engine_kw: dict, quantized: bool)
     stats = engine.stats()
     return {"results": results, "finished": list(engine.finished),
             "mesh": stats["mesh"], "pool_shape": tuple(engine.cache["k"].shape),
-            "decode_steps": engine.decode_steps}
+            "decode_steps": engine.decode_steps, "prefix_hits": stats["prefix_cache"]["hits"]}
 
 
 def _clock_decisions(group, tree: dict, config, engine_kw: dict) -> dict:
@@ -134,6 +140,7 @@ def parallel_cases(tp: int, sp: int, inputs: dict) -> dict:
     out["launches"] = (pa.LAUNCHES, pa.STATE_LAUNCHES)  # CPU tensors: no kernel launch
     for quantized in (False, True):
         out[f"streams_{'int8' if quantized else 'f32'}"] = _streams(
-            group, inputs["stream_tree"], cfg, inputs["batch"], inputs["engine_kw"], quantized)
+            group, inputs["stream_tree"], cfg, inputs["batch"], inputs["conversation"],
+            inputs["engine_kw"], quantized)
     out["clock"] = _clock_decisions(group, inputs["stream_tree"], cfg, inputs["engine_kw"])
     return out
