@@ -70,10 +70,13 @@ class TPUProviderConfig(APIModel):
     The engine is process-wide and built before the control plane starts;
     the LLM controller holds the parallelism and quantization fields
     against the live engine (declarative intent), and the factory passes
-    the timeouts and ``overlap_tool_calls`` to the client. The other
-    serving knobs (chunking, token budget, host KV tier, prefetch) are the
-    reference's and are kept so its manifests load unchanged; the port's
-    engine does not have those features yet (ROADMAP A.4-A.8).
+    the timeouts and ``overlap_tool_calls`` to the client. ``prefill_chunk``
+    and ``token_budget`` are the engine's knobs, set where the engine is
+    built (``run --tpu-prefill-chunk/--tpu-token-budget``), not from a
+    manifest, as in the reference. The host KV tier's knobs
+    (``host_kv_bytes``, ``host_prefetch``) are the reference's and are kept
+    so its manifests load unchanged; the port's engine does not have that
+    tier yet (ROADMAP A.8).
     """
 
     checkpoint: Optional[str] = None

@@ -4,6 +4,7 @@ operator and kubectl-style resource management, as the reference's
 front door (``serve``):
 
   run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--tpu-park-max-s 30]
+      [--tpu-prefill-chunk 0] [--tpu-token-budget 0] [--tpu-prefix-dedup 1]
       [--device cpu]
   apply -f manifests.yaml
   get <Kind> [name] [-o yaml]
@@ -114,7 +115,10 @@ def cmd_run(args) -> int:
                         max_queue=args.tpu_max_queue,
                         quantize_weights=args.tpu_quantize_weights,
                         quantize_kv=args.tpu_quantize_kv,
-                        park_max_s=args.tpu_park_max_s)
+                        park_max_s=args.tpu_park_max_s,
+                        prefill_chunk=args.tpu_prefill_chunk,
+                        token_budget=args.tpu_token_budget,
+                        prefix_dedup=bool(args.tpu_prefix_dedup))
         engine.start()
     options = OperatorOptions(
         db_path=args.db,
@@ -454,6 +458,29 @@ def build_parser() -> argparse.ArgumentParser:
                      help="seconds a slot parked at generation end (prompt KV resident) "
                           "waits for the conversation's next turn before it is released; "
                           "0 disables parking")
+    run.add_argument(
+        "--tpu-prefill-chunk", type=int, default=0,
+        help="chunked prefill: split every prefill into chunks of at most "
+        "this many tokens, co-scheduled with decode under the unified "
+        "token-budget scheduler so one long prompt can't head-of-line-block "
+        "decoding slots (greedy outputs byte-identical on/off; see "
+        "docs/serving-engine.md); 0 = off (whole prefill at admission)",
+    )
+    run.add_argument(
+        "--tpu-token-budget", type=int, default=0,
+        help="per-dispatch-cycle token budget the scheduler spends across "
+        "prefill chunks + decode + speculative verify; 0 = auto-sized "
+        "(decode always dispatches, one chunk per mid-prefill slot rides "
+        "along); only meaningful with --tpu-prefill-chunk",
+    )
+    run.add_argument(
+        "--tpu-prefix-dedup", type=int, default=1,
+        help="cross-request shared-prefix page dedup (paged KV layout): "
+        "requests whose page-aligned prompt prefix matches a live slot "
+        "refcount-share its pages instead of materializing a private copy "
+        "— N concurrent tasks on one agent persona hold 1 copy, not N; "
+        "0 disables (byte-identical either way)",
+    )
     run.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     run.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     run.set_defaults(fn=cmd_run)

@@ -16,23 +16,56 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
     after a prefill, an LRU entry takes a reference on the row's leading
     whole prompt pages (zero copy, ``PageAllocator.share``); a later row
     extending that prefix borrows the pages and prefills only its suffix
-    (``prefill_paged_continue``). Shared pages are never written: every
-    cut is page-aligned and below the row's last token;
+    (``prefill_paged_continue``). Every cut is page-aligned and below the
+    row's last token;
   - **parked slots** (``submit(park=True)``, ``park_max_s``): a finished
     turn resolves its future but keeps its slot and prompt pages, so the
     conversation's next turn adopts the slot in place and prefills only
     its suffix. Parked slots yield first under pressure and expire
     unclaimed; under a serving ``group`` parking is off (expiry reads the
     wall clock, which would fork the ranks);
+  - **shared-prefix dedup** (``prefix_dedup``, on by default): a row whose
+    page-aligned prefix matches a live slot's row (or an earlier member of
+    its admission group) shares that slot's pages instead of writing a
+    private copy, so N Tasks of one Agent hold one copy of its system
+    prompt. The follower is admitted as a prefilling slot and waits until
+    its leader has written the shared rows; a leader that leaves while
+    still prefilling rewinds its followers to the rows it wrote, and they
+    compute the rest themselves. Admission takes the reuse that covers the
+    most rows, ties going to adoption, then the cache, then dedup;
   - **lazy page growth with preempt-and-resume**: before every decode
     block each slot's table must cover ``seq_len + K``; a slot that
     crosses a page grows by ``page_lookahead_blocks`` blocks of pages. A
     pool that runs short reclaims others' lookahead, releases parked
     slots, evicts cache entries and then preempts a victim (parked
-    first, then fewest sampled tokens, ties to the most recently
-    admitted): its sampled tokens are saved, its pages freed, and it is
-    requeued at the front to resume with a prompt + partial prefill that
-    streams nothing twice. ``GenerationResult.preempt_count`` counts it.
+    first, then fewest sampled tokens, so mid-prefill slots before any
+    decoding one, ties to the most recently admitted): its sampled tokens
+    are saved, its pages freed, and it is requeued at the front to resume
+    with a prompt + partial prefill that streams nothing twice.
+    ``GenerationResult.preempt_count`` counts it.
+- **Shared pages** (the cache, dedup, adoption): a decode block never
+  writes a page referenced more than once. A prefill writes one only while
+  every other holder of it is itself still mid-prefill and has not
+  written those rows: a dedup leader writing rows its waiting followers
+  will read, or followers rewound after their leader left recomputing the
+  same rows. No cache entry, parked slot or decoding slot ever holds a
+  page that is written.
+- **Chunked prefill under the token-budget scheduler** (``prefill_chunk``,
+  ``token_budget``; both 0, off, by default as in the reference): with a
+  chunk, admission only reserves the slot and its row's pages, and every
+  loop cycle spends a token budget (auto: the decode block's tokens plus
+  one chunk per prefilling slot) on prefill chunks, earliest deadline
+  first, then the decode block, so one long prompt never stalls the
+  decoding lanes for its whole prefill. At least one chunk advances per
+  cycle. Mid chunks write KV only (``prefill_paged_continue_kv``); a final
+  chunk samples the first token and the slot starts decoding. Chunk
+  boundaries are page-aligned, the chunk is clamped to the largest prefill
+  bucket, and a live toggle to 0 drains mid-prefill slots at that bucket.
+  A prefilling slot's decode lane is inactive (its writes go to the trash
+  page), it grows no pages, and a deadline or cancel mid-prefill releases
+  its partial KV. With chunking off, a row longer than the largest bucket
+  spills its head through KV-only continuations of that bucket before its
+  last part prefills (``_spill_long_chunks``).
 - **Decode** runs K-step blocks at the smallest width bucket covering the
   live slots: every step runs ``decode_step_paged`` (the CUDA paged
   attention kernel in every layer on the card), samples, and detects
@@ -66,9 +99,9 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   one frame per loop iteration; followers refuse ``submit`` and replay the
   frames. Sampling generators are seeded identically on every rank.
 
-Left out for now (each is in ROADMAP): chunked prefill and the megastep,
-speculative decoding, fleet affinity and trace export (``affinity_key=``,
-``trace=``), shared-prefix dedup, the host KV tier, the flight recorder,
+Left out for now (each is in ROADMAP): the chunk-rate planner and the
+megastep, speculative decoding, fleet affinity and trace export
+(``affinity_key=``, ``trace=``), the host KV tier, the flight recorder,
 fault sites, and multi-host.
 """
 
@@ -97,6 +130,7 @@ from ..models.llama import (
     init_paged_cache,
     prefill_paged_batch,
     prefill_paged_continue,
+    prefill_paged_continue_kv,
 )
 from ..observability.metrics import REGISTRY
 from ..ops.cuda import paged_attention as walk
@@ -214,6 +248,19 @@ class _Slot:
     parked: bool = False
     parked_at: float = 0.0
     park_cut: int = 0  # KV rows valid for adoption (page-aligned)
+    # chunked prefill: the slot and its row's pages are reserved but only
+    # ``prefill_pos`` rows of KV are written; the scheduler advances it a
+    # chunk a cycle and it never decodes until its final chunk. Preempting
+    # it loses no sampled token. ``prefill_row`` is its ``_full_row``
+    # (kept after the final chunk while dedup is on: the leader scan reads
+    # it)
+    prefilling: bool = False
+    prefill_pos: int = 0
+    prefill_row: Optional[list] = None
+    # a dedup follower: (leader slot, leader rid, cut) — rows [0, cut) are
+    # the leader's pages; it dispatches no chunk until the leader has
+    # written them. None once the wait is over
+    share_of: Optional[tuple] = None
 
 
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -277,6 +324,19 @@ class Engine:
         # parked slots (submit(park=True)) expire after this long unclaimed;
         # 0 disables parking. Forced to 0 under a serving group
         park_max_s: float = 30.0,
+        # chunked prefill: > 0 splits every prefill into chunks of at most
+        # this many tokens (rounded up to a page, clamped to the largest
+        # bucket), co-scheduled with decode blocks; 0 = the whole prefill
+        # at admission
+        prefill_chunk: int = 0,
+        # tokens a loop cycle spends on prefill chunks and the decode
+        # block; 0 = auto (the decode block's tokens + one chunk per
+        # prefilling slot). Decode always runs and one chunk always
+        # advances, so it throttles prefill without starving either side
+        token_budget: int = 0,
+        # shared-prefix dedup: a row whose page-aligned prefix matches a
+        # live slot's row shares its pages instead of writing a copy
+        prefix_dedup: bool = True,
         max_queue: int = 0,  # 0 = unbounded
         quantize: Optional[str] = None,  # "int8" = weight-only int8 serving
         # alias for quantize="int8", matching the reference's knob names
@@ -305,9 +365,9 @@ class Engine:
         check_serving_config(config, group, page_size, self.max_ctx)
         if self.max_ctx % page_size:
             raise ValueError(f"page_size {page_size} must divide max_ctx {self.max_ctx}")
-        # every prompt fits one bucket (chunked prefill is not ported): the
-        # context itself is the last bucket
-        buckets = sorted({b for b in prefill_buckets if b <= self.max_ctx} | {self.max_ctx})
+        # the reference's rule: a row longer than the largest bucket spills
+        # through continuations of that bucket (_spill_long_chunks)
+        buckets = sorted({b for b in prefill_buckets if b <= self.max_ctx}) or [self.max_ctx]
         bad = [b for b in buckets if b % page_size]
         if bad:
             raise ValueError(f"prefill buckets {bad} are not multiples of page_size {page_size}")
@@ -328,6 +388,11 @@ class Engine:
         self._prefix_cache_max_tokens = prefix_cache_max_tokens
         self._prefix_lock = threading.Lock()  # the engine thread writes, stats() reads
         self.park_max_s = 0.0 if group is not None else max(0.0, park_max_s)
+        # chunked prefill and dedup: plain attributes read every cycle and
+        # admission, so a live engine can A/B them
+        self.prefill_chunk = max(0, int(prefill_chunk))
+        self.token_budget = max(0, int(token_budget))
+        self.prefix_dedup = bool(prefix_dedup)
         # axis sizes, read by the LLM controller (``engine.mesh.shape``)
         self.mesh = ServingMesh.of(group)
         # lockstep frame stream across the group's ranks (None on one rank)
@@ -421,6 +486,14 @@ class Engine:
         self.park_releases = 0  # parked slots released (pressure, expiry, stop)
         self._prefix_hits = 0
         self._prefix_misses = 0
+        self.prefix_shares = 0  # admissions that shared a dedup leader's pages
+        self.prefill_chunks = 0  # chunks dispatched (one per slot per cycle)
+        self.hol_wait_s = 0.0  # seconds decoding slots waited behind prefill
+        # (budget, tokens spent) of the last cycle, replaced as a whole so a
+        # stats() read is never torn; and both summed over every cycle
+        self._budget_last = (0, 0)
+        self._budget_spent_total = 0
+        self._budget_total = 0
 
     def _init_kv_state(self) -> None:
         """(Re)build the page pools and the host bookkeeping — shared by
@@ -441,6 +514,7 @@ class Engine:
         )
         self._slots: dict[int, _Slot] = {}
         self._parked_count = 0  # slots in _slots with parked=True
+        self._prefilling_count = 0  # slots in _slots with prefilling=True
         self._admit_seq = 0
         self._free = list(range(self.max_slots))
         # host mirrors of per-slot decode state
@@ -651,6 +725,7 @@ class Engine:
             "max_ctx": self.max_ctx,
             "active_slots": self._n_active(),
             "parked_slots": self._parked_count,
+            "prefilling_slots": self._prefilling_count,
             "waiting": len(self._waiting) + self._queue.qsize(),
             "max_queue": self.max_queue,
             "sheds": self.sheds,
@@ -675,6 +750,24 @@ class Engine:
             "constraint_table_bytes": self.constraint_table_bytes,
             "constraint_table_build_s": round(self.constraint_table_build_s, 4),
             "tool_calls_early": self.tool_calls_early,
+            # the token-budget scheduler: utilization is tokens dispatched
+            # over the cycle's budget (low: the budget is oversized; about
+            # 1 with chunks waiting: prefill is throttled by it)
+            "scheduler": {
+                "chunked_prefill": self.prefill_chunk > 0,
+                "prefill_chunk": self.prefill_chunk,
+                "token_budget": self.token_budget,  # 0 = auto
+                "prefill_chunks_total": self.prefill_chunks,
+                "hol_wait_seconds": round(self.hol_wait_s, 4),
+                "budget_utilization_last": (
+                    round(min(1.0, self._budget_last[1] / self._budget_last[0]), 4)
+                    if self._budget_last[0] else 0.0
+                ),
+                "budget_utilization_avg": (
+                    round(min(1.0, self._budget_spent_total / self._budget_total), 4)
+                    if self._budget_total else 0.0
+                ),
+            },
             "tool_overlap": {
                 "early_calls": self.tool_calls_early,
                 "parks": self.parks,
@@ -690,6 +783,12 @@ class Engine:
                 "state": walk.STATE_LAUNCHES,
             },
             "memory": {
+                "prefix_dedup": {
+                    "enabled": self.prefix_dedup,
+                    "shares": self.prefix_shares,
+                    # pages with more than one owner (dedup and the cache)
+                    "shared_pages": self._allocator.shared_count,
+                },
                 # int8 KV cache: at a fixed byte budget the pool holds ~1.94x
                 # the tokens (head_dim 128)
                 "quantized_kv": {
@@ -726,11 +825,13 @@ class Engine:
         return n
 
     def _n_active(self) -> int:
-        """Slots decoding: parked slots linger without work."""
-        return len(self._slots) - self._parked_count
+        """Slots decoding: parked slots linger without work, and
+        mid-prefill slots have sampled nothing yet."""
+        return len(self._slots) - self._parked_count - self._prefilling_count
 
     def _has_work(self) -> bool:
-        return self._n_active() > 0
+        """Slots the loop must advance: decoding or mid-prefill."""
+        return len(self._slots) - self._parked_count > 0
 
     # -- engine loop -----------------------------------------------------
 
@@ -743,11 +844,12 @@ class Engine:
                         break
                     self._sweep_parked()
                     if self._has_work():
-                        self._decode_once()
+                        self._dispatch_once()
         except Exception as e:  # an engine crash must not hang callers
             log.exception("engine loop crashed")
             self._slots.clear()
             self._parked_count = 0
+            self._prefilling_count = 0
             self._stopping = True
             self._crashed = True
             for fut in list(self._outstanding):
@@ -866,6 +968,8 @@ class Engine:
             r.future.set_exception(
                 DeadlineExceededError("deadline expired while queued (never admitted)")
             )
+            REGISTRY.counter_add("acp_engine_deadline_expired_total", 1.0,
+                                 help="requests failed fast because their deadline passed")
         if self._channel is not None:
             self._cancelled.update(r.rid for r in expired)
             return
@@ -944,27 +1048,103 @@ class Engine:
         self._allocator.free(old["pages"])
         return True
 
+    # -- shared-prefix dedup ---------------------------------------------
+
+    def _match_dedup_leader(self, full: list[int], group: list) -> Optional[tuple]:
+        """The longest page-aligned common prefix (at least a page) between
+        ``full`` and a live slot's row or an earlier member of the
+        admission group being formed (the burst case: N Tasks of one Agent
+        at once, before any prefill could fill the cache): ``(leader slot,
+        leader rid, cut)`` or None. A parked leader shares up to its park
+        cut, any other up to its whole row (a follower of a leader still
+        prefilling waits for the rows). Waiting followers are never leaders
+        (their rows below the cut are not theirs to vouch for); ties keep
+        the first candidate, so a burst chains every follower to one
+        writer."""
+        if not self.prefix_dedup:
+            return None
+        best: Optional[tuple] = None
+        for s, sl in self._slots.items():
+            if sl.share_of is not None:
+                continue
+            if sl.parked:
+                other, limit = sl.request.prompt, sl.park_cut
+            else:
+                other = sl.prefill_row if sl.prefill_row is not None else self._full_row(
+                    sl.request)
+                limit = len(other)
+            cut = self._common_cut(full, other, limit)
+            if cut >= self.page_size and (best is None or cut > best[2]):
+                best = (s, sl.request.rid, cut)
+        for g_req, g_slot, _pages, g_match in group:
+            if g_match is not None and g_match[1].get("share_of") is not None:
+                continue
+            cut = self._common_cut(full, self._full_row(g_req))
+            if cut >= self.page_size and (best is None or cut > best[2]):
+                best = (g_slot, g_req.rid, cut)
+        return best
+
+    def _common_cut(self, full: list[int], other: list[int], limit: Optional[int] = None) -> int:
+        """Page-aligned length of the common token prefix, below ``full``'s
+        last token (a suffix must remain) and at most ``limit``; compared a
+        page at a time (the result is page-aligned anyway)."""
+        P = self.page_size
+        n = min(len(full) - 1, len(other))
+        if limit is not None:
+            n = min(n, limit)
+        i = 0
+        while i < n // P and full[i * P: (i + 1) * P] == other[i * P: (i + 1) * P]:
+            i += 1
+        return i * P
+
+    def _unshare_followers(self, leader_slot: int, leader_sl: _Slot) -> None:
+        """A dedup leader leaves while still prefilling (preempted, expired,
+        cancelled): every follower waiting on it rewinds to the page-aligned
+        rows it wrote. The followers hold references, so the shared pages
+        survive; each recomputes the gap itself, into those pages (followers
+        rewound together may write the same rows, with the same values)."""
+        if not leader_sl.prefilling:
+            return  # its prefill finished: every shared row is written
+        pos = (leader_sl.prefill_pos // self.page_size) * self.page_size
+        rid = leader_sl.request.rid
+        for s, sl in self._slots.items():
+            if (sl.prefilling and sl.share_of is not None and sl.share_of[0] == leader_slot
+                    and sl.share_of[1] == rid):
+                if sl.prefill_pos > pos:
+                    sl.prefill_pos = pos
+                    self._seq_lens[s] = pos
+                sl.share_of = None
+
     # -- admission -------------------------------------------------------
 
     def _fill_slots(self) -> bool:
+        """Admit from the waiting deque. With chunking on, admission only
+        reserves (slot, pages, reuse start) and every prefill runs chunk by
+        chunk in ``_prefill_chunks``. With it off, dedup followers still
+        start as prefilling slots (they may wait on their leader), and the
+        rest prefill here: long rows spill first, then plain rows and
+        suffix continuations run as separate power-of-two batches."""
         admitted = False
         while self._waiting and (self._free or self._parked_count):
             group = self._collect_group()
             if not group:
                 break  # the head can't get pages yet; FIFO, it waits
             admitted = True
-            starts: list[int] = []
+            direct: list[list] = []  # [(req, slot, pages), start]
             for req, slot, pages, match in group:
                 # starts the client's generation clock; a caller that gave
                 # up may have cancelled the future already
                 with contextlib.suppress(InvalidStateError):
                     req.admitted.set_result(True)
-                start = 0
+                start, share = 0, None
                 if match is not None:
-                    # a hit borrows the entry's pages; an adopted slot kept
-                    # its own: either way the prefix is in the table already
+                    # a hit borrows the entry's pages, a follower its
+                    # leader's; an adopted slot kept its own: either way the
+                    # prefix is in the table already
                     start = match[1]["cut"]
-                    if not match[1].get("in_slot"):
+                    if match[1].get("share_of") is not None:
+                        share = (*match[1]["share_of"], start)
+                    elif not match[1].get("in_slot"):
                         self._prefix_hits += 1
                         REGISTRY.counter_add("acp_engine_prefix_cache_hit_requests", 1.0,
                                              help="admissions that hit the prefix cache")
@@ -972,29 +1152,37 @@ class Engine:
                     self._prefix_misses += 1
                     REGISTRY.counter_add("acp_engine_prefix_cache_miss_requests", 1.0,
                                          help="admissions that missed the prefix cache")
-                starts.append(start)
                 self._slot_pages[slot] = pages
                 self._block_tables[slot, :] = TRASH_PAGE
                 self._block_tables[slot, : len(pages)] = pages
                 self._tables_dirty = True
-            items = [(item[:3], start) for item, start in zip(group, starts)]
-            plain = [it for it, st in items if st == 0]  # the cheaper causal program
-            conts = [(it, st) for it, st in items if st > 0]  # suffix continuations
-            for chunk in _pow2_chunks(plain, self.prefill_batch_max):
-                self._prefill_group(chunk)
-            for chunk in _pow2_chunks(conts, self.prefill_batch_max):
-                self._prefill_group([it for it, _ in chunk],
-                                    starts=np.asarray([st for _, st in chunk], dtype=np.int64))
+                if self.prefill_chunk or share is not None:
+                    self._begin_chunked_prefill(req, slot, start, share)
+                else:
+                    direct.append([(req, slot, pages), start])
+            if not direct:
+                continue
+            with self._hol_clock():
+                self._spill_long_chunks(direct)
+                plain = [e[0] for e in direct if e[1] == 0]  # the cheaper causal program
+                conts = [e for e in direct if e[1] > 0]  # suffix continuations
+                for chunk in _pow2_chunks(plain, self.prefill_batch_max):
+                    self._prefill_group(chunk)
+                for chunk in _pow2_chunks(conts, self.prefill_batch_max):
+                    self._prefill_group([e[0] for e in chunk],
+                                        starts=np.asarray([e[1] for e in chunk], dtype=np.int64))
         return admitted
 
     def _collect_group(self) -> list[tuple[_Request, int, list[int], Optional[tuple]]]:
         """Pop up to prefill_batch_max head requests, reserving a slot and
         the pages of each one's row, and resolving its KV reuse: adopting
-        the parked slot of its conversation's previous turn, or borrowing a
-        prefix-cache entry's pages (the longer cut wins; a tie goes to the
-        adoption, which moves nothing). Under pressure parked slots and then
-        cache entries yield. Stops at the first request the pool can't
-        cover (FIFO)."""
+        the parked slot of its conversation's previous turn, borrowing a
+        prefix-cache entry's pages, or sharing a dedup leader's (a live
+        slot or an earlier member of this group). The reuse covering the
+        most rows wins; ties go to adoption (moves nothing), then the cache
+        (written rows), then dedup (may wait on its leader). Under pressure
+        parked slots (the dedup leader last) and then cache entries yield.
+        Stops at the first request the pool can't cover (FIFO)."""
         group: list[tuple[_Request, int, list[int], Optional[tuple]]] = []
         while (self._waiting and len(group) < self.prefill_batch_max
                and (self._free or self._parked_count)):
@@ -1010,28 +1198,55 @@ class Engine:
             match = None
             if self._prefix_enabled and not req.truncated:
                 match = self._match_prefix(req)
+            full = self._full_row(req)
+            dedup = self._match_dedup_leader(full, group) if not req.truncated else None
             adopt = self._match_parked(req)
-            adopt_cut = self._slots[adopt].park_cut if adopt is not None else 0
-            if adopt is not None and adopt_cut >= (match[1]["cut"] if match else 0):
+            best_cut, _prio, kind = max(
+                (self._slots[adopt].park_cut if adopt is not None else 0, 2, "adopt"),
+                (match[1]["cut"] if match is not None else 0, 1, "cache"),
+                (dedup[2] if dedup is not None else 0, 0, "dedup"),
+            )
+            if best_cut <= 0:
+                kind = None
+            if kind == "adopt":
                 item = self._adopt_parked(req, adopt)
                 if item is None:
                     break  # pages short even after yielding; the head waits
                 group.extend(item)  # [] when the head was refused
                 continue
-            # no adoption: parked capacity yields a slot id
-            if not self._free and not self._release_lru_parked():
-                break
-            total_pages = -(-len(self._full_row(req)) // self.page_size)
+            # no adoption: parked capacity yields a slot id, the dedup
+            # leader last (its pages are the share; released anyway, the
+            # request is admitted undeduped below)
+            if not self._free and not self._release_lru_parked(
+                    exclude=dedup[0] if dedup is not None else None):
+                if not self._release_lru_parked():
+                    break
+            total_pages = -(-len(full) // self.page_size)
             if self._reject_oversize_head(req, total_pages):
                 continue
-            shared = list(match[1]["pages"]) if match is not None else []
-            # share FIRST: if pressure evicts the matched entry below, this
-            # reference keeps its pages alive
+            shared: list[int] = []
+            if kind == "cache":
+                shared = list(match[1]["pages"])
+            elif kind == "dedup":
+                leader_pages = self._slot_pages.get(dedup[0])
+                if leader_pages is None:  # a leader reserved in this group
+                    leader_pages = next((it[2] for it in group if it[1] == dedup[0]), None)
+                if leader_pages is None:
+                    kind = None  # the leader was released for its slot id
+                else:
+                    shared = list(leader_pages[: best_cut // self.page_size])
+            # share FIRST: if pressure evicts the matched entry (or releases
+            # the parked leader) below, this reference keeps its pages alive
             self._allocator.share(shared)
             fresh = self._alloc_yielding(total_pages - len(shared))
             if fresh is None:
                 self._allocator.free(shared)  # undo; the head waits
                 break
+            if kind == "dedup":
+                match = (None, {"cut": best_cut, "share_of": dedup[:2]})
+                self.prefix_shares += 1
+            elif kind is None:
+                match = None
             self._waiting.popleft()
             # lowest slot first keeps occupancy compact (narrow decode widths)
             group.append((req, heapq.heappop(self._free), shared + fresh, match))
@@ -1105,9 +1320,10 @@ class Engine:
         """One batched prefill for B reserved requests, then first-token
         sampling (masked and advanced for json_only lanes) and one host read
         of the results. With ``starts`` (prefix-cache hits, adopted parked
-        slots) only each row's SUFFIX runs through the model
-        (``prefill_paged_continue``): the rows below its start are already
-        in the slot's block table and are never written."""
+        slots, dedup followers, spilled rows, final chunks) only each row's
+        SUFFIX runs through the model (``prefill_paged_continue``): the rows
+        below its start are already in the slot's block table and are never
+        written. A prefilling slot's final chunk flips it to decoding."""
         B = len(chunk)
         P = self.page_size
         if starts is None:
@@ -1187,10 +1403,20 @@ class Engine:
             first = int(firsts[i])
             if req.first_token_at == 0.0:  # once per request, not per resume
                 req.first_token_at = now
-            self._admit_seq += 1
+            prior = self._slots.get(slot)
+            if prior is not None and prior.prefilling:
+                # a final chunk: the slot keeps its admission stamp, so the
+                # victim policy's recency is admission order
+                self._prefilling_count -= 1
+                admit_seq = prior.admit_seq
+            else:
+                self._admit_seq += 1
+                admit_seq = self._admit_seq
             sl = _Slot(request=req, prompt_len=len(req.prompt),
                        prefix_len=len(s.forced_prefix), first_token_at=req.first_token_at,
-                       admit_seq=self._admit_seq)
+                       admit_seq=admit_seq)
+            if self.prefix_dedup:
+                sl.prefill_row = rows[i]  # the dedup leader scan compares it
             sl.generated.extend(s.forced_prefix)
             sl.generated.extend(req.resume_tokens)
             sl.generated.append(first)
@@ -1210,6 +1436,225 @@ class Engine:
             if stop or len(sl.generated) - sl.prefix_len >= s.max_tokens:
                 self._finish(slot, "stop" if stop else "length")
 
+    # -- chunked prefill and the token-budget scheduler -------------------
+
+    def _spill_long_chunks(self, items: list[list]) -> None:
+        """Rows longer than the largest bucket, batched across the
+        admission group: one largest-bucket chunk per long row per dispatch,
+        KV only, until every remainder fits one bucket. Moves each item's
+        start (``[(req, slot, pages), start]``) in place."""
+        CH, P = self.prefill_buckets[-1], self.page_size
+        while True:
+            need = [e for e in items if len(self._full_row(e[0][0])) - e[1] > CH]
+            if not need:
+                return
+            for batch in _pow2_chunks(need, self.prefill_batch_max):
+                B = len(batch)
+                toks = np.zeros((B, CH), dtype=np.int64)
+                starts = np.zeros(B, dtype=np.int64)
+                page_ids = np.zeros((B, CH // P), dtype=np.int64)
+                for i, ((req, _slot, pages), st) in enumerate(batch):
+                    toks[i] = self._full_row(req)[st: st + CH]
+                    starts[i] = st
+                    page_ids[i] = pages[st // P: (st + CH) // P]
+                self.cache = prefill_paged_continue_kv(
+                    self.params, self.cache, self._upload(toks),
+                    self._upload(np.full(B, CH, dtype=np.int64)), self._upload(starts),
+                    self._upload(page_ids),
+                    self._upload(self._block_tables[[e[0][1] for e in batch]]),
+                    self.config, group=self.group,
+                )
+                self.prefill_tokens += B * CH
+                for e in batch:
+                    e[1] += CH
+
+    @contextlib.contextmanager
+    def _hol_clock(self):
+        """Count prefill wall time as head-of-line wait while any slot
+        decodes: those slots' tokens arrive that much later. Wraps the
+        whole prefill at admission and the chunk dispatches alike, so one
+        metric compares chunking on and off."""
+        stalled = self._n_active() > 0
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            if stalled:
+                dt = time.monotonic() - t0
+                self.hol_wait_s += dt
+                REGISTRY.counter_add("acp_engine_hol_wait_seconds", dt,
+                                     help="seconds decoding slots were stalled behind "
+                                     "prefill dispatches (head-of-line blocking)")
+
+    def _chunk_tokens(self) -> int:
+        """The chunk: clamped to the largest prefill bucket and rounded up
+        to a page, since a mid chunk commits whole pages and every boundary
+        must be page-aligned. ``prefill_chunk == 0`` here means the knob was
+        turned off while slots were mid-prefill: they drain at the largest
+        bucket (smaller chunks would break the alignment)."""
+        ch = min(self.prefill_chunk or self.prefill_buckets[-1], self.prefill_buckets[-1])
+        return -(-ch // self.page_size) * self.page_size
+
+    def _begin_chunked_prefill(self, req: _Request, slot: int, start: int,
+                               share_of: Optional[tuple] = None) -> None:
+        """Admit a request as a PREFILLING slot: slot and pages reserved,
+        ``start`` rows already valid (cache pages, an adopted slot's prompt,
+        a dedup leader's pages), no model compute yet. Its lane uploads as
+        inactive until the final chunk."""
+        self._admit_seq += 1
+        self._slots[slot] = _Slot(
+            request=req, prompt_len=len(req.prompt),
+            prefix_len=len(req.sampling.forced_prefix), admit_seq=self._admit_seq,
+            prefilling=True, prefill_pos=start, prefill_row=self._full_row(req),
+            share_of=share_of,
+        )
+        self._prefilling_count += 1
+        self._seq_lens[slot] = start
+        self._last_tokens[slot] = 0
+        self._state_dirty = True
+
+    def _dispatch_once(self) -> None:
+        """One scheduler cycle. With nothing mid-prefill it is the decode
+        block alone (keyed on the prefilling count, not the knob, so slots
+        still mid-prefill after a toggle to 0 drain here). Otherwise the
+        cycle's token budget goes to prefill chunks, then the decode block
+        runs: decode is never starved by pending chunks, and at least one
+        chunk advances each cycle."""
+        if not self._prefilling_count:
+            self._decode_once()
+            return
+        self._apply_cancels()
+        self._expire_prefilling()
+        n_active = self._n_active()
+        decode_reserve = n_active * self.decode_block_size
+        budget = self.token_budget or (
+            decode_reserve + self._chunk_tokens() * max(1, self._prefilling_count))
+        spent = self._prefill_chunks(max(0, budget - decode_reserve))
+        if self._n_active():
+            steps0 = self.decode_steps
+            self._decode_once()
+            spent += n_active * min(self.decode_steps - steps0, self.decode_block_size)
+        self._budget_last = (budget, spent)
+        self._budget_spent_total += spent
+        self._budget_total += budget
+        REGISTRY.gauge_set("acp_engine_token_budget_utilization",
+                           min(1.0, spent / budget) if budget else 0.0,
+                           help="tokens dispatched last scheduler cycle / per-cycle token "
+                           "budget (chunked prefill mode)")
+
+    def _expire_prefilling(self) -> None:
+        """Fail mid-prefill slots whose deadline passed and release their
+        partial KV. Only the leader reads the clock; in a group the rid
+        rides the next frame's cancels, so every rank drops the slot in the
+        same frame."""
+        if self._follower:
+            return
+        now = time.monotonic()
+        expired = [(s, sl) for s, sl in self._slots.items()
+                   if sl.prefilling and sl.request.deadline is not None
+                   and now > sl.request.deadline and not sl.request.future.done()]
+        for slot, sl in expired:
+            sl.request.future.set_exception(DeadlineExceededError(
+                "deadline expired mid-prefill (partial prompt KV released)"))
+            REGISTRY.counter_add("acp_engine_deadline_expired_total", 1.0,
+                                 help="requests failed fast because their deadline passed")
+            if self._channel is not None:
+                self._cancelled.add(sl.request.rid)
+            else:
+                self._drop_prefilling_slot(slot)
+
+    def _drop_prefilling_slot(self, slot: int) -> _Slot:
+        """Release a mid-prefill slot: its partial KV pages, mirrors and id,
+        its followers rewound. The caller resolves or requeues the request."""
+        sl = self._slots.pop(slot)
+        self._prefilling_count -= 1
+        self._unshare_followers(slot, sl)
+        self._release_slot(slot)
+        return sl
+
+    def _prefill_chunks(self, chunk_budget: int) -> int:
+        """One round of chunked prefill: each mid-prefill slot gets one
+        chunk, earliest deadline first, then admission order (in a group,
+        admission order alone: deadlines are the leader's clock), until the
+        budget is spent; the first chunk always goes, over budget or not. A
+        dedup follower waits, spending nothing, until its leader has written
+        the shared rows. Mid chunks write KV only; a final chunk samples the
+        first token (a row whose only chunk it is takes the plain causal
+        program). Returns the tokens spent."""
+        pre = [(s, sl) for s, sl in self._slots.items() if sl.prefilling]
+        if self._channel is None:
+            pre.sort(key=lambda t: (t[1].request.deadline if t[1].request.deadline is not None
+                                    else float("inf"), t[1].admit_seq))
+        else:
+            pre.sort(key=lambda t: t[1].admit_seq)
+        ready = []
+        for slot, sl in pre:
+            if sl.share_of is not None:
+                lead = self._slots.get(sl.share_of[0])
+                if (lead is not None and lead.prefilling and lead.request.rid == sl.share_of[1]
+                        and lead.prefill_pos < sl.share_of[2]):
+                    continue
+                sl.share_of = None  # the shared rows are written
+            ready.append((slot, sl))
+        CHK = self._chunk_tokens()
+        sched: list[tuple[int, _Slot, int, int]] = []  # (slot, sl, start, n)
+        spent = 0
+        for slot, sl in ready:
+            n = min(CHK, len(sl.prefill_row) - sl.prefill_pos)
+            if sched and spent + n > chunk_budget:
+                break  # later slots wait a cycle
+            sched.append((slot, sl, sl.prefill_pos, n))
+            spent += n
+        if not sched:
+            return 0
+        mids = [c for c in sched if c[2] + c[3] < len(c[1].prefill_row)]
+        finals = [c for c in sched if c[2] + c[3] >= len(c[1].prefill_row)]
+        plain = [c for c in finals if c[2] == 0]
+        conts = [c for c in finals if c[2] > 0]
+        with self._hol_clock():
+            for batch in _pow2_chunks(mids, self.prefill_batch_max):
+                self._chunk_dispatch(batch)
+            for batch in _pow2_chunks(plain, self.prefill_batch_max):
+                self._prefill_group(self._chunk_items(batch))
+            for batch in _pow2_chunks(conts, self.prefill_batch_max):
+                self._prefill_group(self._chunk_items(batch),
+                                    starts=np.asarray([c[2] for c in batch], dtype=np.int64))
+        for slot, sl, st, n in mids:
+            sl.prefill_pos = st + n
+            self._seq_lens[slot] = sl.prefill_pos
+        self.prefill_chunks += len(sched)
+        REGISTRY.counter_add("acp_engine_prefill_chunks_total", float(len(sched)),
+                             help="prefill chunk dispatches (per-slot chunks) under the "
+                             "unified token-budget scheduler")
+        return spent
+
+    def _chunk_items(self, batch: list) -> list:
+        """(slot, sl, start, n) chunks -> ``_prefill_group`` items."""
+        return [(sl.request, slot, self._slot_pages[slot]) for slot, sl, _st, _n in batch]
+
+    def _chunk_dispatch(self, batch: list[tuple[int, _Slot, int, int]]) -> None:
+        """One batched mid-chunk dispatch: tokens [start, start + n) of each
+        slot's row through the KV-only continuation. Chunk boundaries are
+        page-aligned, so the commit writes exactly the chunk's pages."""
+        B, P = len(batch), self.page_size
+        bucket = _next_bucket(max(n for _, _, _, n in batch), self.prefill_buckets)
+        toks = np.zeros((B, bucket), dtype=np.int64)
+        lengths = np.zeros(B, dtype=np.int64)
+        starts = np.zeros(B, dtype=np.int64)
+        page_ids = np.full((B, bucket // P), TRASH_PAGE, dtype=np.int64)
+        for i, (slot, sl, st, n) in enumerate(batch):
+            toks[i, :n] = sl.prefill_row[st: st + n]
+            lengths[i], starts[i] = n, st
+            sub = self._slot_pages[slot][st // P: -(-(st + n) // P)]
+            page_ids[i, : len(sub)] = sub
+        self.cache = prefill_paged_continue_kv(
+            self.params, self.cache, self._upload(toks), self._upload(lengths),
+            self._upload(starts), self._upload(page_ids),
+            self._upload(self._block_tables[[slot for slot, _, _, _ in batch]]),
+            self.config, group=self.group,
+        )
+        self.prefill_tokens += int(lengths.sum())
+
     def _slot_budget(self, slot: int, sl: _Slot) -> int:
         """Sampled tokens this slot may still emit: the smaller of its
         remaining max_tokens and the context edge."""
@@ -1225,7 +1670,10 @@ class Engine:
         the next block directly. The block tables ride their own flag: a
         slot growing by a lookahead window re-uploads them alone."""
         if self._state_dirty or self._dev is None:
-            live = [slot for slot, sl in self._slots.items() if not sl.parked]
+            # parked and mid-prefill lanes upload inactive: their decode
+            # writes go to the trash page and their tokens are never read
+            live = [slot for slot, sl in self._slots.items()
+                    if not sl.parked and not sl.prefilling]
             W = next(w for w in self.width_buckets if w >= max(live) + 1)
             active = np.zeros(W, dtype=bool)
             for slot in live:
@@ -1263,10 +1711,10 @@ class Engine:
         """One K-step decode block over the live slots, after every slot's
         table was grown to cover the block (which may preempt)."""
         self._apply_cancels()
-        if not self._has_work():
+        if not self._n_active():
             return
         self._ensure_pages_for_block()
-        if not self._has_work():
+        if not self._n_active():
             return
         d = self._ensure_dev_state()
         tokens, seq_lens, budgets, active = d["tokens"], d["seq_lens"], d["budgets"], d["active"]
@@ -1309,7 +1757,7 @@ class Engine:
         d.update(tokens=tokens, seq_lens=seq_lens, budgets=budgets, active=active)
         self.decode_steps += self.decode_block_size
         for slot, sl in list(self._slots.items()):
-            if slot < d["W"] and not sl.parked:
+            if slot < d["W"] and not sl.parked and not sl.prefilling:
                 self._consume_tokens(slot, sl, tok_block[:, slot])
 
     def _consume_tokens(self, slot: int, sl: _Slot, toks) -> None:
@@ -1397,6 +1845,18 @@ class Engine:
             self._release_parked(slot, reason=reason)
             return
         req = sl.request
+        if sl.prefilling:
+            # only a cancel, a replicated deadline or the drain reaches a
+            # mid-prefill slot: nothing was sampled, so it fails like a
+            # request never admitted
+            self._drop_prefilling_slot(slot)
+            self._applied.discard(req.rid)
+            if not req.future.done():
+                if reason == "cancelled":
+                    req.future.cancel()
+                else:
+                    req.future.set_exception(RuntimeError("engine stopped"))
+            return
         if reason in ("stop", "length"):
             # a cancelled or drained request fires no late tool calls
             self._stream_flush(req)
@@ -1458,8 +1918,10 @@ class Engine:
         crossed: list[int] = []
         for slot in list(self._slots):
             sl = self._slots.get(slot)
-            if sl is None or sl.parked:
-                continue  # preempted for an earlier slot, or never decodes
+            if sl is None or sl.parked or sl.prefilling:
+                # preempted for an earlier slot, or not decoding (a
+                # prefilling slot reserved its row's pages at admission)
+                continue
             # the context edge deactivates the lane on the device at
             # max_ctx - 1, so a full table always suffices
             needed = min(-(-(int(self._seq_lens[slot]) + K) // self.page_size),
@@ -1498,8 +1960,10 @@ class Engine:
         reclaimed = False
         for slot, sl in self._slots.items():
             table = self._slot_pages.get(slot)
-            if slot == requester or not table or sl.parked:
-                continue  # a parked slot is already trimmed to its cut
+            if slot == requester or not table or sl.parked or sl.prefilling:
+                # a parked slot is trimmed to its cut; a prefilling slot's
+                # pages are the reservation its chunks write into
+                continue
             strict = min(-(-(int(self._seq_lens[slot]) + K) // self.page_size),
                          self.max_pages_per_seq)
             if len(table) > strict:
@@ -1539,8 +2003,9 @@ class Engine:
     def _pick_victim(self) -> Optional[int]:
         """Parked slots first (oldest park: their callers have their
         results), then the fewest sampled tokens (least work lost, the
-        cheapest resume), ties to the most recently admitted (the oldest
-        keep their progress, as front-of-queue resumes do)."""
+        cheapest resume; a mid-prefill slot has sampled none, so those go
+        first), ties to the most recently admitted (the oldest keep their
+        progress, as front-of-queue resumes do)."""
         if not self._slots:
             return None
         parked = [(sl.parked_at, s) for s, sl in self._slots.items() if sl.parked]
@@ -1552,17 +2017,25 @@ class Engine:
         ))
 
     def _preempt(self, slot: int, reason: str = "pool_pressure") -> None:
-        """Evacuate a decoding slot without finishing it: save its sampled
-        tokens on the request, free its pages and requeue it at the FRONT.
-        Re-admitted, it prefills prompt + partial and decodes on; its
-        greedy result is byte-identical to an uncontended run and only
-        ``preempt_count`` shows it."""
+        """Evacuate a decoding or mid-prefill slot without finishing it:
+        save its sampled tokens on the request, free its pages and requeue
+        it at the FRONT. Re-admitted, it prefills prompt + partial and
+        decodes on; its greedy result is byte-identical to an uncontended
+        run and only ``preempt_count`` shows it."""
         if self._slots[slot].parked:
             self._release_parked(slot, reason=reason)  # nothing to save
             return
         sl = self._slots.pop(slot)
         req = sl.request
-        req.resume_tokens = list(sl.generated[sl.prefix_len:])
+        if sl.prefilling:
+            # nothing sampled in this admission: the partial prompt KV goes
+            # with the pages and the row restarts from its reuse start. Its
+            # resume_tokens stay: a resumed request preempted again
+            # mid-prefill keeps what it sampled before
+            self._prefilling_count -= 1
+            self._unshare_followers(slot, sl)
+        else:
+            req.resume_tokens = list(sl.generated[sl.prefix_len:])
         req.preempt_count += 1
         self.preemptions += 1
         self._release_slot(slot)
@@ -1706,6 +2179,9 @@ class Engine:
         fresh = self._alloc_yielding(total_pages - len(kept), exclude=slot)
         if fresh is None:
             return None
+        # the whole list now: a dedup follower later in this group may pick
+        # the adopter as its leader and must share past the park cut
+        self._slot_pages[slot] = kept + fresh
         self._slots.pop(slot)  # the new turn takes the slot over in place
         self._parked_count -= 1
         self.park_adoptions += 1

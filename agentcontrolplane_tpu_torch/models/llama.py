@@ -608,6 +608,26 @@ def prefill_paged_continue(
     return pages, _head_logits(last, params, c, group)
 
 
+def prefill_paged_continue_kv(
+    params: dict,
+    pages: dict,  # updated in place (the chunk pages only)
+    tokens: torch.Tensor,  # [B, T] int — chunk tokens (rows padded)
+    lengths: torch.Tensor,  # [B] int — true chunk lengths
+    starts: torch.Tensor,  # [B] int — absolute chunk start (page-aligned)
+    page_ids: torch.Tensor,  # [B, T // P] int — the chunk's pages (TRASH_PAGE pads)
+    block_tables: torch.Tensor,  # [B, max_pages] int
+    config: LlamaConfig,
+    group: Optional[ServingGroup] = None,
+) -> dict:
+    """A chunked prefill's mid chunk: :func:`prefill_paged_continue`'s
+    whole-page commit without the lm_head, so nothing is sampled. Writes
+    the same KV as the continuation that samples."""
+    check_supported(config)
+    new_k, new_v, _x = _paged_continue_forward(params, pages, tokens, lengths, starts,
+                                               block_tables, config, group)
+    return _commit_whole_pages(pages, new_k, new_v, page_ids, group)
+
+
 def decode_step_paged(
     params: dict,
     pages: dict,  # updated in place

@@ -37,9 +37,10 @@ without printing a result:
    against the same on the CPU (plain version), unquantized and with int8
    weights and an int8 KV cache (the int8 walk); then its engines on the
    card and on the CPU: six requests on a 9-page pool (preempted and
-   resumed) and a two-turn conversation whose second turn adopts the
-   first's parked slot, greedy tokens equal to uncontended runs and to the
-   CPU's;
+   resumed), a two-turn conversation whose second turn adopts the
+   first's parked slot, a 200-token row prefilled in chunks of 16 and a
+   burst of four on one persona (three dedup shares), greedy tokens equal
+   to uncontended runs and to the CPU's;
 5. serving — llama3-8b at full width and depth with random weights from
    seed 0 behind the HTTP server, first in bf16, then (after the bf16
    engine is freed) with int8 weights and int8 KV pages: five chat
@@ -63,11 +64,24 @@ without printing a result:
    its first 960 against the row prefilled whole (2e-2 relative L2; with
    int8 KV against a whole-row pass reading the prefix as the int8 pool
    holds it), 4 conversations x 3 turns parked (8 adoptions, no miss, only
-   suffixes prefilled; 3 repeats), the same traffic hitting the prefix
+   suffixes prefilled), the same traffic hitting the prefix
    cache (8 hits), and 8 x (512 + 192) tokens on a second engine of 256
    pages over the same weights (preemption, token counts equal to an
    uncontended run, the pool whole after), every part's decode steps
-   through the walk; last, on each of the two engines,
+   through the walk; then, on each of the two engines, the chunked/dedup
+   phase with the prefix cache off and parked slots expired: (a) a
+   1,920-token row prefilled whole and in 256-token chunks on a scratch
+   pool, bf16 logits held against an f32 pass (each within 3e-2 relative
+   L2, chunked within 1.5 x whole + 2e-3), int8 KV chunked against whole
+   (5e-2); (b) four greedy decoders of 128 tokens with a 1,920-token
+   request landing mid-decode, chunking off and at 256 in turns, twice
+   each (the decoders' longest gap between commits, the long request's
+   TTFT, hol wait, chunks, budget utilization; its tokens and finish equal
+   across modes); (c) eight requests sharing a 768-token prefix with their
+   own 64-token tails, dedup on and off in turns, twice each (7 shares on,
+   0 off, page peaks within 15% of 112 and 448, token counts and finishes
+   equal, TTFTs); the walk launches of (b) and (c) equal n_layers x decode
+   steps; last, on each of the two engines,
    the control-plane phase: JSON manifests (three ``provider: tpu`` LLMs
    and two Agents) applied to a sqlite store, a Manager under a
    LeaderElector (lease 2 s) running the LLM controller (a one-token probe
@@ -89,7 +103,8 @@ without printing a result:
    joined to the Task's window, the human answered through the backend,
    one delegation ToolCall applied directly running its child Task to
    FinalAnswer, Task create -> first ToolCall CR (p50 and max per kind)
-   and the other checkpoints printed, every decode step through the walk;
+   and the other checkpoints printed with the dedup shares and the most
+   pages shared at once, every decode step through the walk;
    new turns are stopped by holding the Tasks' ``task-llm`` leases before
    the operator stops;
 6. parallel serving — llama3-8b over ``torch.distributed`` ranks (one
@@ -752,15 +767,21 @@ def model_phase() -> dict:
 
 
 TWO_CALLS = '{"name": "t1", "arguments": {"x": 1}} {"name": "t2", "arguments": {}}'
+TINY_CHUNKED_ROW = [1 + (i * 7) % 250 for i in range(200)]
+TINY_PERSONA = "p" * 40  # five pages of 8
+TINY_TAILS = [f"-{ch * 4}" for ch in "abcd"]
 
 
 def tiny_engine_runs(cfg, dense: dict) -> dict:
     """The tiny f32 model's engines on the card and on the CPU, same
     weights: six 20-token prompts (12 tokens each) on a 9-page pool, so
-    they preempt and resume, and a two-turn conversation whose second turn
-    adopts the first's parked slot. Greedy tokens must equal an
-    uncontended run's (each prompt alone; the turns on an engine without
-    parking or prefix cache) on the card, and the CPU engines' tokens."""
+    they preempt and resume; a two-turn conversation whose second turn
+    adopts the first's parked slot; a 200-token row prefilled in 16-token
+    chunks; and a burst of four requests on one 40-token persona, three of
+    which share the first's pages. Greedy tokens must equal an uncontended
+    run's (each prompt alone; the turns, the row and the burst's requests
+    on an engine without parking, prefix cache, chunking or dedup) on the
+    card, and the CPU engines' tokens."""
     import torch
 
     from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
@@ -781,7 +802,7 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
         engines = {"roomy": Engine(cfg, params, device=dev, **kw),
                    "tight": Engine(cfg, params, device=dev, kv_pages=10, **kw),
                    "plain": Engine(cfg, params, device=dev, park_max_s=0,
-                                   prefix_cache_entries=0, **kw)}
+                                   prefix_cache_entries=0, prefix_dedup=False, **kw)}
         for e in engines.values():
             e.start()
         try:
@@ -801,6 +822,16 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
             out["parked"] = [r1.tokens, r2.tokens]
             out["adoptions"] = roomy.stats()["tool_overlap"]["park_adoptions"]
             out["unparked"] = [plain.generate(turn1, s1).tokens, plain.generate(turn2, s2).tokens]
+            roomy.prefill_chunk = 16
+            out["chunked"] = roomy.generate(TINY_CHUNKED_ROW, sp).tokens
+            roomy.prefill_chunk = 0
+            out["unchunked"] = plain.generate(TINY_CHUNKED_ROW, sp).tokens
+            shares0 = roomy.prefix_shares
+            with roomy.hold_admission():
+                futs = [roomy.submit(TINY_PERSONA + t, sp) for t in TINY_TAILS]
+            out["burst"] = [f.result(timeout=120).tokens for f in futs]
+            out["shares"] = roomy.prefix_shares - shares0
+            out["alone"] = [plain.generate(TINY_PERSONA + t, sp).tokens for t in TINY_TAILS]
             out["decode_steps"] = sum(e.decode_steps for e in engines.values())
             return out
         finally:
@@ -816,6 +847,9 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
         ("preempted = uncontended on the card", card["preempted"] == card["uncontended"]),
         ("adopted", card["adoptions"] == 1),
         ("parked turns = unparked on the card", card["parked"] == card["unparked"]),
+        ("chunked = unchunked on the card", card["chunked"] == card["unchunked"]),
+        ("3 shares in the burst", card["shares"] == len(TINY_TAILS) - 1),
+        ("the burst = each request alone on the card", card["burst"] == card["alone"]),
         ("the card's streams = the CPU's", {k: v for k, v in card.items() if k != "decode_steps"}
          == {k: v for k, v in cpu.items() if k != "decode_steps"}),
     ):
@@ -823,8 +857,10 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
             fail(f"model engines: not {name}: card {card}, cpu {cpu}")
     say(f"model engines tiny-f32: 6 requests on a 9-page pool, preempt counts "
         f"{card['preempt_counts']}, tokens = each prompt alone; two turns, the second adopting "
-        f"the first's parked slot, = an engine without parking or cache; all = the CPU "
-        f"engines' tokens; walk launches {walk} = {cfg.n_layers} x {card['decode_steps']}")
+        f"the first's parked slot, = an engine without parking or cache; a "
+        f"{len(TINY_CHUNKED_ROW)}-token row in chunks of 16 = unchunked; a burst of "
+        f"{len(TINY_TAILS)} on one persona ({card['shares']} shares) = each alone; all = the "
+        f"CPU engines' tokens; walk launches {walk} = {cfg.n_layers} x {card['decode_steps']}")
     return {"card": card, "cpu": cpu, "launches": walk}
 
 
@@ -1118,6 +1154,7 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
         if constrained:
             perf["constrained"] = constrained_phase(engine, base, card, perf["profile"])
         perf["kv_reuse"] = kv_reuse_phase(engine, card, label)
+        perf["chunked"] = chunked_phase(engine, card, label)
         perf["control_plane"] = control_plane_phase(engine, card, label)
         perf["operator"] = operator_phase(engine, card, label)
         return perf
@@ -1412,7 +1449,7 @@ KV_TURNS = 3
 KV_FIRST_PROMPT = 768  # tokens of each conversation's first prompt
 KV_TURN_TOKENS = 32  # sampled tokens a turn (greedy)
 KV_TOOL_RESULT = 64  # tokens of the tool result appended after each turn
-KV_REPEATS = 3
+KV_REPEATS = 1
 CONT_ROW, CONT_CUT = 1024, 960  # the continuation check's row and its cached prefix
 CONT_TOL = 2e-2  # relative L2 of the continuation's last-token logits vs the whole row's
 PREEMPT_PAGES = 257  # the preemption engine's pool: 256 usable pages of 16
@@ -1728,6 +1765,282 @@ def kv_reuse_phase(engine, card: str, label: str) -> dict:
             f"{walk // cfg.n_layers} decode steps  [{card}]")
     out["preemption"] = preemption_check(engine, card, label)
     out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
+# -- chunked prefill / dedup phase --------------------------------------
+
+CHUNK_ROW, CHUNK_SIZE = 1920, 256  # (a): the row, and its chunks (7 KV-only + the final)
+CHUNK_F32_TOL = 3e-2  # (a) bf16: each path's relative L2 from the f32 pass
+CHUNK_INT8_TOL = 5e-2  # (a) int8 KV: chunked vs whole
+HOL_DECODERS, HOL_DECODE_TOKENS = 4, 128  # (b): the lanes decoding when the long row lands
+HOL_PROMPT, HOL_LONG_TOKENS = 64, 16  # (b): decoder prompts; the long request's budget
+HOL_REPEATS = 2
+DEDUP_REQUESTS, DEDUP_PREFIX, DEDUP_TAIL, DEDUP_TOKENS = 8, 768, 64, 32  # (c)
+DEDUP_REPEATS = 2
+# (c): pages at the peak, from the shapes: each slot grows to 56 pages (832
+# rows + 8 decode blocks of lookahead); dedup shares the prefix's 48
+DEDUP_PEAKS = {True: 48 + 8 * (56 - 48), False: 8 * 56}
+DEDUP_PEAK_TOL = 0.15
+
+
+def _f32_last_logits(engine, row):
+    """Last-token logits of an f32 pass over ``row``: every layer's weights
+    cast to f32 as it runs (one layer's copy on the card at a time), f32
+    activations and exact causal attention, TF32 off."""
+    import dataclasses
+
+    import torch
+
+    from agentcontrolplane_tpu_torch.models import llama
+    from agentcontrolplane_tpu_torch.ops.attention import blocked_causal_attention
+    from agentcontrolplane_tpu_torch.ops.norms import rms_norm
+
+    cfg = dataclasses.replace(engine.config, dtype=torch.float32)
+    params = engine.params
+    positions = torch.arange(row.shape[1], device=row.device)[None]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            x = params["embed"][row].float()
+            for i in range(cfg.n_layers):
+                layer = {k: v.float() for k, v in llama._layer(params, i).items()}
+                x, _, _ = llama._attn_mlp(
+                    x, layer, cfg, positions,
+                    lambda q, k, v: blocked_causal_attention(q, k, v, positions))
+            x = rms_norm(x[:, -1], params["norm"].float(), cfg.norm_eps)
+            return x @ params["lm_head"].float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def chunk_check(engine, card: str, label: str) -> dict:
+    """(a) A CHUNK_ROW-token row prefilled whole and in CHUNK_SIZE-token
+    chunks (KV-only continuations, then the final continuation) on a
+    scratch pool. bf16: both last-token logits against an f32 pass of the
+    row; int8 KV: the chunked logits against the whole row's."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.models import llama
+
+    cfg, P, dev = engine.config, engine.page_size, "cuda"
+    n_pages = CHUNK_ROW // P
+    row = torch.randint(0, 256, (1, CHUNK_ROW), generator=torch.Generator().manual_seed(13))
+    row = row.to(dev)
+    with torch.inference_mode():
+        pages = llama.init_paged_cache(cfg, 1 + 2 * n_pages, P, device=dev,
+                                       quantize_kv=engine.quantize_kv)
+        ids = torch.arange(1, 1 + n_pages, device=dev)[None]
+        pages, whole = llama.prefill_paged_batch(
+            engine.params, pages, row, torch.tensor([CHUNK_ROW], device=dev), ids, cfg)
+        ids = torch.arange(1 + n_pages, 1 + 2 * n_pages, device=dev)[None]
+        table = torch.zeros(1, engine.max_pages_per_seq, dtype=torch.int32, device=dev)
+        table[0, :n_pages] = ids[0]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for st in range(0, CHUNK_ROW, CHUNK_SIZE):
+            n = min(CHUNK_SIZE, CHUNK_ROW - st)
+            args = (row[:, st: st + n], torch.tensor([n], device=dev),
+                    torch.tensor([st], device=dev), ids[:, st // P: (st + n) // P], table, cfg)
+            if st + n < CHUNK_ROW:
+                pages = llama.prefill_paged_continue_kv(engine.params, pages, *args)
+            else:
+                pages, chunked = llama.prefill_paged_continue(engine.params, pages, *args)
+        torch.cuda.synchronize()
+        chunked_ms = (time.monotonic() - t0) * 1e3
+    doc = {"chunked_vs_whole": _rel_l2(chunked[0], whole[0]), "chunked_ms": chunked_ms,
+           "chunks": -(-CHUNK_ROW // CHUNK_SIZE)}
+    if not torch.isfinite(chunked).all() or not torch.isfinite(whole).all():
+        fail(f"chunked {label}: logits not finite")
+    if engine.quantize_kv:
+        if doc["chunked_vs_whole"] > CHUNK_INT8_TOL:
+            fail(f"chunked {label}: chunked logits {doc['chunked_vs_whole']:.3e} relative L2 "
+                 f"from the whole row's (tol {CHUNK_INT8_TOL})")
+        say(f"chunked {label}: a {CHUNK_ROW}-token row in {doc['chunks']} chunks of "
+            f"{CHUNK_SIZE} vs prefilled whole: last-token logits "
+            f"{doc['chunked_vs_whole']:.3e} relative L2 (tol {CHUNK_INT8_TOL}); the chunks "
+            f"took {chunked_ms:.1f} ms  [{card}]")
+        return doc
+    f32 = _f32_last_logits(engine, row)
+    doc["whole_vs_f32"] = _rel_l2(whole[0], f32[0])
+    doc["chunked_vs_f32"] = _rel_l2(chunked[0], f32[0])
+    bound = 1.5 * doc["whole_vs_f32"] + 2e-3
+    if max(doc["whole_vs_f32"], doc["chunked_vs_f32"]) > CHUNK_F32_TOL or (
+            doc["chunked_vs_f32"] > bound):
+        fail(f"chunked {label}: relative L2 from the f32 pass: whole {doc['whole_vs_f32']:.3e}, "
+             f"chunked {doc['chunked_vs_f32']:.3e} (tol {CHUNK_F32_TOL} each, chunked <= "
+             f"{bound:.3e})")
+    say(f"chunked {label}: a {CHUNK_ROW}-token row in {doc['chunks']} chunks of {CHUNK_SIZE} "
+        f"vs prefilled whole: last-token logits from an f32 pass {doc['chunked_vs_f32']:.3e} "
+        f"and {doc['whole_vs_f32']:.3e} relative L2 (tol {CHUNK_F32_TOL}; chunked <= 1.5 x "
+        f"whole + 2e-3 = {bound:.3e}); chunked vs whole {doc['chunked_vs_whole']:.3e}; the "
+        f"chunks took {chunked_ms:.1f} ms  [{card}]")
+    return doc
+
+
+def hol_run(engine, prompts: list, long_row: list, chunk: int) -> dict:
+    """(b) HOL_DECODERS greedy decoders admitted as one group; once they
+    decode, the long request arrives, and once it has finished the
+    decoders are cancelled. The decoders' longest gap between two commits,
+    the long request's TTFT, and the scheduler's deltas."""
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+
+    stamps = [[] for _ in prompts]
+    s0 = engine.stats()
+    spent0, total0 = engine._budget_spent_total, engine._budget_total
+    with engine.hold_admission():
+        futs = [engine.submit(p, SamplingParams(max_tokens=HOL_DECODE_TOKENS),
+                              on_tokens=lambda _t, i=i: stamps[i].append(time.monotonic()))
+                for i, p in enumerate(prompts)]
+    steps0 = engine.decode_steps
+    deadline = time.monotonic() + 120
+    while engine.decode_steps < steps0 + 2 * engine.decode_block_size:
+        if time.monotonic() > deadline:
+            fail("chunked: the decoders never started")
+        time.sleep(0.001)
+    engine.prefill_chunk = chunk  # the decoders were admitted whole either way
+    long = engine.submit(long_row, SamplingParams(max_tokens=HOL_LONG_TOKENS))
+    r = long.result(timeout=300)
+    for f in futs:  # the window that matters is over: stop the decoders
+        engine.cancel(f)
+    res = [f.result(timeout=300) for f in futs]
+    s1 = engine.stats()
+    engine.prefill_chunk = 0
+    gaps = [b - a for st in stamps for a, b in zip(st, st[1:])]
+    return {
+        "chunk": chunk, "long_ttft_ms": r.ttft_ms, "long_tokens": len(r.tokens),
+        "long_finish": r.finish_reason, "decoder_tokens": [len(x.tokens) for x in res],
+        "max_gap_s": max(gaps) if gaps else 0.0,
+        "hol_wait_s": s1["scheduler"]["hol_wait_seconds"] - s0["scheduler"]["hol_wait_seconds"],
+        "prefill_chunks": s1["scheduler"]["prefill_chunks_total"]
+        - s0["scheduler"]["prefill_chunks_total"],
+        "budget_utilization": ((engine._budget_spent_total - spent0)
+                               / (engine._budget_total - total0))
+        if engine._budget_total > total0 else 0.0,
+    }
+
+
+def dedup_burst(engine, prompts: list, dedup: bool) -> dict:
+    """(c) The burst admitted as one group, dedup on or off: shares, the
+    peak of allocated pages (read at every commit), TTFTs and tokens."""
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+
+    engine.prefix_dedup = dedup
+    peak = [0]
+
+    def watch(_toks):  # on the engine thread
+        peak[0] = max(peak[0], engine.num_pages - 1 - engine._allocator.free_count)
+
+    shares0 = engine.prefix_shares
+    with engine.hold_admission():
+        futs = [engine.submit(p, SamplingParams(max_tokens=DEDUP_TOKENS), on_tokens=watch)
+                for p in prompts]
+    res = [f.result(timeout=300) for f in futs]
+    engine.prefix_dedup = True
+    return {"shares": engine.prefix_shares - shares0, "peak_pages": peak[0],
+            "ttft_ms": [r.ttft_ms for r in res], "tokens": [r.tokens for r in res],
+            "finish": [r.finish_reason for r in res]}
+
+
+def chunked_phase(engine, card: str, label: str) -> dict:
+    """Chunked prefill and shared-prefix dedup on the serving engine: (a)
+    chunked against whole at the model level, (b) a long request landing
+    on decoding lanes, whole and chunked in turns, (c) a burst sharing a
+    prefix, dedup on and off in turns. Parked slots are expired and the
+    prefix cache is emptied and off for the phase, so every run is cold;
+    the knobs are put back after. (b) and (c)'s decode steps go through
+    the expected walk only."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    t_phase = time.monotonic()
+    cfg, int8_walk = engine.config, engine.quantize_kv
+    _idle_parked(engine)
+    _forget_prefixes(engine)
+    cache_on = engine._prefix_enabled
+    engine._prefix_enabled = False
+    try:
+        out = {"card": card, "check": chunk_check(engine, card, label)}
+        g = torch.Generator().manual_seed(400)
+        hol_prompts = [torch.randint(0, 256, (HOL_PROMPT,), generator=g).tolist()
+                       for _ in range(HOL_DECODERS)]
+        long_row = torch.randint(0, 256, (CHUNK_ROW,), generator=g).tolist()
+        prefix = torch.randint(0, 256, (DEDUP_PREFIX,), generator=g).tolist()
+        burst = [prefix + torch.randint(0, 256, (DEDUP_TAIL,), generator=g).tolist()
+                 for _ in range(DEDUP_REQUESTS)]
+        pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+        steps0 = engine.decode_steps
+        hol = [hol_run(engine, hol_prompts, long_row, chunk)
+               for _ in range(HOL_REPEATS) for chunk in (0, CHUNK_SIZE)]
+        dedup = [dedup_burst(engine, burst, on) for _ in range(DEDUP_REPEATS)
+                 for on in (True, False)]
+        walk = _walk_check(f"chunked {label}", engine.decode_steps - steps0, cfg.n_layers,
+                           int8_walk)
+    finally:
+        engine._prefix_enabled = cache_on
+        engine.prefill_chunk, engine.prefix_dedup = 0, True
+    if not _pool_whole(engine) or engine.stats()["prefilling_slots"]:
+        fail(f"chunked {label}: pages or slots not released: {engine.stats()}")
+    views = {(h["long_tokens"], h["long_finish"]) for h in hol}
+    if len(views) != 1:
+        fail(f"chunked {label}: the long request's tokens and finish differ across modes: "
+             f"{views}")
+    for i, d in enumerate(dedup):
+        on = i % 2 == 0  # the runs alternate dedup on, off
+        want = DEDUP_REQUESTS - 1 if on else 0
+        if d["shares"] != want:
+            fail(f"chunked {label}: a burst shared {d['shares']} times, want {want}")
+        expect = DEDUP_PEAKS[on]
+        if abs(d["peak_pages"] - expect) > DEDUP_PEAK_TOL * expect:
+            fail(f"chunked {label}: a burst's page peak {d['peak_pages']}, want {expect} "
+                 f"(+-{DEDUP_PEAK_TOL:.0%})")
+    base = dedup[0]
+    for d in dedup[1:]:
+        if [len(t) for t in d["tokens"]] != [len(t) for t in base["tokens"]] or (
+                d["finish"] != base["finish"]):
+            fail(f"chunked {label}: the burst's token counts or finishes differ across runs")
+
+    def med(key, chunk):
+        return statistics.median(h[key] for h in hol if h["chunk"] == chunk)
+
+    out["hol"] = {"runs": hol, "medians": {
+        str(c): {k: med(k, c) for k in ("max_gap_s", "long_ttft_ms", "hol_wait_s",
+                                         "prefill_chunks", "budget_utilization")}
+        for c in (0, CHUNK_SIZE)}}
+    on_runs, off_runs = dedup[0::2], dedup[1::2]
+    same = sum(a == b for r_on, r_off in zip(on_runs, off_runs)
+               for a, b in zip(r_on["tokens"], r_off["tokens"]))
+    ttft = {m: [v for d in runs for v in d["ttft_ms"]]
+            for m, runs in (("on", on_runs), ("off", off_runs))}
+    out["dedup"] = {"runs": [{k: v for k, v in d.items() if k != "tokens"} for d in dedup],
+                    "ttft_ms": {m: _ms_stats(v) for m, v in ttft.items()},
+                    "peak_pages": {"on": [d["peak_pages"] for d in on_runs],
+                                   "off": [d["peak_pages"] for d in off_runs]},
+                    "identical_streams": same,
+                    "streams": DEDUP_REQUESTS * DEDUP_REPEATS}
+    out["launches"] = walk
+    out["decode_steps"] = walk // cfg.n_layers
+    m = out["hol"]["medians"]
+    for c in (0, CHUNK_SIZE):
+        say(f"chunked {label} HOL, chunk {c or 'off'}: {HOL_DECODERS} decoders x "
+            f"{HOL_DECODE_TOKENS} tokens, a {CHUNK_ROW}-token request lands mid-decode: "
+            f"decoders' longest gap {m[str(c)]['max_gap_s'] * 1e3:.1f} ms, the long "
+            f"request's TTFT {m[str(c)]['long_ttft_ms']:.1f} ms, hol wait "
+            f"{m[str(c)]['hol_wait_s']:.3f} s, {m[str(c)]['prefill_chunks']} chunks, budget "
+            f"utilization {m[str(c)]['budget_utilization']:.3f} (medians of {HOL_REPEATS})  "
+            f"[{card}]")
+    say(f"chunked {label} dedup: {DEDUP_REQUESTS} requests of {DEDUP_PREFIX} shared + "
+        f"{DEDUP_TAIL} own tokens, {DEDUP_TOKENS} tokens each: shares "
+        f"{[d['shares'] for d in dedup]}, page peaks on {out['dedup']['peak_pages']['on']} vs "
+        f"off {out['dedup']['peak_pages']['off']} (want about {DEDUP_PEAKS[True]} and "
+        f"{DEDUP_PEAKS[False]}); TTFT on {_fmt(out['dedup']['ttft_ms']['on'])}, off "
+        f"{_fmt(out['dedup']['ttft_ms']['off'])}; {same} of {DEDUP_REQUESTS * DEDUP_REPEATS} "
+        f"streams identical on vs off; walk launches {walk} = {cfg.n_layers} x "
+        f"{walk // cfg.n_layers} decode steps  [{card}]")
+    out["phase_s"] = time.monotonic() - t_phase
+    say(f"chunked {label}: phase {out['phase_s']:.1f} s  [{card}]")
     return out
 
 
@@ -2303,10 +2616,26 @@ def operator_phase(engine, card: str, label: str) -> dict:
                     "drain_s": drain_s}
 
         overlap0 = engine.stats()["tool_overlap"]
-        out = asyncio.run(run())
+        shares0 = engine.prefix_shares
+        shared_peak, sampling = [0], threading.Event()
+
+        def sample_shared():  # pages with more than one owner, every 10 ms
+            while not sampling.wait(0.01):
+                shared_peak[0] = max(shared_peak[0], engine.stats()["memory"]["prefix_dedup"][
+                    "shared_pages"])
+
+        sampler = threading.Thread(target=sample_shared, daemon=True)
+        sampler.start()
+        try:
+            out = asyncio.run(run())
+        finally:
+            sampling.set()
+            sampler.join(timeout=5)
         overlap1 = engine.stats()["tool_overlap"]
         out["parks"] = overlap1["parks"] - overlap0["parks"]
         out["park_adoptions"] = overlap1["park_adoptions"] - overlap0["park_adoptions"]
+        out["prefix_shares"] = engine.prefix_shares - shares0
+        out["shared_pages_peak"] = shared_peak[0]
     steps, launches, int8_launches = out["decode_steps"], out["launches"], out["int8_launches"]
     walk = int8_launches if int8_walk else launches - int8_launches
     other = launches - walk
@@ -2346,7 +2675,8 @@ def operator_phase(engine, card: str, label: str) -> dict:
     say(f"operator {label}: Task create -> first ToolCall CR over all 6 tool Tasks "
         f"{_fmt(_ms_stats(all_first))}; {steps} decode steps, "
         f"{walk} {'int8' if int8_walk else 'bf16'}-walk launches, other walk {other}; "
-        f"parks {out['parks']}, park adoptions {out['park_adoptions']}; "
+        f"parks {out['parks']}, park adoptions {out['park_adoptions']}; dedup shares "
+        f"{out['prefix_shares']}, shared pages at most {out['shared_pages_peak']}; "
         f"drain {out['drain_s']:.2f} s; phase {phase_s:.1f} s  [{card}]")
     return {**out, "card": card, "walk_launches": walk, "first_toolcall_ms": _ms_stats(all_first),
             "phase_s": phase_s, "toolcall_poll_s": TOOLCALL_POLL_S,
@@ -3143,19 +3473,22 @@ def main() -> int:
     perf = timed("serving_bf16", serving_phase, card, "bf16", constrained=True)
     walls["constrained"] = perf["constrained"]["phase_s"]
     walls["kv_reuse_bf16"] = perf["kv_reuse"]["phase_s"]
+    walls["chunked_bf16"] = perf["chunked"]["phase_s"]
     walls["control_plane_bf16"] = perf["control_plane"]["phase_s"]
     walls["operator_bf16"] = perf["operator"]["phase_s"]
     walls["serving_bf16"] -= (walls["constrained"] + walls["kv_reuse_bf16"]
-                              + walls["control_plane_bf16"] + walls["operator_bf16"])
+                              + walls["chunked_bf16"] + walls["control_plane_bf16"]
+                              + walls["operator_bf16"])
     gc.collect()
     torch.cuda.empty_cache()
     perf_int8 = timed("serving_int8", serving_phase, card, "int8", quantize_weights=True,
                       quantize_kv=True)
     walls["kv_reuse_int8"] = perf_int8["kv_reuse"]["phase_s"]
+    walls["chunked_int8"] = perf_int8["chunked"]["phase_s"]
     walls["control_plane_int8"] = perf_int8["control_plane"]["phase_s"]
     walls["operator_int8"] = perf_int8["operator"]["phase_s"]
-    walls["serving_int8"] -= (walls["kv_reuse_int8"] + walls["control_plane_int8"]
-                              + walls["operator_int8"])
+    walls["serving_int8"] -= (walls["kv_reuse_int8"] + walls["chunked_int8"]
+                              + walls["control_plane_int8"] + walls["operator_int8"])
     say(f"serving int8 vs bf16: weights {perf_int8['weight_bytes'] / 1e9:.3f} / "
         f"{perf['weight_bytes'] / 1e9:.3f} GB, KV pool {perf_int8['pool_bytes'] / 1e9:.3f} / "
         f"{perf['pool_bytes'] / 1e9:.3f} GB for {perf['num_pages']} pages  [{card}]")
@@ -3227,8 +3560,8 @@ def main() -> int:
          "parallel": par, "quickstart": quickstart, "walls_s": walls, "seconds": time.monotonic() - t_start}, indent=1,
         default=str))
     say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
-        + " s (serving phases without the constrained, kv-reuse, control-plane and operator "
-          "phases)")
+        + " s (serving phases without the constrained, kv-reuse, chunked, control-plane and "
+          "operator phases)")
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

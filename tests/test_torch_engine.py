@@ -102,10 +102,11 @@ def test_backpressure_when_pages_run_out():
     20-token prompt at admission, so at most three run at once and the
     rest wait at the head of the queue; growing to 32 rows (4 pages) each,
     the three overrun the pool, and a preempted one resumes later. All six
-    complete with the same stream, and every page returns."""
+    complete with the same stream, and every page returns. Dedup is off:
+    with it the six identical prompts would share their first two pages."""
     weights = _weights()
     eng = Engine(TCFG, params_from_jax(weights, TCFG, device="cpu"), device="cpu",
-                 kv_pages=10, **KW)
+                 kv_pages=10, prefix_dedup=False, **KW)
     eng.start()
     try:
         with eng.hold_admission():

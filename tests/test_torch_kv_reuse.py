@@ -4,9 +4,10 @@ package's paged engine.
 
 Both engines run the tiny f32 preset with the same weights (the stop
 token's lm_head column a scaled copy of a frequent token's, as in
-``tests/test_torch_engine.py``), one module-scoped pair of each, with the
-reference built as the port runs: ``kv_layout="paged"``, no dedup, no
-chunking, no speculation, no host tier. Cases replayed from the reference's
+``tests/test_torch_engine.py``), one module-scoped pair of each, both
+built with no dedup and no chunking (the reference also with
+``kv_layout="paged"``, no speculation, no host tier), so the cache's and
+the parks' counters mean the same on both. Cases replayed from the reference's
 own tests (``tests/engine/test_prefix_cache.py``, ``test_preempt_resume.py``
 and ``test_tool_overlap.py``, on the paged layout) must give greedy streams
 byte-identical to the reference's, with equal prefix-cache hits and misses,
@@ -54,8 +55,6 @@ from agentcontrolplane_tpu_torch.parallel.mesh import ServingGroup
 
 JCFG = dataclasses.replace(jl.PRESETS["tiny"], vocab_size=512, max_seq_len=256)
 TCFG = dataclasses.replace(tl.PRESETS["tiny"], vocab_size=512, max_seq_len=256)
-# every bucket up to the context: the reference would otherwise spill a long
-# row through its chunked path, which the port does not have
 KW = dict(max_slots=4, max_ctx=256, prefill_buckets=(32, 64, 128, 256), decode_block_size=4,
           page_size=8)
 P, K = KW["page_size"], KW["decode_block_size"]
@@ -125,7 +124,8 @@ def engines():
         kv_layout="paged", prefix_dedup=False, prefill_chunk=0, spec_len=0, host_kv_bytes=0,
         **KW,
     )
-    port = Engine(TCFG, params_from_jax(weights, TCFG, device="cpu"), device="cpu", **KW)
+    port = Engine(TCFG, params_from_jax(weights, TCFG, device="cpu"), device="cpu",
+                  prefix_dedup=False, prefill_chunk=0, **KW)
     checks = _BlockChecks(port)
     step = port_engine_mod.decode_step_paged
 
@@ -541,7 +541,8 @@ def test_engine_defaults_match_the_reference():
     import inspect
 
     want = {"prefix_cache_entries": 4, "prefix_cache_max_tokens": 4096,
-            "page_lookahead_blocks": 8, "park_max_s": 30.0}
+            "page_lookahead_blocks": 8, "park_max_s": 30.0, "prefill_chunk": 0,
+            "token_budget": 0, "prefix_dedup": True}
     for cls in (JaxEngine, Engine):
         params = inspect.signature(cls.__init__).parameters
         assert {k: params[k].default for k in want} == want

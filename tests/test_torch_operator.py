@@ -157,10 +157,13 @@ def _freeze_agents(op) -> None:
 
 def _call_ids(store) -> list:
     """Every id drawn at random in this store (request ids, tool-call ids
-    from the engine's parser), in the order their ToolCall was created."""
+    from the engine's parser), by the Task their ToolCall belongs to, then
+    in the order their ToolCall was created: the Tasks' turns finish in an
+    order the engine's scheduling decides (a dedup follower's first token
+    comes a cycle after its leader's), which is not what this compares."""
     first = {}
     for tc in sorted(store.list("ToolCall", namespace=None),
-                     key=lambda tc: tc.metadata.creation_timestamp):
+                     key=lambda tc: (tc.spec.task_ref.name, tc.metadata.creation_timestamp)):
         for i in (tc.metadata.labels["acp.tpu/toolcallrequest"], tc.spec.tool_call_id):
             first.setdefault(i, len(first))
     for t in store.list("Task", namespace=None):

@@ -18,8 +18,10 @@ across ranks, to the port on one card and to the JAX mesh engine, unquantized
 and with int8 weights + KV, a json_only request and a forced tool-call
 envelope among them, then a two-turn conversation whose second turn hits
 the prefix cache on every rank (a continuation prefill over shared pages:
-each rank's heads under tp, the sp ranks' prefix states merged under sp).
-Plus the reference's refusals of bad serving configurations, and
+each rank's heads under tp, the sp ranks' prefix states merged under sp);
+under tp=2 also an engine with chunked prefill on, whose chunked row and
+dedup pair must give the single-card port's tokens on every rank. Plus the
+reference's refusals of bad serving configurations, and
 ``run_ranks``' hard timeout.
 """
 
@@ -78,6 +80,15 @@ WORKLOAD = [(p, {"max_tokens": m}) for p, m in BATCH] + [
 # entry) and prefills its 20-token suffix over the shared pages
 TURN1 = "user asks; tool answers. " * 2
 CONVERSATION = [(p, {"max_tokens": 4}) for p in (TURN1[:40], TURN1[:40] + " more words!")]
+# on an engine with 16-token chunks (tp=2 world only): a 50-token row
+# prefilled in four chunks, then two requests whose first 16 tokens agree,
+# admitted as one group, so the second shares the first's two pages
+CHUNKED = {
+    "prefill_chunk": 16,
+    "row": (TURN1, {"max_tokens": 8}),
+    "pair": [("shared persona text! one", {"max_tokens": 6}),
+             ("shared persona text! two", {"max_tokens": 6})],
+}
 
 # paged inputs: S=4 lanes, pages of 8 tokens, 2 KV heads of 8 query heads,
 # d=16. Lengths: 0 (nothing anywhere), 3 (all rows of sp rank 1 masked at
@@ -249,7 +260,7 @@ def inputs():
     return {
         "config": TCFG, "wrappers": _paged_inputs(4), "tree": tree,  # as jax_sharded
         "decode": _decode_inputs(), "stream_tree": _stream_weights(), "batch": WORKLOAD,
-        "conversation": CONVERSATION, "engine_kw": ENGINE_KW,
+        "conversation": CONVERSATION, "engine_kw": ENGINE_KW, "chunked": CHUNKED,
     }
 
 
@@ -390,6 +401,31 @@ def test_engine_streams_identical_across_ranks_single_card_and_jax(
         assert run["decode_steps"] == runs[0]["decode_steps"] > 0
     finished = {rid: (list(toks), reason) for rid, toks, reason in runs[0]["finished"]}
     assert sorted(finished.values()) == sorted(leader)
+
+
+def test_chunked_row_and_dedup_pair_identical_across_ranks_and_one_card(ranks, inputs):
+    """tp=2 with chunked prefill on: the chunked row and the dedup pair give
+    the port's single-card tokens, on every rank, with the same shares and
+    chunks."""
+    port = Engine(TCFG, params_from_jax(inputs["stream_tree"], TCFG, device="cpu"),
+                  device="cpu", prefill_chunk=CHUNKED["prefill_chunk"], **ENGINE_KW)
+    port.start()
+    try:
+        prompt, kw = CHUNKED["row"]
+        r = port.submit(prompt, SamplingParams(**kw)).result(timeout=120)
+        one_card = [(r.tokens, r.finish_reason)]
+        with port.hold_admission():
+            futs = [port.submit(p, SamplingParams(**kw)) for p, kw in CHUNKED["pair"]]
+        one_card += [(f.result(timeout=120).tokens, f.result().finish_reason) for f in futs]
+        shares, chunks = port.prefix_shares, port.prefill_chunks
+    finally:
+        port.stop()
+    assert shares == 1 and chunks >= 4
+    runs = [r["chunked"] for r in ranks["tp2"]]
+    assert runs[0]["results"] == one_card
+    for run in runs:
+        assert (run["shares"], run["chunks"]) == (shares, chunks)
+        assert run["finished"] == runs[0]["finished"]
 
 
 @pytest.mark.parametrize("world", list(WORLDS))

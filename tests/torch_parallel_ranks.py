@@ -128,6 +128,30 @@ def _clock_decisions(group, tree: dict, config, engine_kw: dict) -> dict:
     return {"leader": out, "finished": list(engine.finished)}
 
 
+def _chunked_streams(group, tree: dict, config, engine_kw: dict, chunked: dict) -> dict:
+    """On an engine with chunked prefill on: one row prefilled in chunks,
+    then two requests sharing a page-aligned prefix admitted as one group
+    (the second shares the first's pages): the leader's results, every
+    rank's record of finished requests and its dedup shares and chunks."""
+    params = params_from_jax(tree, config, device="cpu", group=group)
+    engine = Engine(config, params, device="cpu", group=group,
+                    prefill_chunk=chunked["prefill_chunk"], **engine_kw)
+    engine.start()
+    results = None
+    if group.is_leader:
+        prompt, kw = chunked["row"]
+        r = engine.submit(prompt, SamplingParams(**kw)).result(timeout=120)
+        results = [(r.tokens, r.finish_reason)]
+        with engine.hold_admission():
+            futs = [engine.submit(p, SamplingParams(**kw)) for p, kw in chunked["pair"]]
+        results += [(f.result(timeout=120).tokens, f.result().finish_reason) for f in futs]
+        engine.stop()
+    elif not engine.join(timeout=120):
+        raise AssertionError("follower engine did not stop with the leader")
+    return {"results": results, "finished": list(engine.finished),
+            "shares": engine.prefix_shares, "chunks": engine.prefill_chunks}
+
+
 def parallel_cases(tp: int, sp: int, inputs: dict) -> dict:
     """Every multi-process case of the test file, in one run of the ranks."""
     torch.set_num_threads(1)
@@ -143,4 +167,7 @@ def parallel_cases(tp: int, sp: int, inputs: dict) -> dict:
             group, inputs["stream_tree"], cfg, inputs["batch"], inputs["conversation"],
             inputs["engine_kw"], quantized)
     out["clock"] = _clock_decisions(group, inputs["stream_tree"], cfg, inputs["engine_kw"])
+    if sp == 1:
+        out["chunked"] = _chunked_streams(group, inputs["stream_tree"], cfg, inputs["engine_kw"],
+                                          inputs["chunked"])
     return out
