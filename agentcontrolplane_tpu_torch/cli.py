@@ -5,7 +5,7 @@ front door (``serve``):
 
   run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--tpu-park-max-s 30]
       [--tpu-prefill-chunk 0] [--tpu-token-budget 0] [--tpu-prefix-dedup 1]
-      [--device cpu]
+      [--tpu-megastep 1] [--tpu-rate-planner 1] [--device cpu]
   apply -f manifests.yaml
   get <Kind> [name] [-o yaml]
   delete <Kind> <name>
@@ -118,7 +118,9 @@ def cmd_run(args) -> int:
                         park_max_s=args.tpu_park_max_s,
                         prefill_chunk=args.tpu_prefill_chunk,
                         token_budget=args.tpu_token_budget,
-                        prefix_dedup=bool(args.tpu_prefix_dedup))
+                        prefix_dedup=bool(args.tpu_prefix_dedup),
+                        megastep=bool(args.tpu_megastep),
+                        rate_planner=bool(args.tpu_rate_planner))
         engine.start()
     options = OperatorOptions(
         db_path=args.db,
@@ -480,6 +482,22 @@ def build_parser() -> argparse.ArgumentParser:
         "refcount-share its pages instead of materializing a private copy "
         "— N concurrent tasks on one agent persona hold 1 copy, not N; "
         "0 disables (byte-identical either way)",
+    )
+    run.add_argument(
+        "--tpu-megastep", type=int, default=1,
+        help="fused megastep dispatch: a busy chunked cycle's prefill "
+        "chunks + final-chunk continuations + decode block (or spec "
+        "verify) compile into ONE program, so the steady-state cycle "
+        "issues a single device dispatch (greedy outputs byte-identical "
+        "on/off; see docs/megastep.md); 0 = the split per-phase dispatches",
+    )
+    run.add_argument(
+        "--tpu-rate-planner", type=int, default=1,
+        help="admission-time chunk-rate planner: deadline requests get a "
+        "per-cycle chunk quota (tokens remaining / cycles until deadline, "
+        "reprojected on preempt-resume and park-adopt) instead of the "
+        "flat one-chunk cadence — deadlines met by arithmetic, not EDF "
+        "luck (see docs/megastep.md); 0 = flat cadence",
     )
     run.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     run.add_argument("--seed", type=int, default=0, help="seed of the random weights")

@@ -66,11 +66,39 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   its partial KV. With chunking off, a row longer than the largest bucket
   spills its head through KV-only continuations of that bucket before its
   last part prefills (``_spill_long_chunks``).
+- **The chunk-rate planner** (``rate_planner``, on by default as in the
+  reference; ``engine/planner.py``): a request with a deadline gets a
+  quota of chunks per cycle, ceil(chunks left / cycles to its deadline)
+  off an EWMA of busy cycles' wall time (``_cycle_clock``), so its chunk
+  is quota x the base chunk (capped at the largest bucket). The plan is
+  made at admission and remade at preempt -> resume and park -> adopt.
+  Without a deadline, under a group and on followers the quota is 1.
+- **The fused megastep** (``megastep``, on by default as in the
+  reference): a cycle with prefill chunks only plans them; the decode
+  site then runs the cycle's mid chunks, plain finals, continuation finals
+  and decode block back to back on the cache (``_megastep_dispatch``),
+  each phase ONE lane batch padded to a power of two (pad lanes write the
+  trash page), with ONE host read for the finals' first tokens and
+  automaton states and the block's tokens, where the split path
+  dispatches and reads per pow2 batch. A final that fuses samples its
+  first token inside the cycle and joins the next cycle's decode lanes.
+  Lanes whose slot was preempted, cancelled or expired between planning
+  and dispatch are dropped (``_validate_pending``). ``prefill_pos``
+  advances at the commit, so a dedup follower never reads rows a fused
+  cycle has not written. Each distinct phase set and shape is keyed as
+  the reference keys its programs (``megastep[paged,m256x2+f512x1+d8x8]``);
+  a new key past ``megastep_max_programs`` runs that cycle's split
+  dispatches instead (``megastep_fallbacks``). In eager torch the fused
+  cycle is one function of the same model calls; a CUDA graph per key is
+  left to ROADMAP A.3.
 - **Decode** runs K-step blocks at the smallest width bucket covering the
   live slots: every step runs ``decode_step_paged`` (the CUDA paged
   attention kernel in every layer on the card), samples, and detects
   finishes on the device (stop tokens, budgets, the context edge). The
-  host reads the block's tokens once per block and commits them.
+  host reads the block's tokens once per block and commits them. Both
+  dispatch sites are a device half and a commit half
+  (``_prefill_device`` / ``_finish_prefill_dispatch``, ``_decode_block`` /
+  ``_commit_decode_block``), shared by the split and the fused paths.
 - Pages are freed at finish and on cancel; queued requests past their
   deadline fail fast; ``max_queue`` sheds load.
 - **Constrained decoding** (``SamplingParams.json_only`` /
@@ -99,10 +127,10 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   one frame per loop iteration; followers refuse ``submit`` and replay the
   frames. Sampling generators are seeded identically on every rank.
 
-Left out for now (each is in ROADMAP): the chunk-rate planner and the
-megastep, speculative decoding, fleet affinity and trace export
-(``affinity_key=``, ``trace=``), the host KV tier, the flight recorder,
-fault sites, and multi-host.
+Left out for now (each is in ROADMAP): the scheduler autopilot
+(``autopilot=True`` raises; it reads the flight recorder), speculative
+decoding, fleet affinity and trace export (``affinity_key=``, ``trace=``),
+the host KV tier, the flight recorder, fault sites, and multi-host.
 """
 
 from __future__ import annotations
@@ -140,6 +168,7 @@ from ..ops.sampling import advance_constraint, constrain_logits, sample
 from ..parallel.mesh import ServingGroup, ServingMesh, check_serving_config
 from .constrain import build_token_table
 from .coordination import FrameChannel, deserialize_request
+from .planner import CycleClock, project_quota
 from .tokenizer import ByteTokenizer, Tokenizer
 from .toolparse import ToolStreamParser
 from .weights import random_params
@@ -261,6 +290,9 @@ class _Slot:
     # the leader's pages; it dispatches no chunk until the leader has
     # written them. None once the wait is over
     share_of: Optional[tuple] = None
+    # the rate planner's chunks per cycle (engine/planner.py): its chunk is
+    # quota x the base chunk; 1 without a deadline or under a group
+    chunk_quota: int = 1
 
 
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -281,6 +313,11 @@ def _pow2_chunks(items: list, max_chunk: int) -> list[list]:
         out.append(items[i : i + b])
         i += b
     return out
+
+
+def _pow2(n: int) -> int:
+    """The smallest power of two >= n (n >= 1)."""
+    return 1 << (n - 1).bit_length()
 
 
 def resolve_device(device) -> torch.device:
@@ -337,6 +374,25 @@ class Engine:
         # shared-prefix dedup: a row whose page-aligned prefix matches a
         # live slot's row shares its pages instead of writing a copy
         prefix_dedup: bool = True,
+        # the fused megastep: a cycle with prefill chunks runs its mid
+        # chunks, final chunks and decode block as one lane batch per phase
+        # with one host read, instead of one dispatch per pow2 batch and a
+        # host read for each; greedy outputs are the split path's. False =
+        # the split dispatches
+        megastep: bool = True,
+        # bound on distinct fused shapes (chunk bucket x batch x decode
+        # width x phase set); a new shape past it runs the split
+        # dispatches for that cycle. 0 = never fuse
+        megastep_max_programs: int = 32,
+        # the chunk-rate planner: a request with a deadline gets a
+        # per-cycle quota of chunks (tokens left / cycles to its deadline),
+        # reprojected at preempt -> resume and park -> adopt; inert without
+        # deadlines and under a group (the leader's wall clock)
+        rate_planner: bool = True,
+        planner_max_quota: int = 8,  # chunks per slot per cycle, at most
+        # the scheduler autopilot needs the flight recorder's phase
+        # summaries, which the port does not have yet: True raises
+        autopilot: bool = False,
         max_queue: int = 0,  # 0 = unbounded
         quantize: Optional[str] = None,  # "int8" = weight-only int8 serving
         # alias for quantize="int8", matching the reference's knob names
@@ -353,6 +409,9 @@ class Engine:
         # (params_from_jax(..., group=) or parallel.mesh.shard_params)
         group: Optional[ServingGroup] = None,
     ):
+        if autopilot:
+            raise ValueError("autopilot=True is not ported yet: it steers the knobs from the "
+                             "flight recorder's phase summaries (ROADMAP A.11)")
         self.device = resolve_device(device)
         if isinstance(config, str):
             config = PRESETS[config]
@@ -393,6 +452,18 @@ class Engine:
         self.prefill_chunk = max(0, int(prefill_chunk))
         self.token_budget = max(0, int(token_budget))
         self.prefix_dedup = bool(prefix_dedup)
+        # the megastep and the planner: plain attributes too (A/B on a live
+        # engine); ``_megastep_shapes`` holds the fused shapes' keys
+        self.megastep = bool(megastep)
+        self.megastep_max_programs = max(0, int(megastep_max_programs))
+        self._megastep_shapes: set[str] = set()
+        self.megastep_dispatches = 0
+        self.megastep_fallbacks = 0  # fused cycles split-dispatched (the shape bound)
+        self.rate_planner = bool(rate_planner)
+        self.planner_max_quota = max(1, int(planner_max_quota))
+        self._cycle_clock = CycleClock()  # busy cycles' wall time (EWMA)
+        self.quota_projections = 0  # rate plans made (admission and reprojection)
+        self.quota_reprojections = 0  # of them at resume or adoption
         # axis sizes, read by the LLM controller (``engine.mesh.shape``)
         self.mesh = ServingMesh.of(group)
         # lockstep frame stream across the group's ranks (None on one rank)
@@ -531,6 +602,9 @@ class Engine:
         self._dev: Optional[dict] = None
         self._state_dirty = True
         self._tables_dirty = True  # block tables changed (pages appended or freed)
+        # a fused cycle's chunk lanes, planned by _prefill_chunks and
+        # dispatched by the decode site of the same cycle (_decode_once)
+        self._fuse_pending: Optional[dict] = None
 
     # -- public API ------------------------------------------------------
 
@@ -767,6 +841,20 @@ class Engine:
                     round(min(1.0, self._budget_spent_total / self._budget_total), 4)
                     if self._budget_total else 0.0
                 ),
+                "megastep": {
+                    "enabled": self.megastep,
+                    "dispatches": self.megastep_dispatches,
+                    "shapes": len(self._megastep_shapes),
+                    "max_programs": self.megastep_max_programs,
+                    "fallbacks": self.megastep_fallbacks,
+                },
+                "planner": {
+                    "enabled": self.rate_planner,
+                    "quota_projections": self.quota_projections,
+                    "quota_reprojections": self.quota_reprojections,
+                    "autopilot": False,  # not ported yet (ROADMAP A.11)
+                    "autopilot_adjustments": 0,
+                },
             },
             "tool_overlap": {
                 "early_calls": self.tool_calls_early,
@@ -1157,7 +1245,15 @@ class Engine:
                 self._block_tables[slot, : len(pages)] = pages
                 self._tables_dirty = True
                 if self.prefill_chunk or share is not None:
-                    self._begin_chunked_prefill(req, slot, start, share)
+                    # the re-admission edges reproject the rate plan (a
+                    # follower admitted with chunking off plans as "admit",
+                    # as in the reference)
+                    reason = "admit"
+                    if self.prefill_chunk and req.preempt_count:
+                        reason = "resume"
+                    elif self.prefill_chunk and match is not None and match[1].get("in_slot"):
+                        reason = "adopt"
+                    self._begin_chunked_prefill(req, slot, start, share, reason)
                 else:
                     direct.append([(req, slot, pages), start])
             if not direct:
@@ -1317,77 +1413,126 @@ class Engine:
 
     def _prefill_group(self, chunk: list[tuple[_Request, int, list[int]]],
                        starts: Optional[np.ndarray] = None) -> None:
-        """One batched prefill for B reserved requests, then first-token
-        sampling (masked and advanced for json_only lanes) and one host read
-        of the results. With ``starts`` (prefix-cache hits, adopted parked
-        slots, dedup followers, spilled rows, final chunks) only each row's
-        SUFFIX runs through the model (``prefill_paged_continue``): the rows
-        below its start are already in the slot's block table and are never
-        written. A prefilling slot's final chunk flips it to decoding."""
-        B = len(chunk)
-        P = self.page_size
+        """One split batched prefill for B reserved requests: the device
+        half (``_prefill_device``: the model and the first-token sample),
+        one host read of the results, then the commit
+        (``_finish_prefill_dispatch``). With ``starts`` (prefix-cache hits,
+        adopted parked slots, dedup followers, spilled rows, final chunks)
+        only each row's SUFFIX runs through the model
+        (``prefill_paged_continue``): the rows below its start are already
+        in the slot's block table and are never written."""
+        ln = self._prefill_lanes(chunk, starts)
+        firsts, states = self._host_read(*self._prefill_device(ln))
+        self._finish_prefill_dispatch(chunk, ln, firsts, states)
+
+    def _prefill_lanes(self, chunk: list, starts: Optional[np.ndarray] = None,
+                       width: int = 0) -> dict:
+        """Host lane arrays of a sampled prefill for B reserved requests,
+        shared by the split dispatch and the megastep's plain and final
+        phases: tokens (the suffix past each start), pages, sampling knobs
+        and, with a json_only lane, each lane's automaton state and budget.
+        ``width`` > B pads the batch: a pad lane has no tokens, writes only
+        the trash page, samples greedily and is never committed."""
+        B, P = len(chunk), self.page_size
+        W = max(B, width)
+        cont = starts is not None
         if starts is None:
             starts = np.zeros(B, dtype=np.int64)
         rows = [self._full_row(r) for r, _, _ in chunk]
         # bucket over what runs through the model: the suffix on a hit
         bucket = max(_next_bucket(len(row) - int(st), self.prefill_buckets)
                      for row, st in zip(rows, starts))
-        tokens = np.zeros((B, bucket), dtype=np.int64)
-        lengths = np.zeros(B, dtype=np.int64)
-        page_ids = np.full((B, bucket // P), TRASH_PAGE, dtype=np.int64)
-        temps = np.zeros(B, dtype=np.float32)
-        top_ks = np.zeros(B, dtype=np.int64)
-        top_ps = np.ones(B, dtype=np.float32)
+        ln = {"cont": cont, "rows": rows,
+              "tokens": np.zeros((W, bucket), dtype=np.int64),
+              "lengths": np.zeros(W, dtype=np.int64),
+              "starts": np.zeros(W, dtype=np.int64),
+              "page_ids": np.full((W, bucket // P), TRASH_PAGE, dtype=np.int64),
+              "temps": np.zeros(W, dtype=np.float32),
+              "top_ks": np.zeros(W, dtype=np.int64),
+              "top_ps": np.ones(W, dtype=np.float32),
+              "json": any(r.sampling.json_only for r, _, _ in chunk)}
         for i, (req, _slot, pages) in enumerate(chunk):
-            suffix = rows[i][int(starts[i]):]
-            tokens[i, : len(suffix)] = suffix
-            lengths[i] = len(suffix)
+            st = int(starts[i])
+            suffix = rows[i][st:]
+            ln["tokens"][i, : len(suffix)] = suffix
+            ln["lengths"][i], ln["starts"][i] = len(suffix), st
             # the row's pages from its start on (a page-aligned cut, so only
             # fresh pages); the rest of the bucket is trash
-            fresh = pages[int(starts[i]) // P:]
-            page_ids[i, : len(fresh)] = fresh
+            fresh = pages[st // P:]
+            ln["page_ids"][i, : len(fresh)] = fresh
             s = req.sampling
-            temps[i], top_ks[i], top_ps[i] = s.temperature, s.top_k, s.top_p
-        if starts.any():
-            self.cache, logits = prefill_paged_continue(
-                self.params, self.cache, self._upload(tokens), self._upload(lengths),
-                self._upload(starts), self._upload(page_ids),
-                self._upload(self._block_tables[[slot for _, slot, _ in chunk]]),
-                self.config, group=self.group,
-            )
-        else:
-            self.cache, logits = prefill_paged_batch(
-                self.params, self.cache, self._upload(tokens), self._upload(lengths),
-                self._upload(page_ids), self.config, group=self.group,
-            )
-        con_states = np.zeros(B, dtype=np.int32)
-        json_lanes = any(r.sampling.json_only for r, _, _ in chunk)
-        if json_lanes:
-            table = self._get_token_table()
-            constrained = np.zeros(B, dtype=bool)
-            budgets = np.zeros(B, dtype=np.int32)
+            ln["temps"][i], ln["top_ks"][i], ln["top_ps"][i] = s.temperature, s.top_k, s.top_p
+        if cont:  # the continuation reads each row's prefix through its table
+            ln["tables"] = np.full((W, self.max_pages_per_seq), TRASH_PAGE, dtype=np.int32)
+            ln["tables"][:B] = self._block_tables[[slot for _, slot, _ in chunk]]
+        if ln["json"]:
+            ln["con_states"] = np.zeros(W, dtype=np.int32)
+            ln["constrained"] = np.zeros(W, dtype=bool)
+            ln["budgets"] = np.ones(W, dtype=np.int32)
             for i, (req, _slot, _pages) in enumerate(chunk):
                 s = req.sampling
                 # 1 token now + decode capacity to the ctx edge; a resumed
                 # request's budget excludes what it already sampled
-                budgets[i] = min(s.max_tokens - len(req.resume_tokens),
-                                 1 + max(0, self.max_ctx - 1 - len(rows[i])))
+                ln["budgets"][i] = min(s.max_tokens - len(req.resume_tokens),
+                                       1 + max(0, self.max_ctx - 1 - len(rows[i])))
                 if s.json_only:
-                    constrained[i] = True
+                    ln["constrained"][i] = True
                     seed = tuple(s.forced_prefix) + tuple(req.resume_tokens)
-                    con_states[i] = self._seed_con_state(seed) if seed else self._table_start
-            dev_states, dev_constrained = self._upload(con_states), self._upload(constrained)
-            logits = constrain_logits(logits, table, dev_states, dev_constrained,
-                                      self._min_close, self._upload(budgets))
-        firsts = sample(
-            logits, self._gen, self._upload(temps), self._upload(top_ks), self._upload(top_ps)
-        )
-        if json_lanes:  # one host read for the tokens and the states
-            states = advance_constraint(table, dev_states, dev_constrained, firsts)
-            both = torch.stack([firsts, states.to(firsts.dtype)]).cpu().numpy()
-            firsts, con_states = both[0], both[1].astype(np.int32)
+                    ln["con_states"][i] = self._seed_con_state(seed) if seed else self._table_start
+        return ln
+
+    def _prefill_device(self, ln: dict) -> tuple:
+        """The device half of a sampled prefill: the model over the lanes
+        (the continuation when the lanes have starts), then the first token
+        of each, masked and advanced for json_only lanes. Returns (first
+        tokens, automaton states or None) on the device."""
+        up = self._upload
+        if ln["cont"]:
+            self.cache, logits = prefill_paged_continue(
+                self.params, self.cache, up(ln["tokens"]), up(ln["lengths"]), up(ln["starts"]),
+                up(ln["page_ids"]), up(ln["tables"]), self.config, group=self.group,
+            )
         else:
-            firsts = firsts.cpu().numpy()
+            self.cache, logits = prefill_paged_batch(
+                self.params, self.cache, up(ln["tokens"]), up(ln["lengths"]),
+                up(ln["page_ids"]), self.config, group=self.group,
+            )
+        if not ln["json"]:
+            return sample(logits, self._gen, up(ln["temps"]), up(ln["top_ks"]),
+                          up(ln["top_ps"])), None
+        table = self._get_token_table()
+        states, constrained = up(ln["con_states"]), up(ln["constrained"])
+        logits = constrain_logits(logits, table, states, constrained, self._min_close,
+                                  up(ln["budgets"]))
+        firsts = sample(logits, self._gen, up(ln["temps"]), up(ln["top_ks"]), up(ln["top_ps"]))
+        return firsts, advance_constraint(table, states, constrained, firsts)
+
+    @staticmethod
+    def _host_read(*tensors) -> list:
+        """ONE device -> host copy of several integer tensors (None passes
+        through as None), each back as numpy in its own shape."""
+        live = [t for t in tensors if t is not None]
+        if not live:
+            return [None] * len(tensors)
+        flat = torch.cat([t.reshape(-1).to(torch.int64) for t in live]).cpu().numpy()
+        out, i = [], 0
+        for t in tensors:
+            if t is None:
+                out.append(None)
+                continue
+            out.append(flat[i: i + t.numel()].reshape(tuple(t.shape)))
+            i += t.numel()
+        return out
+
+    def _finish_prefill_dispatch(self, chunk: list, ln: dict, firsts: np.ndarray,
+                                 con_states: Optional[np.ndarray]) -> None:
+        """The commit of a sampled prefill (split or fused; ``firsts`` and
+        ``con_states`` host arrays, pad lanes past B ignored): prefix-cache
+        entries, each slot's first token streamed, a prefilling slot's
+        final chunk flipped to decoding, terminal first tokens finished."""
+        rows, B = ln["rows"], len(chunk)
+        if con_states is None:
+            con_states = np.zeros(B, dtype=np.int32)
         # entries for later turns; a hit or an adopted slot saves too: its
         # table now holds the whole prompt, so the next turn reuses all of it
         if self._prefix_enabled:
@@ -1397,7 +1542,7 @@ class Engine:
         now = time.monotonic()
         self._state_dirty = True
         self.requests_prefilled += B
-        self.prefill_tokens += int(lengths.sum())
+        self.prefill_tokens += int(ln["lengths"][:B].sum())
         for i, (req, slot, _pages) in enumerate(chunk):
             s = req.sampling
             first = int(firsts[i])
@@ -1496,22 +1641,58 @@ class Engine:
         return -(-ch // self.page_size) * self.page_size
 
     def _begin_chunked_prefill(self, req: _Request, slot: int, start: int,
-                               share_of: Optional[tuple] = None) -> None:
+                               share_of: Optional[tuple] = None,
+                               reason: str = "admit") -> None:
         """Admit a request as a PREFILLING slot: slot and pages reserved,
         ``start`` rows already valid (cache pages, an adopted slot's prompt,
-        a dedup leader's pages), no model compute yet. Its lane uploads as
+        a dedup leader's pages), no model compute yet, and its rate plan
+        made (``reason``: admit, resume or adopt). Its lane uploads as
         inactive until the final chunk."""
         self._admit_seq += 1
-        self._slots[slot] = _Slot(
+        sl = _Slot(
             request=req, prompt_len=len(req.prompt),
             prefix_len=len(req.sampling.forced_prefix), admit_seq=self._admit_seq,
             prefilling=True, prefill_pos=start, prefill_row=self._full_row(req),
             share_of=share_of,
         )
+        self._project_quota(sl, reason)
+        self._slots[slot] = sl
         self._prefilling_count += 1
         self._seq_lens[slot] = start
         self._last_tokens[slot] = 0
         self._state_dirty = True
+
+    def _project_quota(self, sl: _Slot, reason: str) -> None:
+        """The chunk-rate plan (``engine/planner.py``): the request's
+        deadline turned into chunks per cycle, so its prefill lands by
+        arithmetic rather than by the luck of the cycle's other chunks.
+        Made at admission and remade at each re-admission (preempt ->
+        resume, park -> adopt), where the tokens and the time left changed.
+        Leader-local: deadlines are its wall clock, so under a group and on
+        followers every quota stays 1."""
+        if self._follower:
+            return
+        sl.chunk_quota = 1
+        if not self.rate_planner or self.group is not None or sl.request.deadline is None:
+            return
+        tokens_left = max(0, len(sl.prefill_row or []) - sl.prefill_pos)
+        sl.chunk_quota = project_quota(
+            tokens_left, self._chunk_tokens(), sl.request.deadline - time.monotonic(),
+            self._cycle_clock.cycle_s or 0.05, max_quota=self.planner_max_quota)
+        self.quota_projections += 1
+        if reason != "admit":
+            self.quota_reprojections += 1
+            REGISTRY.counter_add("acp_engine_quota_reprojections_total", 1.0,
+                                 help="chunk-rate plans recomputed at a re-admission edge "
+                                 "(preempt-resume / park-adopt)")
+
+    def _slot_chunk_tokens(self, sl: _Slot, chunk: int) -> int:
+        """One slot's chunk this cycle: its quota x the base chunk, as ONE
+        lane (consecutive chunks of a slot cannot share a dispatch: the
+        later would read rows the earlier writes), capped at the largest
+        bucket; both are page multiples, so boundaries stay page-aligned."""
+        q = sl.chunk_quota if self.rate_planner else 1
+        return min(max(1, q) * chunk, self.prefill_buckets[-1])
 
     def _dispatch_once(self) -> None:
         """One scheduler cycle. With nothing mid-prefill it is the decode
@@ -1519,9 +1700,14 @@ class Engine:
         still mid-prefill after a toggle to 0 drain here). Otherwise the
         cycle's token budget goes to prefill chunks, then the decode block
         runs: decode is never starved by pending chunks, and at least one
-        chunk advances each cycle."""
+        chunk advances each cycle. With the megastep the chunks are only
+        planned here and dispatch with the decode block, so a fused cycle
+        enters the decode site even with nothing decoding. Both branches
+        feed the planner's cycle clock."""
+        t0 = time.monotonic()
         if not self._prefilling_count:
             self._decode_once()
+            self._cycle_clock.observe(time.monotonic() - t0)
             return
         self._apply_cancels()
         self._expire_prefilling()
@@ -1530,10 +1716,11 @@ class Engine:
         budget = self.token_budget or (
             decode_reserve + self._chunk_tokens() * max(1, self._prefilling_count))
         spent = self._prefill_chunks(max(0, budget - decode_reserve))
-        if self._n_active():
+        if self._n_active() or self._fuse_pending is not None:
             steps0 = self.decode_steps
             self._decode_once()
             spent += n_active * min(self.decode_steps - steps0, self.decode_block_size)
+        self._cycle_clock.observe(time.monotonic() - t0)
         self._budget_last = (budget, spent)
         self._budget_spent_total += spent
         self._budget_total += budget
@@ -1573,14 +1760,17 @@ class Engine:
         return sl
 
     def _prefill_chunks(self, chunk_budget: int) -> int:
-        """One round of chunked prefill: each mid-prefill slot gets one
-        chunk, earliest deadline first, then admission order (in a group,
-        admission order alone: deadlines are the leader's clock), until the
-        budget is spent; the first chunk always goes, over budget or not. A
-        dedup follower waits, spending nothing, until its leader has written
-        the shared rows. Mid chunks write KV only; a final chunk samples the
+        """One round of chunked prefill: each mid-prefill slot gets its
+        chunk (quota x the base chunk, ``_slot_chunk_tokens``), earliest
+        deadline first, then admission order (in a group, admission order
+        alone: deadlines are the leader's clock), until the budget is
+        spent; the first chunk always goes, over budget or not. A dedup
+        follower waits, spending nothing, until its leader has written the
+        shared rows. Mid chunks write KV only; a final chunk samples the
         first token (a row whose only chunk it is takes the plain causal
-        program). Returns the tokens spent."""
+        program). With the megastep the chunks are planned here and left in
+        ``_fuse_pending`` for this cycle's decode site; nothing is recorded
+        or advanced until they dispatch. Returns the tokens spent."""
         pre = [(s, sl) for s, sl in self._slots.items() if sl.prefilling]
         if self._channel is None:
             pre.sort(key=lambda t: (t[1].request.deadline if t[1].request.deadline is not None
@@ -1600,7 +1790,7 @@ class Engine:
         sched: list[tuple[int, _Slot, int, int]] = []  # (slot, sl, start, n)
         spent = 0
         for slot, sl in ready:
-            n = min(CHK, len(sl.prefill_row) - sl.prefill_pos)
+            n = min(self._slot_chunk_tokens(sl, CHK), len(sl.prefill_row) - sl.prefill_pos)
             if sched and spent + n > chunk_budget:
                 break  # later slots wait a cycle
             sched.append((slot, sl, sl.prefill_pos, n))
@@ -1611,49 +1801,83 @@ class Engine:
         finals = [c for c in sched if c[2] + c[3] >= len(c[1].prefill_row)]
         plain = [c for c in finals if c[2] == 0]
         conts = [c for c in finals if c[2] > 0]
+        if self.megastep:
+            # a fused plain or continuation final samples its first token
+            # inside the fused cycle, so it joins the NEXT cycle's decode
+            # lanes (the split path's joins this one's): a shift in the
+            # schedule, not in any greedy token
+            self._fuse_pending = {"mids": mids, "finals": conts, "plains": plain}
+        else:
+            self._dispatch_split(mids, plain, conts)
+        return spent
+
+    def _dispatch_split(self, mids: list, plains: list, conts: list) -> None:
+        """A round's chunks through the split dispatches, one per pow2
+        batch of each kind (mid chunks, plain finals, continuation finals),
+        then the round recorded."""
         with self._hol_clock():
             for batch in _pow2_chunks(mids, self.prefill_batch_max):
                 self._chunk_dispatch(batch)
-            for batch in _pow2_chunks(plain, self.prefill_batch_max):
+            for batch in _pow2_chunks(plains, self.prefill_batch_max):
                 self._prefill_group(self._chunk_items(batch))
             for batch in _pow2_chunks(conts, self.prefill_batch_max):
                 self._prefill_group(self._chunk_items(batch),
                                     starts=np.asarray([c[2] for c in batch], dtype=np.int64))
+        self._advance_mids(mids)
+        self._record_chunk_round(mids + plains + conts)
+
+    def _advance_mids(self, mids: list) -> None:
+        """Mid chunks that dispatched: their rows are written."""
         for slot, sl, st, n in mids:
             sl.prefill_pos = st + n
             self._seq_lens[slot] = sl.prefill_pos
-        self.prefill_chunks += len(sched)
-        REGISTRY.counter_add("acp_engine_prefill_chunks_total", float(len(sched)),
+
+    def _record_chunk_round(self, landed: list) -> None:
+        """Count the chunks that dispatched (split or fused)."""
+        self.prefill_chunks += len(landed)
+        REGISTRY.counter_add("acp_engine_prefill_chunks_total", float(len(landed)),
                              help="prefill chunk dispatches (per-slot chunks) under the "
                              "unified token-budget scheduler")
-        return spent
 
     def _chunk_items(self, batch: list) -> list:
         """(slot, sl, start, n) chunks -> ``_prefill_group`` items."""
         return [(sl.request, slot, self._slot_pages[slot]) for slot, sl, _st, _n in batch]
 
-    def _chunk_dispatch(self, batch: list[tuple[int, _Slot, int, int]]) -> None:
-        """One batched mid-chunk dispatch: tokens [start, start + n) of each
-        slot's row through the KV-only continuation. Chunk boundaries are
-        page-aligned, so the commit writes exactly the chunk's pages."""
+    def _mid_lanes(self, batch: list[tuple[int, _Slot, int, int]], width: int = 0) -> dict:
+        """Host lane arrays of a mid-chunk dispatch: tokens [start, start +
+        n) of each slot's row. Chunk boundaries are page-aligned, so the
+        commit writes exactly the chunk's pages. ``width`` > B pads the
+        batch: a pad lane has no tokens and every page of it is the trash
+        page."""
         B, P = len(batch), self.page_size
+        W = max(B, width)
         bucket = _next_bucket(max(n for _, _, _, n in batch), self.prefill_buckets)
-        toks = np.zeros((B, bucket), dtype=np.int64)
-        lengths = np.zeros(B, dtype=np.int64)
-        starts = np.zeros(B, dtype=np.int64)
-        page_ids = np.full((B, bucket // P), TRASH_PAGE, dtype=np.int64)
+        ln = {"tokens": np.zeros((W, bucket), dtype=np.int64),
+              "lengths": np.zeros(W, dtype=np.int64),
+              "starts": np.zeros(W, dtype=np.int64),
+              "page_ids": np.full((W, bucket // P), TRASH_PAGE, dtype=np.int64),
+              "tables": np.full((W, self.max_pages_per_seq), TRASH_PAGE, dtype=np.int32)}
         for i, (slot, sl, st, n) in enumerate(batch):
-            toks[i, :n] = sl.prefill_row[st: st + n]
-            lengths[i], starts[i] = n, st
+            ln["tokens"][i, :n] = sl.prefill_row[st: st + n]
+            ln["lengths"][i], ln["starts"][i] = n, st
             sub = self._slot_pages[slot][st // P: -(-(st + n) // P)]
-            page_ids[i, : len(sub)] = sub
+            ln["page_ids"][i, : len(sub)] = sub
+            ln["tables"][i] = self._block_tables[slot]
+        return ln
+
+    def _mid_device(self, ln: dict) -> None:
+        """The KV-only continuation of a mid-chunk lane batch."""
+        up = self._upload
         self.cache = prefill_paged_continue_kv(
-            self.params, self.cache, self._upload(toks), self._upload(lengths),
-            self._upload(starts), self._upload(page_ids),
-            self._upload(self._block_tables[[slot for slot, _, _, _ in batch]]),
-            self.config, group=self.group,
+            self.params, self.cache, up(ln["tokens"]), up(ln["lengths"]), up(ln["starts"]),
+            up(ln["page_ids"]), up(ln["tables"]), self.config, group=self.group,
         )
-        self.prefill_tokens += int(lengths.sum())
+
+    def _chunk_dispatch(self, batch: list[tuple[int, _Slot, int, int]]) -> None:
+        """One split mid-chunk dispatch."""
+        ln = self._mid_lanes(batch)
+        self._mid_device(ln)
+        self.prefill_tokens += int(ln["lengths"].sum())
 
     def _slot_budget(self, slot: int, sl: _Slot) -> int:
         """Sampled tokens this slot may still emit: the smaller of its
@@ -1708,15 +1932,44 @@ class Engine:
         return d
 
     def _decode_once(self) -> None:
-        """One K-step decode block over the live slots, after every slot's
-        table was grown to cover the block (which may preempt)."""
+        """The decode site of a cycle: one K-step block over the live slots,
+        after every slot's table was grown to cover the block (which may
+        preempt). A fused cycle's planned chunk lanes dispatch here with
+        the block (``_megastep_dispatch``), or alone when nothing decodes
+        (``_megastep_flush``); a shape past the bound falls back to the
+        split dispatches, then the plain block."""
+        pending, self._fuse_pending = self._fuse_pending, None
         self._apply_cancels()
+        if self._n_active():
+            self._ensure_pages_for_block()
         if not self._n_active():
-            return
-        self._ensure_pages_for_block()
-        if not self._n_active():
+            self._megastep_flush(pending)
             return
         d = self._ensure_dev_state()
+        if pending is not None:
+            if self._megastep_dispatch(pending, d):
+                return
+            self._dispatch_pending_split(pending)
+            # finals that just joined decode this block too: grow them, as
+            # the split path does after its chunks
+            self._ensure_pages_for_block()
+            if not self._n_active():
+                return
+            d = self._ensure_dev_state()
+        self._decode_dispatch(d)
+
+    def _decode_dispatch(self, d: dict) -> None:
+        """The split decode block: its body, its one host read, its
+        commit."""
+        block, states = self._host_read(*self._decode_block(d))
+        self._commit_decode_block(d, block, states)
+
+    def _decode_block(self, d: dict) -> tuple:
+        """The device half of a decode block: K steps of ``decode_step_paged``
+        (the CUDA walk in every layer on the card), each sampled and, for
+        constrained lanes, masked and advanced; finishes are detected on
+        the device. Re-seats the carry in ``d`` and returns (tokens [K, W],
+        automaton states [W] or None) on the device."""
         tokens, seq_lens, budgets, active = d["tokens"], d["seq_lens"], d["budgets"], d["active"]
         constrained = d["constrained_any"]
         con_states = d.get("con_states")
@@ -1745,20 +1998,131 @@ class Engine:
             )
             tokens = nxt
             steps.append(nxt)
-        if constrained:
-            # the block's one host read carries the automaton states too:
-            # the mirror must hold them for the next dirty upload
-            both = torch.stack([*steps, con_states.to(tokens.dtype)]).cpu().numpy()
-            tok_block = both[:-1]
-            self._con_states[: d["W"]] = both[-1]
-            d["con_states"] = con_states
-        else:
-            tok_block = torch.stack(steps).cpu().numpy()  # the block's one host read
         d.update(tokens=tokens, seq_lens=seq_lens, budgets=budgets, active=active)
+        if constrained:
+            d["con_states"] = con_states
+        return torch.stack(steps), (con_states if constrained else None)
+
+    def _commit_decode_block(self, d: dict, block: np.ndarray,
+                             con_states: Optional[np.ndarray]) -> None:
+        """The commit of a decode block (split or fused): the automaton
+        states mirrored (the next dirty upload must hold them), each live
+        lane's tokens committed. Lanes that were not in the block (parked,
+        prefilling, or a slot past its width) are skipped."""
+        if con_states is not None:
+            self._con_states[: d["W"]] = con_states
         self.decode_steps += self.decode_block_size
         for slot, sl in list(self._slots.items()):
             if slot < d["W"] and not sl.parked and not sl.prefilling:
-                self._consume_tokens(slot, sl, tok_block[:, slot])
+                self._consume_tokens(slot, sl, block[:, slot])
+
+    # -- the fused megastep ----------------------------------------------
+
+    def _validate_pending(self, pending: dict) -> None:
+        """Planning ran before this cycle's cancels and page growth, which
+        may have preempted, cancelled or expired a planned slot: drop its
+        lanes, which would write KV into freed (maybe reallocated) pages.
+        A dropped lane stays counted in the cycle's budget (its split
+        dispatch would have landed before the preemption discarded it) but
+        is never recorded as a dispatched chunk."""
+
+        def live(c):
+            slot, sl, st, _n = c
+            return self._slots.get(slot) is sl and sl.prefilling and sl.prefill_pos == st
+
+        for phase in ("mids", "plains", "finals"):
+            pending[phase] = [c for c in pending[phase] if live(c)]
+
+    def _dispatch_pending_split(self, pending: dict) -> None:
+        """A fused cycle that does not fuse (its shape is past the bound):
+        its live lanes through the split dispatches."""
+        self._validate_pending(pending)
+        self._dispatch_split(pending["mids"], pending["plains"], pending["finals"])
+
+    def _megastep_flush(self, pending: Optional[dict]) -> None:
+        """A fused cycle with nothing left to decode (no live slot, or
+        growth preempted them all): a chunks-only megastep."""
+        if pending is not None and self._megastep_dispatch(pending) is None:
+            self._dispatch_pending_split(pending)
+
+    def _megastep_key(self, mids: list, plains: list, finals: list,
+                      d: Optional[dict]) -> str:
+        """The fused shape, as the reference keys it:
+        ``megastep[paged,m<bucket>x<B>+p<bucket>x<B>+f<bucket>x<B>+d<W>x<K>]``
+        (present phases only; ``+tbl`` once the JSON table exists), each
+        phase's batch padded to a power of two. Host arithmetic only."""
+        parts = []
+        if mids:
+            bucket = _next_bucket(max(n for _, _, _, n in mids), self.prefill_buckets)
+            parts.append(f"m{bucket}x{_pow2(len(mids))}")
+        if plains:
+            bucket = max(_next_bucket(len(sl.prefill_row), self.prefill_buckets)
+                         for _, sl, _, _ in plains)
+            parts.append(f"p{bucket}x{_pow2(len(plains))}")
+        if finals:
+            bucket = max(_next_bucket(len(sl.prefill_row) - st, self.prefill_buckets)
+                         for _, sl, st, _ in finals)
+            parts.append(f"f{bucket}x{_pow2(len(finals))}")
+        if d is not None:
+            parts.append(f"d{d['W']}x{self.decode_block_size}")
+        tbl = "+tbl" if self._token_table is not None else ""
+        return f"megastep[paged,{'+'.join(parts)}{tbl}]"
+
+    def _megastep_dispatch(self, pending: dict, d: Optional[dict] = None) -> Optional[bool]:
+        """THE fused cycle: this cycle's mid chunks (KV only), plain
+        finals, continuation finals (each with its first-token sample) and
+        the decode block, in that order on ``self.cache``, each phase ONE
+        lane batch padded to a power of two (pad lanes write the trash
+        page), then ONE host read for the finals' first tokens and
+        automaton states and the block's tokens. The commits follow: mid
+        chunks advance, the block commits (its lanes predate this cycle's
+        finals), then the finals and plains flip to decoding. True when it
+        dispatched; None when the caller must run the split dispatches (a
+        new shape past ``megastep_max_programs``, or no chunk lane left
+        beside a decode block)."""
+        self._validate_pending(pending)
+        mids, plains, finals = pending["mids"], pending["plains"], pending["finals"]
+        if not (mids or plains or finals):
+            if d is None:  # every planned lane was dropped
+                self._record_chunk_round([])
+                return True
+            return None
+        key = self._megastep_key(mids, plains, finals, d)
+        if (key not in self._megastep_shapes
+                and len(self._megastep_shapes) >= self.megastep_max_programs):
+            self.megastep_fallbacks += 1
+            REGISTRY.counter_add("acp_engine_megastep_fallbacks_total", 1.0,
+                                 help="fused cycles split-dispatched because a new megastep "
+                                 "shape would exceed megastep_max_programs")
+            return None
+        self._megastep_shapes.add(key)
+        pl_items, fin_items = self._chunk_items(plains), self._chunk_items(finals)
+        p_out = f_out = d_out = (None, None)
+        if mids:
+            self._mid_device(self._mid_lanes(mids, _pow2(len(mids))))
+        if plains:
+            pl_ln = self._prefill_lanes(pl_items, width=_pow2(len(plains)))
+            p_out = self._prefill_device(pl_ln)
+        if finals:
+            fin_ln = self._prefill_lanes(fin_items,
+                                         np.asarray([c[2] for c in finals], dtype=np.int64),
+                                         width=_pow2(len(finals)))
+            f_out = self._prefill_device(fin_ln)
+        if d is not None:
+            d_out = self._decode_block(d)
+        p_firsts, p_states, f_firsts, f_states, block, d_states = self._host_read(
+            *p_out, *f_out, *d_out)
+        self.megastep_dispatches += 1
+        self.prefill_tokens += sum(n for _, _, _, n in mids)
+        self._advance_mids(mids)
+        if d is not None:
+            self._commit_decode_block(d, block, d_states)
+        if finals:
+            self._finish_prefill_dispatch(fin_items, fin_ln, f_firsts, f_states)
+        if plains:
+            self._finish_prefill_dispatch(pl_items, pl_ln, p_firsts, p_states)
+        self._record_chunk_round(mids + plains + finals)
+        return True
 
     def _consume_tokens(self, slot: int, sl: _Slot, toks) -> None:
         """Commit one block's tokens for one slot and finish it at the first

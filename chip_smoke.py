@@ -39,8 +39,9 @@ without printing a result:
    card and on the CPU: six requests on a 9-page pool (preempted and
    resumed), a two-turn conversation whose second turn adopts the
    first's parked slot, a 200-token row prefilled in chunks of 16 and a
-   burst of four on one persona (three dedup shares), greedy tokens equal
-   to uncontended runs and to the CPU's;
+   burst of four on one persona (three dedup shares), both with the fused
+   megastep on (the default) and off, greedy tokens equal to uncontended
+   runs, across the two modes and to the CPU's;
 5. serving — llama3-8b at full width and depth with random weights from
    seed 0 behind the HTTP server, first in bf16, then (after the bf16
    engine is freed) with int8 weights and int8 KV pages: five chat
@@ -74,10 +75,18 @@ without printing a result:
    pool, bf16 logits held against an f32 pass (each within 3e-2 relative
    L2, chunked within 1.5 x whole + 2e-3), int8 KV chunked against whole
    (5e-2); (b) four greedy decoders of 128 tokens with a 1,920-token
-   request landing mid-decode, chunking off and at 256 in turns, twice
-   each (the decoders' longest gap between commits, the long request's
-   TTFT, hol wait, chunks, budget utilization; its tokens and finish equal
-   across modes); (c) eight requests sharing a 768-token prefix with their
+   request landing mid-decode, chunking off and at 256 (through the fused
+   megastep) in turns, twice each (the decoders' longest gap between
+   commits, the long request's TTFT, hol wait, chunks, budget
+   utilization; its tokens and finish equal across modes), and on bf16
+   (b') the same at 256 with the megastep off, twice, and (d) the long
+   request with a deadline of 0.6 x (b)'s chunked TTFT, the rate planner
+   on and then off (the planned quota >= 2, every chunk quota x 256
+   tokens up to the largest bucket, the first token within ceil(8 /
+   quota) + 1 cycles; each outcome printed, not gated), every run's
+   prefill cycles, fused dispatches, shapes and fallbacks and its walk
+   launches (n_layers x decode steps in every fused run) printed; (c)
+   eight requests sharing a 768-token prefix with their
    own 64-token tails, dedup on and off in turns, twice each (7 shares on,
    0 off, page peaks within 15% of 112 and 448, token counts and finishes
    equal, TTFTs); the walk launches of (b) and (c) equal n_layers x decode
@@ -103,14 +112,15 @@ without printing a result:
    joined to the Task's window, the human answered through the backend,
    one delegation ToolCall applied directly running its child Task to
    FinalAnswer, Task create -> first ToolCall CR (p50 and max per kind)
-   and the other checkpoints printed with the dedup shares and the most
-   pages shared at once, every decode step through the walk;
+   and the other checkpoints printed with the dedup shares, the most
+   pages shared at once, the fused dispatches and the rate plans made,
+   every decode step through the walk;
    new turns are stopped by holding the Tasks' ``task-llm`` leases before
    the operator stops;
 6. parallel serving — llama3-8b over ``torch.distributed`` ranks (one
    process each, rank 0 behind HTTP, gloo when the ranks share one card):
    tp=2 in bf16 (with one more request, forcing a tool call), then sp=2 x
-   tp=2 in bf16 and with int8 weights + KV (12 tokens a request), one
+   tp=2 in bf16 and with int8 weights + KV (12 tokens a request each), one
    phase's ranks at a time. Every rank's stream of
    finished requests must be identical, every decode layer of every step
    must go through the expected walk (the state form on every sp rank),
@@ -822,15 +832,24 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
             out["parked"] = [r1.tokens, r2.tokens]
             out["adoptions"] = roomy.stats()["tool_overlap"]["park_adoptions"]
             out["unparked"] = [plain.generate(turn1, s1).tokens, plain.generate(turn2, s2).tokens]
-            roomy.prefill_chunk = 16
-            out["chunked"] = roomy.generate(TINY_CHUNKED_ROW, sp).tokens
-            roomy.prefill_chunk = 0
+            # the chunked row and the burst fused (the default), then split;
+            # each run cold (no prefix-cache entry from the one before)
+            fused0 = roomy.megastep_dispatches
+            for mode in ("", "_split"):
+                roomy.megastep = not mode
+                roomy.prefill_chunk = 16
+                out["chunked" + mode] = roomy.generate(TINY_CHUNKED_ROW, sp).tokens
+                roomy.prefill_chunk = 0
+                _forget_prefixes(roomy)
+                shares0 = roomy.prefix_shares
+                with roomy.hold_admission():
+                    futs = [roomy.submit(TINY_PERSONA + t, sp) for t in TINY_TAILS]
+                out["burst" + mode] = [f.result(timeout=120).tokens for f in futs]
+                out["shares" + mode] = roomy.prefix_shares - shares0
+                _forget_prefixes(roomy)
+            roomy.megastep = True
+            out["megastep_dispatches"] = roomy.megastep_dispatches - fused0
             out["unchunked"] = plain.generate(TINY_CHUNKED_ROW, sp).tokens
-            shares0 = roomy.prefix_shares
-            with roomy.hold_admission():
-                futs = [roomy.submit(TINY_PERSONA + t, sp) for t in TINY_TAILS]
-            out["burst"] = [f.result(timeout=120).tokens for f in futs]
-            out["shares"] = roomy.prefix_shares - shares0
             out["alone"] = [plain.generate(TINY_PERSONA + t, sp).tokens for t in TINY_TAILS]
             out["decode_steps"] = sum(e.decode_steps for e in engines.values())
             return out
@@ -848,8 +867,11 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
         ("adopted", card["adoptions"] == 1),
         ("parked turns = unparked on the card", card["parked"] == card["unparked"]),
         ("chunked = unchunked on the card", card["chunked"] == card["unchunked"]),
-        ("3 shares in the burst", card["shares"] == len(TINY_TAILS) - 1),
+        ("3 shares in the burst", card["shares"] == card["shares_split"] == len(TINY_TAILS) - 1),
         ("the burst = each request alone on the card", card["burst"] == card["alone"]),
+        ("fused", card["megastep_dispatches"] > 0),
+        ("the megastep on = off on the card", (card["chunked"], card["burst"])
+         == (card["chunked_split"], card["burst_split"])),
         ("the card's streams = the CPU's", {k: v for k, v in card.items() if k != "decode_steps"}
          == {k: v for k, v in cpu.items() if k != "decode_steps"}),
     ):
@@ -859,7 +881,8 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
         f"{card['preempt_counts']}, tokens = each prompt alone; two turns, the second adopting "
         f"the first's parked slot, = an engine without parking or cache; a "
         f"{len(TINY_CHUNKED_ROW)}-token row in chunks of 16 = unchunked; a burst of "
-        f"{len(TINY_TAILS)} on one persona ({card['shares']} shares) = each alone; all = the "
+        f"{len(TINY_TAILS)} on one persona ({card['shares']} shares) = each alone, both with the "
+        f"megastep on ({card['megastep_dispatches']} fused dispatches) = off; all = the "
         f"CPU engines' tokens; walk launches {walk} = {cfg.n_layers} x {card['decode_steps']}")
     return {"card": card, "cpu": cpu, "launches": walk}
 
@@ -1776,6 +1799,7 @@ CHUNK_INT8_TOL = 5e-2  # (a) int8 KV: chunked vs whole
 HOL_DECODERS, HOL_DECODE_TOKENS = 4, 128  # (b): the lanes decoding when the long row lands
 HOL_PROMPT, HOL_LONG_TOKENS = 64, 16  # (b): decoder prompts; the long request's budget
 HOL_REPEATS = 2
+DEADLINE_SHARE = 0.6  # (d): the deadline, as a share of (b)'s chunked TTFT
 DEDUP_REQUESTS, DEDUP_PREFIX, DEDUP_TAIL, DEDUP_TOKENS = 8, 768, 64, 32  # (c)
 DEDUP_REPEATS = 2
 # (c): pages at the peak, from the shapes: each slot grows to 56 pages (832
@@ -1879,16 +1903,46 @@ def chunk_check(engine, card: str, label: str) -> dict:
     return doc
 
 
-def hol_run(engine, prompts: list, long_row: list, chunk: int) -> dict:
+def hol_run(engine, prompts: list, long_row: list, chunk: int, megastep: bool = True,
+            timeout_s: float = 0.0) -> dict:
     """(b) HOL_DECODERS greedy decoders admitted as one group; once they
-    decode, the long request arrives, and once it has finished the
-    decoders are cancelled. The decoders' longest gap between two commits,
-    the long request's TTFT, and the scheduler's deltas."""
-    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+    decode, the long request arrives (with ``timeout_s``, a deadline), and
+    once it has finished or expired the decoders are cancelled. The
+    decoders' longest gap between two commits, the long request's TTFT,
+    the scheduler's deltas, and the long request's own record: the cycles
+    in which it prefilled (the last one samples its first token), its rate
+    plans' quotas and its chunks' sizes, read at the engine's own calls;
+    the run's fused dispatches, new fused shapes and fallbacks; its walk
+    launches and decode steps."""
+    from agentcontrolplane_tpu_torch.engine.engine import DeadlineExceededError, SamplingParams
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
 
     stamps = [[] for _ in prompts]
     s0 = engine.stats()
     spent0, total0 = engine._budget_spent_total, engine._budget_total
+    shapes0 = set(engine._megastep_shapes)
+    launches0, int80, dsteps0 = pa.LAUNCHES, pa.INT8_LAUNCHES, engine.decode_steps
+    mine = {"cycles": 0, "quotas": [], "sizes": []}  # the long request's
+    real = {name: getattr(engine, name)
+            for name in ("_dispatch_once", "_project_quota", "_record_chunk_round")}
+
+    def long_slot(sl):
+        return len(sl.request.prompt) == len(long_row)
+
+    def dispatch():  # on the engine thread, like the two below
+        if any(sl.prefilling and long_slot(sl) for sl in list(engine._slots.values())):
+            mine["cycles"] += 1
+        real["_dispatch_once"]()
+
+    def project(sl, reason):
+        real["_project_quota"](sl, reason)
+        if long_slot(sl):
+            mine["quotas"].append(sl.chunk_quota)
+
+    def record(landed):
+        mine["sizes"] += [n for _slot, sl, _st, n in landed if long_slot(sl)]
+        real["_record_chunk_round"](landed)
+
     with engine.hold_admission():
         futs = [engine.submit(p, SamplingParams(max_tokens=HOL_DECODE_TOKENS),
                               on_tokens=lambda _t, i=i: stamps[i].append(time.monotonic()))
@@ -1900,17 +1954,35 @@ def hol_run(engine, prompts: list, long_row: list, chunk: int) -> dict:
             fail("chunked: the decoders never started")
         time.sleep(0.001)
     engine.prefill_chunk = chunk  # the decoders were admitted whole either way
-    long = engine.submit(long_row, SamplingParams(max_tokens=HOL_LONG_TOKENS))
-    r = long.result(timeout=300)
-    for f in futs:  # the window that matters is over: stop the decoders
-        engine.cancel(f)
-    res = [f.result(timeout=300) for f in futs]
+    engine.megastep = megastep
+    engine._dispatch_once, engine._project_quota, engine._record_chunk_round = (
+        dispatch, project, record)
+    try:
+        long = engine.submit(long_row, SamplingParams(max_tokens=HOL_LONG_TOKENS),
+                             timeout_s=timeout_s or None)
+        try:
+            r = long.result(timeout=300)
+            outcome = "finished"
+        except DeadlineExceededError:
+            r, outcome = None, "deadline expired"
+        for f in futs:  # the window that matters is over: stop the decoders
+            engine.cancel(f)
+        res = [f.result(timeout=300) for f in futs]
+    finally:
+        for name in real:
+            delattr(engine, name)
+        engine.megastep = True
     s1 = engine.stats()
     engine.prefill_chunk = 0
     gaps = [b - a for st in stamps for a, b in zip(st, st[1:])]
+    m0, m1 = s0["scheduler"]["megastep"], s1["scheduler"]["megastep"]
     return {
-        "chunk": chunk, "long_ttft_ms": r.ttft_ms, "long_tokens": len(r.tokens),
-        "long_finish": r.finish_reason, "decoder_tokens": [len(x.tokens) for x in res],
+        "chunk": chunk, "megastep": megastep, "rate_planner": engine.rate_planner,
+        "timeout_s": timeout_s, "outcome": outcome,
+        "long_ttft_ms": r.ttft_ms if r else None, "long_tokens": len(r.tokens) if r else None,
+        "long_finish": r.finish_reason if r else None,
+        "long_stream": list(r.tokens) if r else None,
+        "decoder_tokens": [len(x.tokens) for x in res],
         "max_gap_s": max(gaps) if gaps else 0.0,
         "hol_wait_s": s1["scheduler"]["hol_wait_seconds"] - s0["scheduler"]["hol_wait_seconds"],
         "prefill_chunks": s1["scheduler"]["prefill_chunks_total"]
@@ -1918,7 +1990,26 @@ def hol_run(engine, prompts: list, long_row: list, chunk: int) -> dict:
         "budget_utilization": ((engine._budget_spent_total - spent0)
                                / (engine._budget_total - total0))
         if engine._budget_total > total0 else 0.0,
+        "long_cycles": mine["cycles"], "quotas": mine["quotas"], "chunk_sizes": mine["sizes"],
+        "megastep_dispatches": m1["dispatches"] - m0["dispatches"],
+        "megastep_fallbacks": m1["fallbacks"] - m0["fallbacks"],
+        "new_shapes": sorted(set(engine._megastep_shapes) - shapes0),
+        "launches": pa.LAUNCHES - launches0, "int8_launches": pa.INT8_LAUNCHES - int80,
+        "decode_steps": engine.decode_steps - dsteps0,
     }
+
+
+def _run_line(h: dict) -> str:
+    """One (b)/(b')/(d) run, printed."""
+    ttft = f"{h['long_ttft_ms']:.1f} ms" if h["long_ttft_ms"] is not None else "none"
+    return (f"chunk {h['chunk'] or 'off'}, megastep {'on' if h['megastep'] else 'off'}"
+            + (f", planner {'on' if h['rate_planner'] else 'off'}, deadline "
+               f"{h['timeout_s']:.3f} s ({h['outcome']})" if h["timeout_s"] else "")
+            + f": longest gap {h['max_gap_s'] * 1e3:.1f} ms, long TTFT {ttft}, "
+            f"{h['long_cycles']} prefill cycles, chunks {h['chunk_sizes']}, quotas "
+            f"{h['quotas']}; megastep dispatches {h['megastep_dispatches']}, new shapes "
+            f"{h['new_shapes']}, fallbacks {h['megastep_fallbacks']}; walk launches "
+            f"{h['launches']} (int8 {h['int8_launches']}) for {h['decode_steps']} decode steps")
 
 
 def dedup_burst(engine, prompts: list, dedup: bool) -> dict:
@@ -1944,13 +2035,15 @@ def dedup_burst(engine, prompts: list, dedup: bool) -> dict:
 
 
 def chunked_phase(engine, card: str, label: str) -> dict:
-    """Chunked prefill and shared-prefix dedup on the serving engine: (a)
-    chunked against whole at the model level, (b) a long request landing
-    on decoding lanes, whole and chunked in turns, (c) a burst sharing a
-    prefix, dedup on and off in turns. Parked slots are expired and the
-    prefix cache is emptied and off for the phase, so every run is cold;
-    the knobs are put back after. (b) and (c)'s decode steps go through
-    the expected walk only."""
+    """Chunked prefill, the megastep, the rate planner and shared-prefix
+    dedup on the serving engine: (a) chunked against whole at the model
+    level, (b) a long request landing on decoding lanes, whole and chunked
+    (fused) in turns, and on bf16 (b') chunked with the megastep off and
+    (d) chunked with a deadline, the planner on then off, (c) a burst
+    sharing a prefix, dedup on and off in turns. Parked slots are expired
+    and the prefix cache is emptied and off for the phase, so every run is
+    cold; the knobs are put back after. Every run's decode steps go
+    through the expected walk only."""
     import torch
 
     from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
@@ -1972,8 +2065,20 @@ def chunked_phase(engine, card: str, label: str) -> dict:
                  for _ in range(DEDUP_REQUESTS)]
         pa.LAUNCHES = pa.INT8_LAUNCHES = 0
         steps0 = engine.decode_steps
-        hol = [hol_run(engine, hol_prompts, long_row, chunk)
-               for _ in range(HOL_REPEATS) for chunk in (0, CHUNK_SIZE)]
+        # (b), and on bf16 (b'): chunk 256 with the megastep off too
+        modes = [(0, True), (CHUNK_SIZE, True)] + ([] if int8_walk else [(CHUNK_SIZE, False)])
+        hol = [hol_run(engine, hol_prompts, long_row, chunk, megastep)
+               for _ in range(HOL_REPEATS) for chunk, megastep in modes]
+        deadline_runs = []
+        if not int8_walk:
+            # (d): the deadline is a share of this run's chunked TTFT
+            flat = statistics.median(h["long_ttft_ms"] for h in hol
+                                     if h["chunk"] and h["megastep"])
+            for planner in (True, False):
+                engine.rate_planner = planner
+                deadline_runs.append(hol_run(engine, hol_prompts, long_row, CHUNK_SIZE,
+                                             timeout_s=DEADLINE_SHARE * flat / 1e3))
+            engine.rate_planner = True
         dedup = [dedup_burst(engine, burst, on) for _ in range(DEDUP_REPEATS)
                  for on in (True, False)]
         walk = _walk_check(f"chunked {label}", engine.decode_steps - steps0, cfg.n_layers,
@@ -1983,10 +2088,34 @@ def chunked_phase(engine, card: str, label: str) -> dict:
         engine.prefill_chunk, engine.prefix_dedup = 0, True
     if not _pool_whole(engine) or engine.stats()["prefilling_slots"]:
         fail(f"chunked {label}: pages or slots not released: {engine.stats()}")
-    views = {(h["long_tokens"], h["long_finish"]) for h in hol}
+    views = {(h["long_tokens"], h["long_finish"]) for h in hol if h["megastep"]}
     if len(views) != 1:
         fail(f"chunked {label}: the long request's tokens and finish differ across modes: "
              f"{views}")
+    for h in hol + deadline_runs:
+        walked = h["int8_launches"] if int8_walk else h["launches"] - h["int8_launches"]
+        if h["megastep"] and h["chunk"] and (
+                h["megastep_dispatches"] < 1 or h["megastep_fallbacks"]
+                or walked != cfg.n_layers * h["decode_steps"] or walked != h["launches"]):
+            fail(f"chunked {label}: a fused run dispatched no megastep, fell back, or its walk "
+                 f"launches are not {cfg.n_layers} x its decode steps: {_run_line(h)}")
+    fused = [h for h in hol if h["chunk"] and h["megastep"]]
+    split = [h for h in hol if h["chunk"] and not h["megastep"]]
+    same_streams = all(h["long_stream"] == fused[0]["long_stream"] for h in fused + split)
+    if deadline_runs:
+        planned = deadline_runs[0]
+        q = planned["quotas"][0] if planned["quotas"] else 1
+        size = min(q * CHUNK_SIZE, engine.prefill_buckets[-1])
+        sizes = planned["chunk_sizes"]
+        whole = sizes and all(n == size for n in sizes[:-1]) and sizes[-1] <= size
+        # the cycle that samples the first token is the last one counted
+        within = -(-CHUNK_ROW // CHUNK_SIZE)
+        first_by = -(-within // q) + 1
+        if (q < 2 or not whole or (planned["outcome"] == "finished"
+                                   and planned["long_cycles"] > first_by)):
+            fail(f"chunked {label} (d): quota {planned['quotas']} (want >= 2), chunks {sizes} "
+                 f"(want {size} each), first token after {planned['long_cycles']} cycles (want "
+                 f"<= {first_by})")
     for i, d in enumerate(dedup):
         on = i % 2 == 0  # the runs alternate dedup on, off
         want = DEDUP_REQUESTS - 1 if on else 0
@@ -2002,13 +2131,22 @@ def chunked_phase(engine, card: str, label: str) -> dict:
                 d["finish"] != base["finish"]):
             fail(f"chunked {label}: the burst's token counts or finishes differ across runs")
 
-    def med(key, chunk):
-        return statistics.median(h[key] for h in hol if h["chunk"] == chunk)
+    def med(key, chunk, megastep=True):
+        return statistics.median(h[key] for h in hol
+                                 if h["chunk"] == chunk and h["megastep"] == megastep)
 
-    out["hol"] = {"runs": hol, "medians": {
+    out["hol"] = {"runs": [{k: v for k, v in h.items() if k != "long_stream"} for h in hol],
+                  "medians": {
         str(c): {k: med(k, c) for k in ("max_gap_s", "long_ttft_ms", "hol_wait_s",
                                          "prefill_chunks", "budget_utilization")}
         for c in (0, CHUNK_SIZE)}}
+    if split:
+        out["hol"]["medians"]["split"] = {
+            k: med(k, CHUNK_SIZE, False) for k in ("max_gap_s", "long_ttft_ms", "hol_wait_s",
+                                                   "prefill_chunks", "long_cycles")}
+    out["hol"]["long_streams_identical"] = same_streams
+    out["deadline"] = [{k: v for k, v in h.items() if k != "long_stream"}
+                       for h in deadline_runs]
     on_runs, off_runs = dedup[0::2], dedup[1::2]
     same = sum(a == b for r_on, r_off in zip(on_runs, off_runs)
                for a, b in zip(r_on["tokens"], r_off["tokens"]))
@@ -2023,6 +2161,24 @@ def chunked_phase(engine, card: str, label: str) -> dict:
     out["launches"] = walk
     out["decode_steps"] = walk // cfg.n_layers
     m = out["hol"]["medians"]
+    for h in hol + deadline_runs:
+        say(f"chunked {label} run: {_run_line(h)}  [{card}]")
+    if split:
+        sm, fm = m["split"], m[str(CHUNK_SIZE)]
+        say(f"chunked {label} (b'), chunk {CHUNK_SIZE}, megastep on vs off: longest gap "
+            f"{fm['max_gap_s'] * 1e3:.1f} / {sm['max_gap_s'] * 1e3:.1f} ms, long TTFT "
+            f"{fm['long_ttft_ms']:.1f} / {sm['long_ttft_ms']:.1f} ms, "
+            f"{statistics.median(h['long_cycles'] for h in fused)} / {sm['long_cycles']} prefill "
+            f"cycles (medians of {HOL_REPEATS}); the long request's streams "
+            f"{'identical' if same_streams else 'NOT identical'} across the fused and split "
+            f"runs (reported, not gated, in bf16)  [{card}]")
+    for h in deadline_runs:
+        say(f"chunked {label} (d), planner {'on' if h is deadline_runs[0] else 'off'}: deadline "
+            f"{h['timeout_s'] * 1e3:.1f} ms ({DEADLINE_SHARE} x the chunked TTFT), quotas "
+            f"{h['quotas']}, chunks {h['chunk_sizes']}, {h['long_cycles']} prefill cycles; "
+            f"{h['outcome']}, TTFT "
+            f"{'%.1f ms' % h['long_ttft_ms'] if h['long_ttft_ms'] is not None else 'none'}"
+            f"  [{card}]")
     for c in (0, CHUNK_SIZE):
         say(f"chunked {label} HOL, chunk {c or 'off'}: {HOL_DECODERS} decoders x "
             f"{HOL_DECODE_TOKENS} tokens, a {CHUNK_ROW}-token request lands mid-decode: "
@@ -2617,6 +2773,7 @@ def operator_phase(engine, card: str, label: str) -> dict:
 
         overlap0 = engine.stats()["tool_overlap"]
         shares0 = engine.prefix_shares
+        fused0, plans0 = engine.megastep_dispatches, engine.quota_projections
         shared_peak, sampling = [0], threading.Event()
 
         def sample_shared():  # pages with more than one owner, every 10 ms
@@ -2636,6 +2793,8 @@ def operator_phase(engine, card: str, label: str) -> dict:
         out["park_adoptions"] = overlap1["park_adoptions"] - overlap0["park_adoptions"]
         out["prefix_shares"] = engine.prefix_shares - shares0
         out["shared_pages_peak"] = shared_peak[0]
+        out["megastep_dispatches"] = engine.megastep_dispatches - fused0
+        out["quota_projections"] = engine.quota_projections - plans0
     steps, launches, int8_launches = out["decode_steps"], out["launches"], out["int8_launches"]
     walk = int8_launches if int8_walk else launches - int8_launches
     other = launches - walk
@@ -2676,7 +2835,9 @@ def operator_phase(engine, card: str, label: str) -> dict:
         f"{_fmt(_ms_stats(all_first))}; {steps} decode steps, "
         f"{walk} {'int8' if int8_walk else 'bf16'}-walk launches, other walk {other}; "
         f"parks {out['parks']}, park adoptions {out['park_adoptions']}; dedup shares "
-        f"{out['prefix_shares']}, shared pages at most {out['shared_pages_peak']}; "
+        f"{out['prefix_shares']}, shared pages at most {out['shared_pages_peak']}; megastep "
+        f"dispatches {out['megastep_dispatches']}, quota projections "
+        f"{out['quota_projections']}; "
         f"drain {out['drain_s']:.2f} s; phase {phase_s:.1f} s  [{card}]")
     return {**out, "card": card, "walk_launches": walk, "first_toolcall_ms": _ms_stats(all_first),
             "phase_s": phase_s, "toolcall_poll_s": TOOLCALL_POLL_S,
@@ -3499,8 +3660,10 @@ def main() -> int:
     par = {
         "tp2_bf16": timed("tp2_bf16", parallel_serving_phase, card, "tp2-bf16", 2, 1, ref_bf16,
                           forced_tool=True),
+        # 12 tokens a request on both sp=2 x tp=2 phases: at about 0.47 s a
+        # decode step on one shared card, decode sets their wall
         "sp2xtp2_bf16": timed("sp2xtp2_bf16", parallel_serving_phase, card, "sp2xtp2-bf16", 2, 2,
-                              ref_bf16),
+                              ref_bf16, max_tokens=12),
         "sp2xtp2_int8": timed("sp2xtp2_int8", parallel_serving_phase, card, "sp2xtp2-int8", 2, 2,
                               ref_int8, max_tokens=12, quantize_weights=True, quantize_kv=True),
     }

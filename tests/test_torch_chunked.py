@@ -3,9 +3,11 @@ on the CPU: the port's engine against the JAX package's paged engine.
 
 Both engines run the tiny f32 preset with the same weights (the stop
 token's lm_head column a scaled copy of a frequent token's, as in
-``tests/test_torch_engine.py``), one module-scoped pair, the reference
-built as the port runs: ``kv_layout="paged"``, no megastep, no rate
-planner, no autopilot, no speculation, no host tier. Buckets (32, 64, 128)
+``tests/test_torch_engine.py``), one module-scoped pair, both on the split
+path: ``kv_layout="paged"``, no megastep, no rate planner, no autopilot,
+no speculation, no host tier (the fused path and the planner are held to
+the reference in ``tests/test_torch_megastep.py`` and
+``tests/test_torch_planner.py``). Buckets (32, 64, 128)
 at ``max_ctx=256``, so a 200-token row spills on both engines with
 chunking off. Both keep the reference's defaults otherwise:
 ``prefill_chunk=0``, ``token_budget=0``, ``prefix_dedup=True``; a case
@@ -164,7 +166,8 @@ def engines():
         kv_layout="paged", megastep=False, rate_planner=False, autopilot=False, spec_len=0,
         host_kv_bytes=0, **KW,
     )
-    port = Engine(TCFG, params_from_jax(weights, TCFG, device="cpu"), device="cpu", **KW)
+    port = Engine(TCFG, params_from_jax(weights, TCFG, device="cpu"), device="cpu",
+                  megastep=False, rate_planner=False, **KW)
     checks = _SharedPageChecks(port)
     real = {name: getattr(port_engine_mod, name) for name in (
         "decode_step_paged", "prefill_paged_batch", "prefill_paged_continue",
@@ -543,7 +546,9 @@ def test_hol_wait_attributed_while_decoding(pair):
 def test_stats_keys_match_the_reference(pair):
     ref, port = pair.ref.stats(), pair.port.stats()
     assert "prefilling_slots" in port and "prefilling_slots" in ref
-    assert set(port["scheduler"]) == set(ref["scheduler"]) - {"megastep", "planner"}
+    assert set(port["scheduler"]) == set(ref["scheduler"])
+    for block in ("megastep", "planner"):
+        assert set(port["scheduler"][block]) == set(ref["scheduler"][block])
     assert port["memory"]["prefix_dedup"].keys() == ref["memory"]["prefix_dedup"].keys()
     assert port["memory"]["prefix_dedup"]["enabled"] is ref["memory"]["prefix_dedup"][
         "enabled"] is True
@@ -552,22 +557,30 @@ def test_stats_keys_match_the_reference(pair):
 def test_engine_and_run_defaults_match_the_reference():
     import inspect
 
-    want = {"prefill_chunk": 0, "token_budget": 0, "prefix_dedup": True}
+    want = {"prefill_chunk": 0, "token_budget": 0, "prefix_dedup": True, "megastep": True,
+            "megastep_max_programs": 32, "rate_planner": True, "planner_max_quota": 8,
+            "autopilot": False}
     for cls in (JaxEngine, Engine):
         params = inspect.signature(cls.__init__).parameters
         assert {k: params[k].default for k in want} == want
+    with pytest.raises(ValueError, match="A.11"):
+        Engine(TCFG, device="cpu", autopilot=True)
+
+    flags = ("tpu_prefill_chunk", "tpu_token_budget", "tpu_prefix_dedup", "tpu_megastep",
+             "tpu_rate_planner")
 
     def run_flags(parser) -> dict:
         run = next(a for a in parser._actions
                    if isinstance(a, argparse._SubParsersAction)).choices["run"]
-        return {a.dest: (a.default, a.help) for a in run._actions
-                if a.dest in ("tpu_prefill_chunk", "tpu_token_budget", "tpu_prefix_dedup")}
+        return {a.dest: (a.default, a.help) for a in run._actions if a.dest in flags}
 
     ours = run_flags(port_parser())
-    assert len(ours) == 3 and ours == run_flags(ref_parser())
+    assert len(ours) == len(flags) and ours == run_flags(ref_parser())
     args = port_parser().parse_args(["run", "--tpu-prefill-chunk", "256",
-                                     "--tpu-token-budget", "512", "--tpu-prefix-dedup", "0"])
-    assert (args.tpu_prefill_chunk, args.tpu_token_budget, args.tpu_prefix_dedup) == (256, 512, 0)
+                                     "--tpu-token-budget", "512", "--tpu-prefix-dedup", "0",
+                                     "--tpu-megastep", "0", "--tpu-rate-planner", "0"])
+    assert (args.tpu_prefill_chunk, args.tpu_token_budget, args.tpu_prefix_dedup,
+            args.tpu_megastep, args.tpu_rate_planner) == (256, 512, 0, 0, 0)
 
 
 # -- shared-prefix dedup (tests/engine/test_kv_memory.py, paged) ---------------

@@ -80,11 +80,14 @@ WORKLOAD = [(p, {"max_tokens": m}) for p, m in BATCH] + [
 # entry) and prefills its 20-token suffix over the shared pages
 TURN1 = "user asks; tool answers. " * 2
 CONVERSATION = [(p, {"max_tokens": 4}) for p in (TURN1[:40], TURN1[:40] + " more words!")]
-# on an engine with 16-token chunks (tp=2 world only): a 50-token row
-# prefilled in four chunks, then two requests whose first 16 tokens agree,
-# admitted as one group, so the second shares the first's two pages
+# on an engine with 16-token chunks (tp=2 world only), the megastep on and
+# off: a 50-token row prefilled in four chunks, with a deadline that gives
+# it a quota of 2 on one card at 10 s a cycle (ceil(4 / (floor(50 / 10) -
+# 2))), then two requests whose first 16 tokens agree, admitted as one
+# group, so the second shares the first's two pages
 CHUNKED = {
     "prefill_chunk": 16,
+    "timeout_s": 50.0,
     "row": (TURN1, {"max_tokens": 8}),
     "pair": [("shared persona text! one", {"max_tokens": 6}),
              ("shared persona text! two", {"max_tokens": 6})],
@@ -404,9 +407,11 @@ def test_engine_streams_identical_across_ranks_single_card_and_jax(
 
 
 def test_chunked_row_and_dedup_pair_identical_across_ranks_and_one_card(ranks, inputs):
-    """tp=2 with chunked prefill on: the chunked row and the dedup pair give
-    the port's single-card tokens, on every rank, with the same shares and
-    chunks."""
+    """tp=2 with chunked prefill on, the megastep on and off: the chunked
+    row and the dedup pair give the port's single-card tokens, on every
+    rank, with the same shares and chunks; the fused runs dispatch the same
+    megasteps on every rank, and no rank makes a rate plan (the row's
+    deadline keeps quota 1 there, so its chunks are the flat count)."""
     port = Engine(TCFG, params_from_jax(inputs["stream_tree"], TCFG, device="cpu"),
                   device="cpu", prefill_chunk=CHUNKED["prefill_chunk"], **ENGINE_KW)
     port.start()
@@ -418,14 +423,18 @@ def test_chunked_row_and_dedup_pair_identical_across_ranks_and_one_card(ranks, i
             futs = [port.submit(p, SamplingParams(**kw)) for p, kw in CHUNKED["pair"]]
         one_card += [(f.result(timeout=120).tokens, f.result().finish_reason) for f in futs]
         shares, chunks = port.prefix_shares, port.prefill_chunks
+        fused = port.megastep_dispatches
     finally:
         port.stop()
-    assert shares == 1 and chunks >= 4
-    runs = [r["chunked"] for r in ranks["tp2"]]
-    assert runs[0]["results"] == one_card
-    for run in runs:
-        assert (run["shares"], run["chunks"]) == (shares, chunks)
-        assert run["finished"] == runs[0]["finished"]
+    assert shares == 1 and chunks >= 4 and fused > 0
+    for mode in ("fused", "split"):
+        runs = [r[f"chunked_{mode}"] for r in ranks["tp2"]]
+        assert runs[0]["results"] == one_card, mode
+        for run in runs:
+            assert (run["shares"], run["chunks"], run["quota_projections"]) == (shares, chunks, 0)
+            assert run["finished"] == runs[0]["finished"]
+            assert run["megastep"] == runs[0]["megastep"]
+        assert (runs[0]["megastep"]["dispatches"] == fused) == (mode == "fused"), mode
 
 
 @pytest.mark.parametrize("world", list(WORLDS))

@@ -128,19 +128,25 @@ def _clock_decisions(group, tree: dict, config, engine_kw: dict) -> dict:
     return {"leader": out, "finished": list(engine.finished)}
 
 
-def _chunked_streams(group, tree: dict, config, engine_kw: dict, chunked: dict) -> dict:
-    """On an engine with chunked prefill on: one row prefilled in chunks,
-    then two requests sharing a page-aligned prefix admitted as one group
-    (the second shares the first's pages): the leader's results, every
-    rank's record of finished requests and its dedup shares and chunks."""
+def _chunked_streams(group, tree: dict, config, engine_kw: dict, chunked: dict,
+                     megastep: bool) -> dict:
+    """On an engine with chunked prefill on, the megastep on or off: one
+    row prefilled in chunks, then two requests sharing a page-aligned
+    prefix admitted as one group (the second shares the first's pages):
+    the leader's results, every rank's record of finished requests, its
+    dedup shares, chunks, fused dispatches and rate plans. The row carries
+    a deadline that would give it a quota of 2 on one card (the cycle clock
+    seeded with 10 s a cycle); under the group its quota stays 1."""
     params = params_from_jax(tree, config, device="cpu", group=group)
-    engine = Engine(config, params, device="cpu", group=group,
+    engine = Engine(config, params, device="cpu", group=group, megastep=megastep,
                     prefill_chunk=chunked["prefill_chunk"], **engine_kw)
+    engine._cycle_clock.cycle_s = 10.0
     engine.start()
     results = None
     if group.is_leader:
         prompt, kw = chunked["row"]
-        r = engine.submit(prompt, SamplingParams(**kw)).result(timeout=120)
+        r = engine.submit(prompt, SamplingParams(**kw),
+                          timeout_s=chunked["timeout_s"]).result(timeout=120)
         results = [(r.tokens, r.finish_reason)]
         with engine.hold_admission():
             futs = [engine.submit(p, SamplingParams(**kw)) for p, kw in chunked["pair"]]
@@ -149,7 +155,9 @@ def _chunked_streams(group, tree: dict, config, engine_kw: dict, chunked: dict) 
     elif not engine.join(timeout=120):
         raise AssertionError("follower engine did not stop with the leader")
     return {"results": results, "finished": list(engine.finished),
-            "shares": engine.prefix_shares, "chunks": engine.prefill_chunks}
+            "shares": engine.prefix_shares, "chunks": engine.prefill_chunks,
+            "megastep": engine.stats()["scheduler"]["megastep"],
+            "quota_projections": engine.quota_projections}
 
 
 def parallel_cases(tp: int, sp: int, inputs: dict) -> dict:
@@ -168,6 +176,8 @@ def parallel_cases(tp: int, sp: int, inputs: dict) -> dict:
             inputs["engine_kw"], quantized)
     out["clock"] = _clock_decisions(group, inputs["stream_tree"], cfg, inputs["engine_kw"])
     if sp == 1:
-        out["chunked"] = _chunked_streams(group, inputs["stream_tree"], cfg, inputs["engine_kw"],
-                                          inputs["chunked"])
+        for megastep in (True, False):
+            out[f"chunked_{'fused' if megastep else 'split'}"] = _chunked_streams(
+                group, inputs["stream_tree"], cfg, inputs["engine_kw"], inputs["chunked"],
+                megastep)
     return out
