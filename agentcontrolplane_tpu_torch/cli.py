@@ -5,7 +5,8 @@ front door (``serve``):
 
   run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--tpu-park-max-s 30]
       [--tpu-prefill-chunk 0] [--tpu-token-budget 0] [--tpu-prefix-dedup 1]
-      [--tpu-megastep 1] [--tpu-rate-planner 1] [--device cpu]
+      [--tpu-megastep 1] [--tpu-rate-planner 1] [--tpu-spec-len 0] [--tpu-spec-ngram 3]
+      [--device cpu]
   apply -f manifests.yaml
   get <Kind> [name] [-o yaml]
   delete <Kind> <name>
@@ -120,7 +121,8 @@ def cmd_run(args) -> int:
                         token_budget=args.tpu_token_budget,
                         prefix_dedup=bool(args.tpu_prefix_dedup),
                         megastep=bool(args.tpu_megastep),
-                        rate_planner=bool(args.tpu_rate_planner))
+                        rate_planner=bool(args.tpu_rate_planner),
+                        spec_len=args.tpu_spec_len, spec_ngram=args.tpu_spec_ngram)
         engine.start()
     options = OperatorOptions(
         db_path=args.db,
@@ -460,6 +462,16 @@ def build_parser() -> argparse.ArgumentParser:
                      help="seconds a slot parked at generation end (prompt KV resident) "
                           "waits for the conversation's next turn before it is released; "
                           "0 disables parking")
+    run.add_argument(
+        "--tpu-spec-len", type=int, default=0,
+        help="speculative decoding: max draft tokens verified per decode "
+        "dispatch via n-gram prompt lookup (greedy outputs stay "
+        "byte-identical; see docs/serving-engine.md); 0 = off",
+    )
+    run.add_argument(
+        "--tpu-spec-ngram", type=int, default=3,
+        help="longest n-gram the prompt-lookup drafter matches on",
+    )
     run.add_argument(
         "--tpu-prefill-chunk", type=int, default=0,
         help="chunked prefill: split every prefill into chunks of at most "

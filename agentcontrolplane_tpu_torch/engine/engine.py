@@ -99,6 +99,18 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   dispatch sites are a device half and a commit half
   (``_prefill_device`` / ``_finish_prefill_dispatch``, ``_decode_block`` /
   ``_commit_decode_block``), shared by the split and the fused paths.
+- **Speculative decoding** (``spec_len``, 0 = off by default as in the
+  reference; ``spec_ngram``): before the block's page growth each live
+  slot drafts up to ``min(its controller's cap, budget - 1)`` tokens by
+  n-gram prompt lookup over its prompt + generated (``engine/spec.py``).
+  When one drafts, its table grows to cover 1 + draft rows and ONE verify
+  pass (``verify_paged_continue``, plain torch, then
+  ``speculative_accept`` with the block's masking, stop and budget rules)
+  replaces the K-step block: each slot commits the prefix the model agrees
+  with plus one token, so greedy outputs are the engine's without
+  speculation. A pass counts one decode step. In a fused cycle the pass
+  takes the block's place (``v<W>x<T>`` in the shape key). When no slot
+  drafts the plain block runs, the CUDA walk in every layer.
 - Pages are freed at finish and on cancel; queued requests past their
   deadline fail fast; ``max_queue`` sheds load.
 - **Constrained decoding** (``SamplingParams.json_only`` /
@@ -129,8 +141,10 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
 
 Left out for now (each is in ROADMAP): the scheduler autopilot
 (``autopilot=True`` raises; it reads the flight recorder), speculative
-decoding, fleet affinity and trace export (``affinity_key=``, ``trace=``),
-the host KV tier, the flight recorder, fault sites, and multi-host.
+decoding under a serving group (``spec_len > 0`` with ``group`` raises),
+fleet affinity and trace export (``affinity_key=``, ``trace=``), the host
+KV tier, the flight recorder, fault sites (``_spec_force_reject`` stands
+in for ``engine.spec_mismatch`` in the tests), and multi-host.
 """
 
 from __future__ import annotations
@@ -159,16 +173,18 @@ from ..models.llama import (
     prefill_paged_batch,
     prefill_paged_continue,
     prefill_paged_continue_kv,
+    verify_paged_continue,
 )
 from ..observability.metrics import REGISTRY
 from ..ops.cuda import paged_attention as walk
 from ..ops.paged import TRASH_PAGE, PageAllocator
 from ..ops.quant import QUANTIZABLE, QuantizedTensor, quantize_stacked
-from ..ops.sampling import advance_constraint, constrain_logits, sample
+from ..ops.sampling import advance_constraint, constrain_logits, sample, speculative_accept
 from ..parallel.mesh import ServingGroup, ServingMesh, check_serving_config
 from .constrain import build_token_table
 from .coordination import FrameChannel, deserialize_request
 from .planner import CycleClock, project_quota
+from .spec import SpecState, ngram_propose
 from .tokenizer import ByteTokenizer, Tokenizer
 from .toolparse import ToolStreamParser
 from .weights import random_params
@@ -293,6 +309,12 @@ class _Slot:
     # the rate planner's chunks per cycle (engine/planner.py): its chunk is
     # quota x the base chunk; 1 without a deadline or under a group
     chunk_quota: int = 1
+    # speculative decoding: the adaptive draft-length controller (None with
+    # spec_len 0), host-only, rebuilt fresh at every (re-)admission; and the
+    # drafter's view of prompt + generated, synced by appending (_slot_ctx)
+    spec: Optional[SpecState] = None
+    ctx_buf: Optional[np.ndarray] = None
+    ctx_len: int = 0
 
 
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -374,6 +396,13 @@ class Engine:
         # shared-prefix dedup: a row whose page-aligned prefix matches a
         # live slot's row shares its pages instead of writing a copy
         prefix_dedup: bool = True,
+        # speculative decoding (engine/spec.py): > 0 drafts up to this many
+        # tokens a slot by n-gram prompt lookup over prompt + generated and
+        # scores them all in ONE verify pass, which commits the prefix the
+        # model agrees with plus one token; greedy outputs are the engine's
+        # without it. 0 = off. A plain attribute (set it while idle)
+        spec_len: int = 0,
+        spec_ngram: int = 3,  # longest n-gram the drafter matches on
         # the fused megastep: a cycle with prefill chunks runs its mid
         # chunks, final chunks and decode block as one lane batch per phase
         # with one host read, instead of one dispatch per pow2 batch and a
@@ -412,6 +441,9 @@ class Engine:
         if autopilot:
             raise ValueError("autopilot=True is not ported yet: it steers the knobs from the "
                              "flight recorder's phase summaries (ROADMAP A.11)")
+        if spec_len > 0 and group is not None:
+            raise ValueError("spec_len > 0 under a serving group is not ported yet: the verify "
+                             "pass's per-token commit on sp ranks (ROADMAP A.14)")
         self.device = resolve_device(device)
         if isinstance(config, str):
             config = PRESETS[config]
@@ -464,6 +496,14 @@ class Engine:
         self._cycle_clock = CycleClock()  # busy cycles' wall time (EWMA)
         self.quota_projections = 0  # rate plans made (admission and reprojection)
         self.quota_reprojections = 0  # of them at resume or adoption
+        self.spec_len = max(0, int(spec_len))
+        self.spec_ngram = max(1, int(spec_ngram))
+        self.spec_proposed = 0  # draft tokens sent to verification
+        self.spec_accepted = 0  # draft tokens the model agreed with
+        self.spec_dispatches = 0  # verify dispatches
+        # a test seam: this many coming verify dispatches reject every draft
+        # (the reference's engine.spec_mismatch fault site, ROADMAP A.11)
+        self._spec_force_reject = 0
         # axis sizes, read by the LLM controller (``engine.mesh.shape``)
         self.mesh = ServingMesh.of(group)
         # lockstep frame stream across the group's ranks (None on one rank)
@@ -810,9 +850,22 @@ class Engine:
             "requests_prefilled": self.requests_prefilled,
             "prefill_tokens": self.prefill_tokens,
             "tokens_generated": self.tokens_generated,
+            # a verify dispatch counts one step, however many tokens land
             "tokens_per_decode_step": (
                 round(self.tokens_generated / self.decode_steps, 4) if self.decode_steps else 0.0
             ),
+            "spec": {
+                "enabled": self.spec_len > 0,
+                "spec_len": self.spec_len,
+                "ngram": self.spec_ngram,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": (
+                    round(self.spec_accepted / self.spec_proposed, 4)
+                    if self.spec_proposed else 0.0
+                ),
+                "verify_dispatches": self.spec_dispatches,
+            },
             "kv_pages": {
                 "total": self.num_pages - 1,
                 "free": self._allocator.free_count,
@@ -1562,6 +1615,8 @@ class Engine:
                        admit_seq=admit_seq)
             if self.prefix_dedup:
                 sl.prefill_row = rows[i]  # the dedup leader scan compares it
+            if self.spec_len:
+                sl.spec = SpecState(limit=self.spec_len)
             sl.generated.extend(s.forced_prefix)
             sl.generated.extend(req.resume_tokens)
             sl.generated.append(first)
@@ -1934,12 +1989,16 @@ class Engine:
     def _decode_once(self) -> None:
         """The decode site of a cycle: one K-step block over the live slots,
         after every slot's table was grown to cover the block (which may
-        preempt). A fused cycle's planned chunk lanes dispatch here with
-        the block (``_megastep_dispatch``), or alone when nothing decodes
+        preempt); with speculation, one verify pass in its place when a
+        slot drafted (``_decode_spec``). A fused cycle's planned chunk lanes
+        dispatch here with the block or the verify pass
+        (``_megastep_dispatch``), or alone when nothing decodes
         (``_megastep_flush``); a shape past the bound falls back to the
-        split dispatches, then the plain block."""
+        split dispatches, then the plain block or the verify pass."""
         pending, self._fuse_pending = self._fuse_pending, None
         self._apply_cancels()
+        if self._n_active() and self.spec_len and self._decode_spec(pending):
+            return
         if self._n_active():
             self._ensure_pages_for_block()
         if not self._n_active():
@@ -2016,6 +2075,171 @@ class Engine:
             if slot < d["W"] and not sl.parked and not sl.prefilling:
                 self._consume_tokens(slot, sl, block[:, slot])
 
+    # -- speculative decoding --------------------------------------------
+
+    def _slot_ctx(self, sl: _Slot) -> np.ndarray:
+        """Prompt + generated as one int32 view for the drafter, synced by
+        appending only the tokens emitted since the last dispatch."""
+        n_prompt = len(sl.request.prompt)
+        total = n_prompt + len(sl.generated)
+        if sl.ctx_buf is None:
+            sl.ctx_buf = np.empty(max(total, self.max_ctx), dtype=np.int32)
+            sl.ctx_buf[:n_prompt] = sl.request.prompt
+            sl.ctx_len = n_prompt
+        elif total > sl.ctx_buf.shape[0]:
+            sl.ctx_buf = np.concatenate([sl.ctx_buf, np.empty(total, dtype=np.int32)])
+        if sl.ctx_len < total:
+            sl.ctx_buf[sl.ctx_len: total] = sl.generated[sl.ctx_len - n_prompt:]
+            sl.ctx_len = total
+        return sl.ctx_buf[:total]
+
+    def _decode_spec(self, pending: Optional[dict] = None) -> bool:
+        """One speculative decode iteration: draft on the host (n-gram
+        prompt lookup over each live slot's prompt + generated, capped by
+        its controller and its budget), grow every drafting slot's table to
+        cover its 1 + draft rows (a slot preempted there leaves the
+        dispatch), then ONE verify pass over the live lanes, fused with a
+        cycle's pending chunk lanes when there are some. Returns False
+        (nothing dispatched) when no slot drafted: the caller then runs the
+        plain block, which is the engine without speculation.
+
+        The verify pass writes every draft row; a rejected tail needs no
+        rollback, since ``seq_len`` advances only over emitted tokens and
+        attention never reads past it. It reads the host mirrors, so it
+        marks the device carry dirty for the next plain block."""
+        if self.group is not None:
+            raise RuntimeError("speculative decoding under a serving group is not ported yet "
+                               "(ROADMAP A.14)")
+        drafts: dict[int, list[int]] = {}
+        budgets: dict[int, int] = {}
+        for slot, sl in self._slots.items():
+            if sl.parked or sl.prefilling:
+                continue
+            budgets[slot] = self._slot_budget(slot, sl)
+            # the dispatch emits up to draft + 1 tokens and writes as many
+            # rows: the cap keeps both within the budget (so within the
+            # context edge)
+            cap = min(sl.spec.cap(), budgets[slot] - 1) if sl.spec else 0
+            drafts[slot] = ngram_propose(self._slot_ctx(sl), self.spec_ngram, cap) if cap > 0 else []
+        if not any(drafts.values()):
+            return False
+        self._ensure_pages_for_block({slot: 1 + len(d) for slot, d in drafts.items()})
+        if not self._n_active():
+            self._megastep_flush(pending)
+            return True
+        drafts = {s: d for s, d in drafts.items() if s in self._slots}
+        if not any(drafts.values()):
+            return False  # the drafting slots were preempted: the plain block
+        force_reject = self._spec_force_reject > 0
+        if force_reject:
+            self._spec_force_reject -= 1
+        ver = self._verify_lanes(drafts, budgets, force_reject)
+        if pending is not None:
+            if self._megastep_dispatch(pending, ver=ver):
+                return True
+            # over the shape bound: the chunks split, then the verify pass
+            # alone on the lanes fixed above (a final that joins here emits
+            # nothing in it)
+            self._dispatch_pending_split(pending)
+        self._commit_spec_verify(ver, *self._host_read(*self._verify_device(ver)))
+        return True
+
+    def _verify_lanes(self, drafts: dict, budgets: dict, force_reject: bool) -> dict:
+        """Host lane arrays of a verify pass, [W, spec_len + 1] at the width
+        bucket covering the live slots: column 0 the slot's last token, then
+        its draft. Lanes not in the dispatch (free, parked, mid-prefill)
+        keep ``n_input = 0`` and ``starts = max_ctx``, so every write they
+        make lands on the trash page."""
+        T = self.spec_len + 1
+        live = [s for s, sl in self._slots.items() if not sl.parked and not sl.prefilling]
+        W = next(w for w in self.width_buckets if w >= max(live) + 1)
+        ver = {"W": W, "T": T, "drafts": drafts, "force_reject": force_reject,
+               "inputs": np.zeros((W, T), dtype=np.int64),
+               "n_input": np.zeros(W, dtype=np.int64),
+               "starts": np.full(W, self.max_ctx, dtype=np.int64),
+               "active": np.zeros(W, dtype=bool),
+               "budgets": np.zeros(W, dtype=np.int32),
+               "proposed": np.zeros(W, dtype=np.int64)}
+        for slot in live:
+            d = drafts.get(slot, [])
+            ver["inputs"][slot, 0] = self._last_tokens[slot]
+            ver["inputs"][slot, 1: 1 + len(d)] = d
+            ver["n_input"][slot] = 1 + len(d)
+            ver["starts"][slot] = self._seq_lens[slot]
+            ver["active"][slot] = True
+            ver["budgets"][slot] = budgets[slot]
+            ver["proposed"][slot] = len(d)
+        return ver
+
+    def _verify_device(self, ver: dict) -> tuple:
+        """The device half of a verify pass: ``verify_paged_continue`` over
+        the lanes, then ``speculative_accept`` with the decode block's
+        masking, stop and budget rules. Returns (tokens [W, T] padded with
+        -1, emitted counts [W], automaton states [W] or None) on the
+        device."""
+        up, W = self._upload, ver["W"]
+        inputs, n_input = up(ver["inputs"]), up(ver["n_input"])
+        self.cache, logits = verify_paged_continue(
+            self.params, self.cache, inputs, n_input, up(ver["starts"]),
+            up(self._block_tables[:W]), self.config,
+        )
+        kw: dict = {}
+        constrained = bool(self._constrained[:W].any())
+        if constrained:
+            table, lanes = self._get_token_table(), up(self._constrained[:W])
+            kw = dict(
+                constrain_fn=lambda lg, st, b: constrain_logits(lg, table, st, lanes,
+                                                                self._min_close, b),
+                advance_fn=lambda st, tok, take: torch.where(
+                    take, advance_constraint(table, st, lanes, tok), st),
+                con_states=up(self._con_states[:W]),
+            )
+        out, n_emit, states = speculative_accept(
+            logits, inputs, n_input, up(ver["active"]), self._gen, up(self._temps[:W]),
+            up(self._top_ks[:W]), up(self._top_ps[:W]), self._stop_tokens, up(ver["budgets"]),
+            ver["force_reject"], **kw,
+        )
+        return out, n_emit, (states if constrained else None)
+
+    def _commit_spec_verify(self, ver: dict, out: np.ndarray, n_emit: np.ndarray,
+                            con_states: Optional[np.ndarray]) -> None:
+        """The commit of a verify pass (split or fused): the lanes' automaton
+        states mirrored, each live slot's accepted prefix and corrected
+        token committed, and its controller fed. A slot that was not a lane
+        of the pass (a final that joined after its lanes were fixed) emits
+        nothing."""
+        act = ver["active"]
+        if con_states is not None:
+            self._con_states[: ver["W"]][act] = con_states[act]
+        self.decode_steps += 1  # one model forward, however many tokens land
+        self.spec_dispatches += 1
+        self._state_dirty = True
+        for slot, sl in list(self._slots.items()):
+            if sl.parked or sl.prefilling or slot >= ver["W"]:
+                continue
+            n, prop = int(n_emit[slot]), int(ver["proposed"][slot])
+            if prop:
+                # emitted = the accepted prefix + one corrected token, except
+                # where emission ended ON a matching draft token (a stop
+                # token or the budget), which was accepted too; under a
+                # forced rejection nothing was, equal or not
+                d = ver["drafts"].get(slot, [])
+                acc = max(0, n - 1)
+                if (not ver["force_reject"] and 0 < n <= len(d)
+                        and int(out[slot, n - 1]) == d[n - 1]):
+                    acc = n
+                acc = min(acc, prop)
+                self.spec_proposed += prop
+                self.spec_accepted += acc
+                if sl.spec is not None:
+                    sl.spec.observe(prop, acc)
+                REGISTRY.counter_add("acp_engine_spec_proposed_total", float(prop),
+                                     help="draft tokens proposed to speculative verification")
+                REGISTRY.counter_add("acp_engine_spec_accepted_total", float(acc),
+                                     help="draft tokens accepted by speculative verification")
+            if n > 0:
+                self._consume_tokens(slot, sl, out[slot, :n])
+
     # -- the fused megastep ----------------------------------------------
 
     def _validate_pending(self, pending: dict) -> None:
@@ -2046,11 +2270,12 @@ class Engine:
             self._dispatch_pending_split(pending)
 
     def _megastep_key(self, mids: list, plains: list, finals: list,
-                      d: Optional[dict]) -> str:
+                      d: Optional[dict], ver: Optional[dict] = None) -> str:
         """The fused shape, as the reference keys it:
         ``megastep[paged,m<bucket>x<B>+p<bucket>x<B>+f<bucket>x<B>+d<W>x<K>]``
-        (present phases only; ``+tbl`` once the JSON table exists), each
-        phase's batch padded to a power of two. Host arithmetic only."""
+        (present phases only, ``v<W>x<T>`` for a verify pass in place of the
+        decode block; ``+tbl`` once the JSON table exists), each phase's
+        batch padded to a power of two. Host arithmetic only."""
         parts = []
         if mids:
             bucket = _next_bucket(max(n for _, _, _, n in mids), self.prefill_buckets)
@@ -2065,29 +2290,33 @@ class Engine:
             parts.append(f"f{bucket}x{_pow2(len(finals))}")
         if d is not None:
             parts.append(f"d{d['W']}x{self.decode_block_size}")
+        elif ver is not None:
+            parts.append(f"v{ver['W']}x{ver['T']}")
         tbl = "+tbl" if self._token_table is not None else ""
         return f"megastep[paged,{'+'.join(parts)}{tbl}]"
 
-    def _megastep_dispatch(self, pending: dict, d: Optional[dict] = None) -> Optional[bool]:
+    def _megastep_dispatch(self, pending: dict, d: Optional[dict] = None,
+                           ver: Optional[dict] = None) -> Optional[bool]:
         """THE fused cycle: this cycle's mid chunks (KV only), plain
         finals, continuation finals (each with its first-token sample) and
-        the decode block, in that order on ``self.cache``, each phase ONE
-        lane batch padded to a power of two (pad lanes write the trash
-        page), then ONE host read for the finals' first tokens and
-        automaton states and the block's tokens. The commits follow: mid
-        chunks advance, the block commits (its lanes predate this cycle's
-        finals), then the finals and plains flip to decoding. True when it
-        dispatched; None when the caller must run the split dispatches (a
-        new shape past ``megastep_max_programs``, or no chunk lane left
-        beside a decode block)."""
+        the decode block or the verify pass (``ver``), in that order on
+        ``self.cache``, each phase ONE lane batch padded to a power of two
+        (pad lanes write the trash page), then ONE host read for the
+        finals' first tokens and automaton states and the block's (or the
+        pass's) tokens. The commits follow: mid chunks advance, the block or
+        the pass commits (its lanes predate this cycle's finals), then the
+        finals and plains flip to decoding. True when it dispatched; None
+        when the caller must run the split dispatches (a new shape past
+        ``megastep_max_programs``, or no chunk lane left beside a decode
+        block or a verify pass)."""
         self._validate_pending(pending)
         mids, plains, finals = pending["mids"], pending["plains"], pending["finals"]
         if not (mids or plains or finals):
-            if d is None:  # every planned lane was dropped
+            if d is None and ver is None:  # every planned lane was dropped
                 self._record_chunk_round([])
                 return True
             return None
-        key = self._megastep_key(mids, plains, finals, d)
+        key = self._megastep_key(mids, plains, finals, d, ver)
         if (key not in self._megastep_shapes
                 and len(self._megastep_shapes) >= self.megastep_max_programs):
             self.megastep_fallbacks += 1
@@ -2098,6 +2327,7 @@ class Engine:
         self._megastep_shapes.add(key)
         pl_items, fin_items = self._chunk_items(plains), self._chunk_items(finals)
         p_out = f_out = d_out = (None, None)
+        v_out = (None, None, None)
         if mids:
             self._mid_device(self._mid_lanes(mids, _pow2(len(mids))))
         if plains:
@@ -2110,13 +2340,17 @@ class Engine:
             f_out = self._prefill_device(fin_ln)
         if d is not None:
             d_out = self._decode_block(d)
-        p_firsts, p_states, f_firsts, f_states, block, d_states = self._host_read(
-            *p_out, *f_out, *d_out)
+        elif ver is not None:
+            v_out = self._verify_device(ver)
+        p_firsts, p_states, f_firsts, f_states, block, d_states, *v_np = self._host_read(
+            *p_out, *f_out, *d_out, *v_out)
         self.megastep_dispatches += 1
         self.prefill_tokens += sum(n for _, _, _, n in mids)
         self._advance_mids(mids)
         if d is not None:
             self._commit_decode_block(d, block, d_states)
+        elif ver is not None:
+            self._commit_spec_verify(ver, *v_np)
         if finals:
             self._finish_prefill_dispatch(fin_items, fin_ln, f_firsts, f_states)
         if plains:
@@ -2269,13 +2503,14 @@ class Engine:
 
     # -- lazy page growth and preempt-and-resume -------------------------
 
-    def _ensure_pages_for_block(self) -> None:
+    def _ensure_pages_for_block(self, need_tokens: Optional[dict] = None) -> None:
         """Every decoding slot's table must cover the block's K tokens
-        before dispatch; the CUDA walk reads only its table, so a short
+        before dispatch (or ``need_tokens[slot]`` rows: a verify pass writes
+        1 + draft rows); the CUDA walk reads only its table, so a short
         table would silently drop rows. Pass 1 gives each slot exactly the
-        pages this block needs (preempting when the pool can't). Pass 2
+        pages this dispatch needs (preempting when the pool can't). Pass 2
         tops the slots whose table changed this round up to
-        ``page_lookahead_blocks`` blocks ahead, so a slot re-uploads its
+        ``page_lookahead_blocks`` dispatches ahead, so a slot re-uploads its
         table once per window, not at every page crossing; a failed top-up
         is harmless."""
         K = self.decode_block_size
@@ -2288,17 +2523,20 @@ class Engine:
                 continue
             # the context edge deactivates the lane on the device at
             # max_ctx - 1, so a full table always suffices
-            needed = min(-(-(int(self._seq_lens[slot]) + K) // self.page_size),
+            need = K if need_tokens is None else need_tokens.get(slot, K)
+            needed = min(-(-(int(self._seq_lens[slot]) + need) // self.page_size),
                          self.max_pages_per_seq)
             have = len(self._slot_pages.get(slot, []))
             if needed <= have:
                 continue
-            new_pages = self._alloc_with_preemption(needed - have, slot)
+            new_pages = self._alloc_with_preemption(needed - have, slot, need_tokens)
             if new_pages is None:
                 continue  # the slot itself was preempted
             self._append_pages(slot, new_pages)
             crossed.append(slot)
-        ahead = K * self.page_lookahead_blocks
+        # a verify pass writes up to spec_len + 1 rows: the window covers
+        # whichever dispatch is wider
+        ahead = max(K, self.spec_len + 1) * self.page_lookahead_blocks
         for slot in crossed:
             if slot not in self._slot_pages:
                 continue
@@ -2312,10 +2550,15 @@ class Engine:
             except MemoryError:
                 pass  # the pool is tight: strict coverage already holds
 
-    def _alloc_reclaiming_lookahead(self, n: int, requester: int) -> Optional[list[int]]:
+    def _alloc_reclaiming_lookahead(self, n: int, requester: int,
+                                    need_tokens: Optional[dict] = None) -> Optional[list[int]]:
         """Allocate ``n`` pages; on exhaustion take back other slots'
-        unused lookahead (pages past their strict next-block need) and
-        retry, so earlier top-ups never preempt a slot that strictly fits."""
+        unused lookahead (pages past their strict need for this dispatch)
+        and retry, so earlier top-ups never preempt a slot that strictly
+        fits. The floor honours ``need_tokens``: a later slot's allocation
+        in the same pass must not strip the pages an earlier slot was just
+        given for its draft rows, or the pass would write them to the
+        trash page while the host advances ``seq_len`` over them."""
         try:
             return self._allocator.alloc(n)
         except MemoryError:
@@ -2328,7 +2571,8 @@ class Engine:
                 # a parked slot is trimmed to its cut; a prefilling slot's
                 # pages are the reservation its chunks write into
                 continue
-            strict = min(-(-(int(self._seq_lens[slot]) + K) // self.page_size),
+            need = K if need_tokens is None else max(K, need_tokens.get(slot, K))
+            strict = min(-(-(int(self._seq_lens[slot]) + need) // self.page_size),
                          self.max_pages_per_seq)
             if len(table) > strict:
                 excess = table[strict:]
@@ -2344,13 +2588,14 @@ class Engine:
         except MemoryError:
             return None
 
-    def _alloc_with_preemption(self, n: int, requester: int) -> Optional[list[int]]:
+    def _alloc_with_preemption(self, n: int, requester: int,
+                               need_tokens: Optional[dict] = None) -> Optional[list[int]]:
         """Allocate ``n`` pages for a decoding slot, escalating: others'
         lookahead, parked slots, prefix-cache entries (cache never starves
         live work), then policy victims until it fits or the requester is
         the victim. None iff the requester was preempted."""
         while True:
-            pages = self._alloc_reclaiming_lookahead(n, requester)
+            pages = self._alloc_reclaiming_lookahead(n, requester, need_tokens)
             if pages is not None:
                 return pages
             if self._release_lru_parked():

@@ -59,7 +59,7 @@ from ..ops.cuda.paged_attention import (
     paged_decode_attention_cache_plus_new_sharded,
 )
 from ..ops.norms import rms_norm
-from ..ops.paged import TRASH_PAGE, init_kv_pages, merge_sp_states
+from ..ops.paged import TRASH_PAGE, init_kv_pages, merge_sp_states, token_write_targets
 from ..ops import quant
 from ..ops.quant import QuantizedTensor, kv_dequantize, kv_quantize
 from ..ops.quant import matmul as mm
@@ -548,7 +548,11 @@ def _paged_continue_forward(
     sp = group.sp if group is not None else 1
     P = P_local * sp
     lo = group.sp_rank * P_local if sp > 1 else 0
-    cols = min(block_tables.shape[1], -(-int(starts.max()) // P))
+    # the table columns below the live lanes' starts: an idle lane (length
+    # 0, start max_ctx, as the verify pass lays them out) must not make
+    # every lane gather its whole table
+    cols = min(block_tables.shape[1],
+               -(-int(torch.where(lengths > 0, starts, 0).max()) // P))
     tables = block_tables[:, :cols].long()
     row_pos = (torch.arange(cols, device=dev)[:, None] * P + lo
                + torch.arange(P_local, device=dev)[None, :]).reshape(-1)
@@ -626,6 +630,38 @@ def prefill_paged_continue_kv(
     new_k, new_v, _x = _paged_continue_forward(params, pages, tokens, lengths, starts,
                                                block_tables, config, group)
     return _commit_whole_pages(pages, new_k, new_v, page_ids, group)
+
+
+def verify_paged_continue(
+    params: dict,
+    pages: dict,  # updated in place (the rows [start, start + length) of each lane)
+    tokens: torch.Tensor,  # [B, T] int — last sampled token + draft (rows padded)
+    lengths: torch.Tensor,  # [B] int — 1 + draft length (0 = an idle lane)
+    starts: torch.Tensor,  # [B] int — each lane's seq_len (NOT page-aligned)
+    block_tables: torch.Tensor,  # [B, max_pages] int
+    config: LlamaConfig,
+) -> tuple[dict, torch.Tensor]:
+    """The speculative verify pass on one card: every draft position scored
+    in one dispatch over the lanes' pages (:func:`_paged_continue_forward`).
+    The rows start MID-PAGE, in a page that holds live prefix KV, so the
+    commit scatters per token through ``token_write_targets`` (one
+    ``_kv_commit``, so int8 pools quantize as a decode step's commit does);
+    idle lanes (length 0) and padded positions write the trash page.
+    Returns (pages, logits [B, T, V]). The rejected tail's KV needs no
+    rollback: attention masks by seq_len, which the engine advances over
+    the accepted prefix only."""
+    c = config
+    check_supported(c)
+    T = tokens.shape[1]
+    new_k, new_v, x = _paged_continue_forward(params, pages, tokens, lengths, starts,
+                                              block_tables, c)
+    target, offset = token_write_targets(block_tables, starts, lengths, pages["k"].shape[2], T)
+
+    def setter(arr, val):
+        arr[:, target, offset] = val
+
+    _kv_commit(pages, new_k, new_v, setter)
+    return pages, _head_logits(x, params, c)
 
 
 def decode_step_paged(

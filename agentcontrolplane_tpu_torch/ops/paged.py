@@ -57,6 +57,28 @@ def init_kv_pages(
     }
 
 
+def token_write_targets(
+    block_tables: torch.Tensor,  # [S, max_pages] int
+    starts: torch.Tensor,  # [S] int — absolute position of each row's first token
+    lengths: torch.Tensor,  # [S] int — valid tokens per row
+    page_size: int,
+    T: int,  # row width (padded token count)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token scatter targets for a multi-token write whose start is
+    not page-aligned (speculative verify: the draft begins mid-page, in a
+    page that already holds live prefix KV, which a whole-page commit would
+    clobber). Returns ``(pages [S, T], offsets [S, T])`` as int64; positions
+    past ``lengths`` land on the trash page, and page indexes are clamped
+    to the table, so padding never reads past it."""
+    ar = torch.arange(T, device=starts.device)
+    pos = starts.long()[:, None] + ar[None, :]  # [S, T]
+    valid = ar[None, :] < lengths.long()[:, None]
+    page_idx = torch.clamp_max(pos // page_size, block_tables.shape[1] - 1)
+    pages = torch.gather(block_tables.long(), 1, page_idx)
+    pages = torch.where(valid, pages, TRASH_PAGE)
+    return pages, pos % page_size
+
+
 def _gather_rows(pages, scales, idx):
     """Each slot's pages gathered to f32 ``[S, M, P, H_kv, d]``; int8 pages
     dequantize AFTER the gather (``value * scale``, as ``kv_dequantize``),

@@ -19,6 +19,8 @@ masks.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
@@ -91,6 +93,61 @@ def sample(
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     sampled = (logits / temp + gumbel).argmax(dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def speculative_accept(
+    logits: torch.Tensor,  # [S, T, V] — logits[s, i] scores the token AFTER inputs[s, i]
+    inputs: torch.Tensor,  # [S, T] — column 0 is the last sampled token, the rest the draft
+    n_input: torch.Tensor,  # [S] — valid prefix of ``inputs`` (1 + draft length)
+    active: torch.Tensor,  # [S] bool — inactive lanes emit nothing
+    generator: torch.Generator,
+    temperature: torch.Tensor,  # [S]
+    top_k: torch.Tensor,  # [S]
+    top_p: torch.Tensor,  # [S]
+    stop_tokens: torch.Tensor,  # [n] — emission halts AFTER a stop token
+    budgets: torch.Tensor,  # [S] sampled tokens left, this dispatch's included
+    force_reject: bool = False,  # treat every draft token as mismatched
+    constrain_fn=None,  # (logits [S, V], con_state [S], budget [S]) -> logits
+    advance_fn=None,  # (con_state [S], toks [S], take [S] bool) -> con_state
+    con_states: Optional[torch.Tensor] = None,  # [S]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The accept step of one speculative verify dispatch, the reference's
+    function of the same name: walks the T scored positions of each lane,
+    samples each from the VERIFIED logits with :func:`sample` (greedy =
+    argmax, so greedy emission is the engine's choice without speculation)
+    and goes on to the next position only while the sampled token equals
+    the drafted one; the first mismatch emits the corrected token and
+    stops, as does a stop token or a spent budget. The draft only decides
+    how many positions land. Rollback is implicit: the caller advances
+    ``seq_len`` by the emitted count and attention never reads the rejected
+    tail's KV.
+
+    Returns ``(out_tokens [S, T], n_emit [S], con_states [S])``:
+    ``out_tokens[s, :n_emit[s]]`` are the committed tokens (-1 after them)
+    and ``con_states`` advanced over exactly those tokens."""
+    S, T, _V = logits.shape
+    dev = logits.device
+    if con_states is None:
+        con_states = torch.zeros(S, dtype=torch.int32, device=dev)
+    # the draft candidate for position i is the NEXT input token
+    cand = torch.cat([inputs[:, 1:], torch.zeros_like(inputs[:, :1])], dim=1)
+    has_draft = (torch.arange(T, device=dev)[None, :] + 1) < n_input[:, None]  # [S, T]
+    emitting, state, budget = active, con_states, budgets
+    outs = []
+    for i in range(T):
+        lg = logits[:, i]
+        if constrain_fn is not None:
+            lg = constrain_fn(lg, state, budget)
+        tok = sample(lg, generator, temperature, top_k, top_p)
+        outs.append(torch.where(emitting, tok, -1))
+        take = emitting
+        budget = budget - take.to(budget.dtype)
+        if advance_fn is not None:
+            state = advance_fn(state, tok, take)
+        match = has_draft[:, i] & (tok == cand[:, i]) & (not force_reject)
+        emitting = take & match & ~torch.isin(tok, stop_tokens) & (budget > 0)
+    out = torch.stack(outs, dim=1)
+    return out, (out >= 0).sum(dim=1).to(torch.int32), state
 
 
 def constrain_logits(

@@ -780,6 +780,11 @@ TWO_CALLS = '{"name": "t1", "arguments": {"x": 1}} {"name": "t2", "arguments": {
 TINY_CHUNKED_ROW = [1 + (i * 7) % 250 for i in range(200)]
 TINY_PERSONA = "p" * 40  # five pages of 8
 TINY_TAILS = [f"-{ch * 4}" for ch in "abcd"]
+# speculation on the tiny engines: the reference's tool-echo fixture and the
+# busy group of tests/test_torch_megastep.py (three chunked rows, one plain)
+TINY_ECHO = '{"tool": "search", "args": {"q": "x"}} {"tool": "search", "args": {"q": "x"}}'
+TINY_BUSY = [("abcabcabc " * 8, 30), ("the quick brown fox jumps over " * 4, 10),
+             ("pack my box with five dozen jugs " * 3, 10), ("hi, a short one", 8)]
 
 
 def tiny_engine_runs(cfg, dense: dict) -> dict:
@@ -791,7 +796,10 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
     which share the first's pages. Greedy tokens must equal an uncontended
     run's (each prompt alone; the turns, the row and the burst's requests
     on an engine without parking, prefix cache, chunking or dedup) on the
-    card, and the CPU engines' tokens."""
+    card, and the CPU engines' tokens. Then speculation: the tool-echo
+    prompt and a busy group chunked in 16-token chunks, with spec_len 0
+    and 6 on the same engine; the streams must be equal, and the
+    speculating run must have verified and accepted drafts."""
     import torch
 
     from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
@@ -851,7 +859,20 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
             out["megastep_dispatches"] = roomy.megastep_dispatches - fused0
             out["unchunked"] = plain.generate(TINY_CHUNKED_ROW, sp).tokens
             out["alone"] = [plain.generate(TINY_PERSONA + t, sp).tokens for t in TINY_TAILS]
-            out["decode_steps"] = sum(e.decode_steps for e in engines.values())
+            for mode, spec_len in (("", 0), ("_spec", 6)):
+                roomy.spec_len = spec_len
+                _forget_prefixes(roomy)
+                out["echo" + mode] = roomy.generate(TINY_ECHO, SamplingParams(max_tokens=40)).tokens
+                roomy.prefill_chunk = 16
+                with roomy.hold_admission():
+                    futs = [roomy.submit(p, SamplingParams(max_tokens=m)) for p, m in TINY_BUSY]
+                out["busy" + mode] = [f.result(timeout=120).tokens for f in futs]
+                roomy.prefill_chunk = 0
+            roomy.spec_len = 0
+            out["spec_dispatches"] = roomy.spec_dispatches
+            out["spec_accepted"] = roomy.spec_accepted
+            # a verify pass is a decode step that runs no walk
+            out["walk_steps"] = sum(e.decode_steps - e.spec_dispatches for e in engines.values())
             return out
         finally:
             for e in engines.values():
@@ -860,7 +881,7 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
     cpu = runs("cpu")
     pa.LAUNCHES = pa.INT8_LAUNCHES = 0
     card = runs("cuda")
-    walk = _walk_check("model engines", card["decode_steps"], cfg.n_layers, False)
+    walk = _walk_check("model engines", card["walk_steps"], cfg.n_layers, False)
     for name, ok in (
         ("preempted", sum(card["preempt_counts"]) >= 1),
         ("preempted = uncontended on the card", card["preempted"] == card["uncontended"]),
@@ -872,8 +893,12 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
         ("fused", card["megastep_dispatches"] > 0),
         ("the megastep on = off on the card", (card["chunked"], card["burst"])
          == (card["chunked_split"], card["burst_split"])),
-        ("the card's streams = the CPU's", {k: v for k, v in card.items() if k != "decode_steps"}
-         == {k: v for k, v in cpu.items() if k != "decode_steps"}),
+        ("spec on = off on the card", (card["echo"], card["busy"])
+         == (card["echo_spec"], card["busy_spec"])),
+        ("verified and accepted drafts", card["spec_dispatches"] > 0
+         and card["spec_accepted"] > 0),
+        ("the card's streams = the CPU's", {k: v for k, v in card.items() if k != "walk_steps"}
+         == {k: v for k, v in cpu.items() if k != "walk_steps"}),
     ):
         if not ok:
             fail(f"model engines: not {name}: card {card}, cpu {cpu}")
@@ -883,7 +908,10 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
         f"{len(TINY_CHUNKED_ROW)}-token row in chunks of 16 = unchunked; a burst of "
         f"{len(TINY_TAILS)} on one persona ({card['shares']} shares) = each alone, both with the "
         f"megastep on ({card['megastep_dispatches']} fused dispatches) = off; all = the "
-        f"CPU engines' tokens; walk launches {walk} = {cfg.n_layers} x {card['decode_steps']}")
+        f"CPU engines' tokens; the echo prompt and the busy group with spec_len 6 "
+        f"({card['spec_dispatches']} verify passes, {card['spec_accepted']} drafts accepted) = "
+        f"spec_len 0 = the CPU's; walk launches {walk} = {cfg.n_layers} x {card['walk_steps']} "
+        f"(decode steps less verify passes)")
     return {"card": card, "cpu": cpu, "launches": walk}
 
 
@@ -1178,6 +1206,7 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
             perf["constrained"] = constrained_phase(engine, base, card, perf["profile"])
         perf["kv_reuse"] = kv_reuse_phase(engine, card, label)
         perf["chunked"] = chunked_phase(engine, card, label)
+        perf["spec"] = spec_phase(engine, card, label)
         perf["control_plane"] = control_plane_phase(engine, card, label)
         perf["operator"] = operator_phase(engine, card, label)
         return perf
@@ -1798,7 +1827,7 @@ CHUNK_F32_TOL = 3e-2  # (a) bf16: each path's relative L2 from the f32 pass
 CHUNK_INT8_TOL = 5e-2  # (a) int8 KV: chunked vs whole
 HOL_DECODERS, HOL_DECODE_TOKENS = 4, 128  # (b): the lanes decoding when the long row lands
 HOL_PROMPT, HOL_LONG_TOKENS = 64, 16  # (b): decoder prompts; the long request's budget
-HOL_REPEATS = 2
+HOL_REPEATS = 2  # on bf16; the int8 engine runs (b) and (c) once each (the wall)
 DEADLINE_SHARE = 0.6  # (d): the deadline, as a share of (b)'s chunked TTFT
 DEDUP_REQUESTS, DEDUP_PREFIX, DEDUP_TAIL, DEDUP_TOKENS = 8, 768, 64, 32  # (c)
 DEDUP_REPEATS = 2
@@ -1808,10 +1837,11 @@ DEDUP_PEAKS = {True: 48 + 8 * (56 - 48), False: 8 * 56}
 DEDUP_PEAK_TOL = 0.15
 
 
-def _f32_last_logits(engine, row):
-    """Last-token logits of an f32 pass over ``row``: every layer's weights
-    cast to f32 as it runs (one layer's copy on the card at a time), f32
-    activations and exact causal attention, TF32 off."""
+def _f32_logits(engine, row, last: int = 1):
+    """Logits of the last ``last`` positions of an f32 pass over ``row``
+    ([1, last, V]): every layer's weights cast to f32 as it runs (one
+    layer's copy on the card at a time), f32 activations and exact causal
+    attention, TF32 off."""
     import dataclasses
 
     import torch
@@ -1833,7 +1863,7 @@ def _f32_last_logits(engine, row):
                 x, _, _ = llama._attn_mlp(
                     x, layer, cfg, positions,
                     lambda q, k, v: blocked_causal_attention(q, k, v, positions))
-            x = rms_norm(x[:, -1], params["norm"].float(), cfg.norm_eps)
+            x = rms_norm(x[:, -last:], params["norm"].float(), cfg.norm_eps)
             return x @ params["lm_head"].float()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -1886,7 +1916,7 @@ def chunk_check(engine, card: str, label: str) -> dict:
             f"{doc['chunked_vs_whole']:.3e} relative L2 (tol {CHUNK_INT8_TOL}); the chunks "
             f"took {chunked_ms:.1f} ms  [{card}]")
         return doc
-    f32 = _f32_last_logits(engine, row)
+    f32 = _f32_logits(engine, row)[:, -1]
     doc["whole_vs_f32"] = _rel_l2(whole[0], f32[0])
     doc["chunked_vs_f32"] = _rel_l2(chunked[0], f32[0])
     bound = 1.5 * doc["whole_vs_f32"] + 2e-3
@@ -2040,7 +2070,8 @@ def chunked_phase(engine, card: str, label: str) -> dict:
     level, (b) a long request landing on decoding lanes, whole and chunked
     (fused) in turns, and on bf16 (b') chunked with the megastep off and
     (d) chunked with a deadline, the planner on then off, (c) a burst
-    sharing a prefix, dedup on and off in turns. Parked slots are expired
+    sharing a prefix, dedup on and off in turns; (b) and (c) twice on bf16,
+    once on int8. Parked slots are expired
     and the prefix cache is emptied and off for the phase, so every run is
     cold; the knobs are put back after. Every run's decode steps go
     through the expected walk only."""
@@ -2050,6 +2081,7 @@ def chunked_phase(engine, card: str, label: str) -> dict:
 
     t_phase = time.monotonic()
     cfg, int8_walk = engine.config, engine.quantize_kv
+    repeats, dedup_repeats = (1, 1) if int8_walk else (HOL_REPEATS, DEDUP_REPEATS)
     _idle_parked(engine)
     _forget_prefixes(engine)
     cache_on = engine._prefix_enabled
@@ -2068,7 +2100,7 @@ def chunked_phase(engine, card: str, label: str) -> dict:
         # (b), and on bf16 (b'): chunk 256 with the megastep off too
         modes = [(0, True), (CHUNK_SIZE, True)] + ([] if int8_walk else [(CHUNK_SIZE, False)])
         hol = [hol_run(engine, hol_prompts, long_row, chunk, megastep)
-               for _ in range(HOL_REPEATS) for chunk, megastep in modes]
+               for _ in range(repeats) for chunk, megastep in modes]
         deadline_runs = []
         if not int8_walk:
             # (d): the deadline is a share of this run's chunked TTFT
@@ -2079,7 +2111,7 @@ def chunked_phase(engine, card: str, label: str) -> dict:
                 deadline_runs.append(hol_run(engine, hol_prompts, long_row, CHUNK_SIZE,
                                              timeout_s=DEADLINE_SHARE * flat / 1e3))
             engine.rate_planner = True
-        dedup = [dedup_burst(engine, burst, on) for _ in range(DEDUP_REPEATS)
+        dedup = [dedup_burst(engine, burst, on) for _ in range(dedup_repeats)
                  for on in (True, False)]
         walk = _walk_check(f"chunked {label}", engine.decode_steps - steps0, cfg.n_layers,
                            int8_walk)
@@ -2157,7 +2189,7 @@ def chunked_phase(engine, card: str, label: str) -> dict:
                     "peak_pages": {"on": [d["peak_pages"] for d in on_runs],
                                    "off": [d["peak_pages"] for d in off_runs]},
                     "identical_streams": same,
-                    "streams": DEDUP_REQUESTS * DEDUP_REPEATS}
+                    "streams": DEDUP_REQUESTS * dedup_repeats}
     out["launches"] = walk
     out["decode_steps"] = walk // cfg.n_layers
     m = out["hol"]["medians"]
@@ -2169,7 +2201,7 @@ def chunked_phase(engine, card: str, label: str) -> dict:
             f"{fm['max_gap_s'] * 1e3:.1f} / {sm['max_gap_s'] * 1e3:.1f} ms, long TTFT "
             f"{fm['long_ttft_ms']:.1f} / {sm['long_ttft_ms']:.1f} ms, "
             f"{statistics.median(h['long_cycles'] for h in fused)} / {sm['long_cycles']} prefill "
-            f"cycles (medians of {HOL_REPEATS}); the long request's streams "
+            f"cycles (medians of {repeats}); the long request's streams "
             f"{'identical' if same_streams else 'NOT identical'} across the fused and split "
             f"runs (reported, not gated, in bf16)  [{card}]")
     for h in deadline_runs:
@@ -2185,18 +2217,226 @@ def chunked_phase(engine, card: str, label: str) -> dict:
             f"decoders' longest gap {m[str(c)]['max_gap_s'] * 1e3:.1f} ms, the long "
             f"request's TTFT {m[str(c)]['long_ttft_ms']:.1f} ms, hol wait "
             f"{m[str(c)]['hol_wait_s']:.3f} s, {m[str(c)]['prefill_chunks']} chunks, budget "
-            f"utilization {m[str(c)]['budget_utilization']:.3f} (medians of {HOL_REPEATS})  "
+            f"utilization {m[str(c)]['budget_utilization']:.3f} (medians of {repeats})  "
             f"[{card}]")
     say(f"chunked {label} dedup: {DEDUP_REQUESTS} requests of {DEDUP_PREFIX} shared + "
         f"{DEDUP_TAIL} own tokens, {DEDUP_TOKENS} tokens each: shares "
         f"{[d['shares'] for d in dedup]}, page peaks on {out['dedup']['peak_pages']['on']} vs "
         f"off {out['dedup']['peak_pages']['off']} (want about {DEDUP_PEAKS[True]} and "
         f"{DEDUP_PEAKS[False]}); TTFT on {_fmt(out['dedup']['ttft_ms']['on'])}, off "
-        f"{_fmt(out['dedup']['ttft_ms']['off'])}; {same} of {DEDUP_REQUESTS * DEDUP_REPEATS} "
+        f"{_fmt(out['dedup']['ttft_ms']['off'])}; {same} of {DEDUP_REQUESTS * dedup_repeats} "
         f"streams identical on vs off; walk launches {walk} = {cfg.n_layers} x "
         f"{walk // cfg.n_layers} decode steps  [{card}]")
     out["phase_s"] = time.monotonic() - t_phase
     say(f"chunked {label}: phase {out['phase_s']:.1f} s  [{card}]")
+    return out
+
+
+# -- speculative decoding phase ------------------------------------------
+
+SPEC_LEN = 6
+SPEC_REQUESTS = 8
+SPEC_TOKENS = 64
+SPEC_REPEATS = 2  # runs of each mode, in turns
+SPEC_INT8_REQUESTS = 4
+SPEC_INT8_TOKENS = 32
+SPEC_PREFIX = 500  # rows below the verified ones: 500 % 16 = 4, mid-page
+SPEC_TOL = 2e-2  # each verified position's logits, relative L2 from an f32 pass
+
+
+def _spec_prompts(n: int) -> list[str]:
+    """Self-repeating tool-call prompts: each restates its own call six
+    times, as an agent loop restates its tool calls."""
+    return [f'{{"name": "search_docs", "arguments": {{"query": "incident {i}", '
+            f'"limit": {i + 3}}}}} ' * 6 for i in range(n)]
+
+
+def verify_check(engine, card: str, label: str) -> dict:
+    """One verify pass at full width on a scratch pool: a SPEC_PREFIX-token
+    row prefilled, then lane 0 scores SPEC_LEN + 1 tokens from row
+    SPEC_PREFIX (mid-page), beside an idle lane (``n_input = 0``, start
+    ``max_ctx``) whose table is the same pages. Each position's logits
+    against an f32 pass over the same rows (gated at SPEC_TOL), with the
+    whole-row bf16 forward's distance from that pass beside it; the pass
+    writes only its own rows."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.models import llama
+
+    cfg, P, dev = engine.config, engine.page_size, "cuda"
+    T = SPEC_LEN + 1
+    n_pages = -(-(SPEC_PREFIX + T) // P)
+    row = torch.randint(0, 256, (1, n_pages * P), generator=torch.Generator().manual_seed(17))
+    row = row.to(dev)
+    with torch.inference_mode():
+        pages = llama.init_paged_cache(cfg, 1 + n_pages, P, device=dev,
+                                       quantize_kv=engine.quantize_kv)
+        ids = torch.arange(1, 1 + n_pages, device=dev)
+        pages, _ = llama.prefill_paged_batch(
+            engine.params, pages, row, torch.tensor([SPEC_PREFIX], device=dev), ids[None], cfg)
+        table = torch.zeros(2, engine.max_pages_per_seq, dtype=torch.int32, device=dev)
+        table[:, :n_pages] = ids
+        toks = torch.zeros(2, T, dtype=torch.long, device=dev)
+        toks[0] = row[0, SPEC_PREFIX: SPEC_PREFIX + T]
+        before = {n: t[:, 1:].clone() for n, t in pages.items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        pages, logits = llama.verify_paged_continue(
+            engine.params, pages, toks, torch.tensor([T, 0], device=dev),
+            torch.tensor([SPEC_PREFIX, engine.max_ctx], device=dev), table, cfg)
+        torch.cuda.synchronize()
+        verify_ms = (time.monotonic() - t0) * 1e3
+        bf16 = llama.forward(engine.params, row[:, : SPEC_PREFIX + T], cfg)[0, -T:]
+        kept = True
+        for n, t in pages.items():
+            rows = t[:, 1:].reshape(t.shape[0], -1, *t.shape[3:])
+            was = before[n].reshape(rows.shape)
+            rows[:, SPEC_PREFIX: SPEC_PREFIX + T] = was[:, SPEC_PREFIX: SPEC_PREFIX + T]
+            kept = kept and bool(torch.equal(rows, was))
+    f32 = _f32_logits(engine, row[:, : SPEC_PREFIX + T], last=T)[0]
+    doc = {"verify_vs_f32": [_rel_l2(logits[0, i], f32[i]) for i in range(T)],
+           "bf16_whole_vs_f32": [_rel_l2(bf16[i], f32[i]) for i in range(T)],
+           "verify_ms": verify_ms, "other_rows_kept": kept}
+    worst = max(doc["verify_vs_f32"])
+    if not torch.isfinite(logits[0]).all() or worst > SPEC_TOL or not kept:
+        fail(f"spec {label}: verify logits {worst:.3e} relative L2 from an f32 pass (tol "
+             f"{SPEC_TOL}), finite {bool(torch.isfinite(logits[0]).all())}, other rows kept "
+             f"{kept}")
+    say(f"spec {label}: one verify pass of {T} tokens from row {SPEC_PREFIX} (mid-page) beside "
+        f"an idle lane: per-position logits from an f32 pass max {worst:.3e} relative L2 (tol "
+        f"{SPEC_TOL}); the whole-row bf16 forward's max {max(doc['bf16_whole_vs_f32']):.3e}; "
+        f"every other pool row unchanged; {verify_ms:.1f} ms (first call)  [{card}]")
+    return doc
+
+
+def spec_run(engine, prompts: list, max_tokens: int) -> dict:
+    """One admission group of greedy requests; each one's streamed tokens
+    must be its result's, exactly once. Verify passes are timed by wrapping
+    the engine's ``_decode_spec`` (drafting, growth, the pass, its host
+    read and commit) for the run."""
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+
+    streams: list = [[] for _ in prompts]
+    verify_ms: list = []
+    real = engine._decode_spec
+
+    def timed(pending=None):
+        v0, t0 = engine.spec_dispatches, time.monotonic()
+        out = real(pending)
+        if engine.spec_dispatches > v0:
+            verify_ms.append((time.monotonic() - t0) * 1e3)
+        return out
+
+    c0 = (engine.decode_steps, engine.spec_dispatches, engine.spec_proposed,
+          engine.spec_accepted, engine.tokens_generated)
+    engine._decode_spec = timed
+    try:
+        t0 = time.monotonic()
+        with engine.hold_admission():
+            futs = [engine.submit(p, SamplingParams(max_tokens=max_tokens),
+                                  on_tokens=streams[i].extend) for i, p in enumerate(prompts)]
+        res = [f.result(timeout=600) for f in futs]
+        wall_s = time.monotonic() - t0
+    finally:
+        del engine._decode_spec
+    _idle_parked(engine)
+    for i, r in enumerate(res):
+        if r.finish_reason not in ("stop", "length") or streams[i] != list(r.tokens):
+            fail(f"spec: request {i} finished {r.finish_reason!r}, streamed {len(streams[i])} "
+                 f"tokens for {len(r.tokens)}")
+    steps, verify, proposed, accepted, generated = (
+        b - a for a, b in zip(c0, (engine.decode_steps, engine.spec_dispatches,
+                                   engine.spec_proposed, engine.spec_accepted,
+                                   engine.tokens_generated)))
+    n_tokens = sum(len(r.tokens) for r in res)
+    return {"tokens": [list(r.tokens) for r in res], "wall_s": wall_s,
+            "tokens_per_s": n_tokens / wall_s, "decode_steps": steps, "verify_passes": verify,
+            "proposed": proposed, "accepted": accepted,
+            "tokens_per_decode_step": generated / steps if steps else 0.0,
+            "verify_ms": verify_ms}
+
+
+def spec_phase(engine, card: str, label: str) -> dict:
+    """Speculative decoding on the serving engine, spec_len set while it
+    idles (as the reference's autopilot sets it) and put back to 0 after.
+    bf16: the verify check, then SPEC_REQUESTS self-repeating tool-call
+    requests of SPEC_TOKENS tokens, spec on and off in turns, SPEC_REPEATS
+    runs each; int8: SPEC_INT8_REQUESTS requests, spec on, twice, which
+    must give the same tokens. Every run cold (the prefix cache emptied);
+    every decode step that is not a verify pass goes through the expected
+    walk, and the pool is whole after."""
+    import statistics
+
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    t_phase = time.monotonic()
+    cfg, int8_walk = engine.config, engine.quantize_kv
+    _idle_parked(engine)
+    out = {"card": card}
+    if not int8_walk:
+        out["check"] = verify_check(engine, card, label)
+    n, max_tokens = ((SPEC_INT8_REQUESTS, SPEC_INT8_TOKENS) if int8_walk
+                     else (SPEC_REQUESTS, SPEC_TOKENS))
+    prompts = _spec_prompts(n)
+    order = [["on", "on"]] if int8_walk else [
+        ["off", "on"] if r % 2 == 0 else ["on", "off"] for r in range(SPEC_REPEATS)]
+    runs: dict = {"on": [], "off": []}
+    pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+    steps0, verify0 = engine.decode_steps, engine.spec_dispatches
+    try:
+        for modes in order:
+            for mode in modes:
+                _forget_prefixes(engine)
+                engine.spec_len = SPEC_LEN if mode == "on" else 0
+                runs[mode].append(spec_run(engine, prompts, max_tokens))
+    finally:
+        engine.spec_len = 0
+    steps = engine.decode_steps - steps0
+    verify = engine.spec_dispatches - verify0
+    walk = _walk_check(f"spec {label}", steps - verify, cfg.n_layers, int8_walk)
+    if verify <= 0:
+        fail(f"spec {label}: no verify pass ran")
+    if not _pool_whole(engine):
+        fail(f"spec {label}: pages or slots not released: {engine.stats()}")
+    on = runs["on"]
+    verify_ms = [t for r in on for t in r["verify_ms"]]
+    out.update({
+        "runs": runs, "decode_steps": steps, "verify_passes": verify, "launches": walk,
+        "acceptance_rate": sum(r["accepted"] for r in on) / max(1, sum(r["proposed"] for r in on)),
+        "tokens_per_decode_step_on": statistics.median(r["tokens_per_decode_step"] for r in on),
+        "verify_ms_median": statistics.median(verify_ms) if verify_ms else None,
+        "tokens_per_s_on": statistics.median(r["tokens_per_s"] for r in on),
+    })
+    if int8_walk:
+        if on[0]["tokens"] != on[1]["tokens"]:
+            fail(f"spec {label}: the same greedy group gave different tokens on a second run")
+        say(f"spec {label}: {n} requests x {max_tokens} tokens, spec_len {SPEC_LEN}, twice: "
+            f"identical tokens; {verify} verify passes, acceptance {out['acceptance_rate']:.3f}, "
+            f"{out['tokens_per_decode_step_on']:.3f} tokens per decode step, verify pass "
+            f"{out['verify_ms_median']:.1f} ms (median); int8-walk launches {walk} = "
+            f"{cfg.n_layers} x ({steps} decode steps - {verify} verify passes)  [{card}]")
+    else:
+        off = runs["off"]
+        same = sum(a == b for r_on, r_off in zip(on, off)
+                   for a, b in zip(r_on["tokens"], r_off["tokens"]))
+        out.update({
+            "identical_on_off": same,
+            "tokens_per_decode_step_off": statistics.median(
+                r["tokens_per_decode_step"] for r in off),
+            "tokens_per_s_off": statistics.median(r["tokens_per_s"] for r in off),
+        })
+        say(f"spec {label}: {n} self-repeating tool-call requests x {max_tokens} tokens, "
+            f"spec_len {SPEC_LEN} on vs off, {SPEC_REPEATS} runs each in turns: {same} of "
+            f"{n * SPEC_REPEATS} streams identical on vs off; {verify} verify passes, "
+            f"acceptance {out['acceptance_rate']:.3f}, tokens per decode step "
+            f"{out['tokens_per_decode_step_on']:.3f} on / "
+            f"{out['tokens_per_decode_step_off']:.3f} off, verify pass "
+            f"{out['verify_ms_median']:.1f} ms (median of {len(verify_ms)}), "
+            f"{out['tokens_per_s_on']:.1f} / {out['tokens_per_s_off']:.1f} tokens/s on / off "
+            f"(medians, TTFT included); walk launches {walk} = {cfg.n_layers} x ({steps} decode "
+            f"steps - {verify} verify passes)  [{card}]")
+    out["phase_s"] = time.monotonic() - t_phase
+    say(f"spec {label}: phase {out['phase_s']:.1f} s  [{card}]")
     return out
 
 
@@ -3635,21 +3875,24 @@ def main() -> int:
     walls["constrained"] = perf["constrained"]["phase_s"]
     walls["kv_reuse_bf16"] = perf["kv_reuse"]["phase_s"]
     walls["chunked_bf16"] = perf["chunked"]["phase_s"]
+    walls["spec_bf16"] = perf["spec"]["phase_s"]
     walls["control_plane_bf16"] = perf["control_plane"]["phase_s"]
     walls["operator_bf16"] = perf["operator"]["phase_s"]
     walls["serving_bf16"] -= (walls["constrained"] + walls["kv_reuse_bf16"]
-                              + walls["chunked_bf16"] + walls["control_plane_bf16"]
-                              + walls["operator_bf16"])
+                              + walls["chunked_bf16"] + walls["spec_bf16"]
+                              + walls["control_plane_bf16"] + walls["operator_bf16"])
     gc.collect()
     torch.cuda.empty_cache()
     perf_int8 = timed("serving_int8", serving_phase, card, "int8", quantize_weights=True,
                       quantize_kv=True)
     walls["kv_reuse_int8"] = perf_int8["kv_reuse"]["phase_s"]
     walls["chunked_int8"] = perf_int8["chunked"]["phase_s"]
+    walls["spec_int8"] = perf_int8["spec"]["phase_s"]
     walls["control_plane_int8"] = perf_int8["control_plane"]["phase_s"]
     walls["operator_int8"] = perf_int8["operator"]["phase_s"]
     walls["serving_int8"] -= (walls["kv_reuse_int8"] + walls["chunked_int8"]
-                              + walls["control_plane_int8"] + walls["operator_int8"])
+                              + walls["spec_int8"] + walls["control_plane_int8"]
+                              + walls["operator_int8"])
     say(f"serving int8 vs bf16: weights {perf_int8['weight_bytes'] / 1e9:.3f} / "
         f"{perf['weight_bytes'] / 1e9:.3f} GB, KV pool {perf_int8['pool_bytes'] / 1e9:.3f} / "
         f"{perf['pool_bytes'] / 1e9:.3f} GB for {perf['num_pages']} pages  [{card}]")
@@ -3723,8 +3966,8 @@ def main() -> int:
          "parallel": par, "quickstart": quickstart, "walls_s": walls, "seconds": time.monotonic() - t_start}, indent=1,
         default=str))
     say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
-        + " s (serving phases without the constrained, kv-reuse, chunked, control-plane and "
-          "operator phases)")
+        + " s (serving phases without the constrained, kv-reuse, chunked, spec, control-plane "
+          "and operator phases)")
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

@@ -5,9 +5,10 @@ Both engines run the tiny f32 preset with the same weights (the stop
 token's lm_head column a scaled copy of a frequent token's, as in
 ``tests/test_torch_engine.py``), one module-scoped pair, both on the split
 path: ``kv_layout="paged"``, no megastep, no rate planner, no autopilot,
-no speculation, no host tier (the fused path and the planner are held to
-the reference in ``tests/test_torch_megastep.py`` and
-``tests/test_torch_planner.py``). Buckets (32, 64, 128)
+no speculation, no host tier (the fused path, the planner and speculation
+are held to the reference in ``tests/test_torch_megastep.py``,
+``tests/test_torch_planner.py`` and ``tests/test_torch_spec.py``, whose
+``spec_len=6`` replay of the identity matrix below runs fused). Buckets (32, 64, 128)
 at ``max_ctx=256``, so a 200-token row spills on both engines with
 chunking off. Both keep the reference's defaults otherwise:
 ``prefill_chunk=0``, ``token_budget=0``, ``prefix_dedup=True``; a case
@@ -26,7 +27,9 @@ On the port every model call is checked against the shared-page rule
 once; a prefill writes a shared page only while every other holder of it
 is itself still mid-prefill (never a decoding or parked slot, never a
 prefix-cache entry); no decode commit reads a prefilling lane's tokens;
-and every decoding slot's table covers ``seq_len + K`` before its block.
+and every decoding slot's table covers ``seq_len + K`` before its block
+(or ``seq_len`` + 1 + its draft before a verify pass, which writes no
+shared page either).
 
 Plus ``prefill_paged_continue_kv`` against the JAX function and a chunk
 sequence against the whole-row prefill (f32 and int8 KV, 2e-4), the stats
@@ -101,9 +104,9 @@ class _SharedPageChecks:
         self.decode_blocks = 0
         grow, consume = engine._ensure_pages_for_block, engine._consume_tokens
 
-        def checked_grow():
-            grow()
-            self.after_growth()
+        def checked_grow(need_tokens=None):
+            grow(need_tokens)
+            self.after_growth(need_tokens)
 
         def checked_consume(slot, sl, toks):
             if sl.prefilling or sl.parked:
@@ -114,16 +117,19 @@ class _SharedPageChecks:
         engine._ensure_pages_for_block = checked_grow
         engine._consume_tokens = checked_consume
 
-    def after_growth(self) -> None:
+    def after_growth(self, need_tokens=None) -> None:
+        """Every decoding slot's table covers its next dispatch: K rows, or
+        the 1 + draft rows of a verify pass (``need_tokens``)."""
         e = self.engine
         for slot, sl in e._slots.items():
             if sl.parked or sl.prefilling:
                 continue
             self.decode_blocks += 1
             seq = int(e._seq_lens[slot])
-            need = min(-(-(seq + K) // P), e.max_pages_per_seq)
+            rows = K if need_tokens is None else need_tokens.get(slot, K)
+            need = min(-(-(seq + rows) // P), e.max_pages_per_seq)
             if len(e._slot_pages[slot]) < need or (e._block_tables[slot, :need] == TRASH_PAGE).any():
-                self.violations.append(f"slot {slot}: table does not cover {seq} + {K}")
+                self.violations.append(f"slot {slot}: table does not cover {seq} + {rows}")
 
     def step(self, seq_lens, block_tables, active) -> None:
         refs = self.engine._allocator.snapshot()[1]
@@ -133,6 +139,19 @@ class _SharedPageChecks:
             if page == TRASH_PAGE or refs.get(page, 0) != 1:
                 self.violations.append(f"lane {s}: decode writes page {page} (refs "
                                        f"{refs.get(page, 0)})")
+
+    def verify(self, lengths, starts, block_tables) -> None:
+        """A verify pass writes rows [start, start + length) of each lane
+        through its table: never the trash page, never a shared page."""
+        refs = self.engine._allocator.snapshot()[1]
+        tables = block_tables.numpy()
+        for s in np.flatnonzero(lengths.numpy()):
+            st = int(starts[s])
+            for pos in range(st, st + int(lengths[s])):
+                page = int(tables[s, min(pos // P, tables.shape[1] - 1)])
+                if page == TRASH_PAGE or refs.get(page, 0) != 1:
+                    self.violations.append(f"lane {s}: verify writes page {page} (refs "
+                                           f"{refs.get(page, 0)})")
 
     def prefill(self, page_ids) -> None:
         """A prefill or chunk commit is about to write ``page_ids``: every

@@ -45,6 +45,7 @@ def test_scan_covers_the_port_and_catches_offenders():
         "agentcontrolplane_tpu_torch/engine/accuracy.py",
         "agentcontrolplane_tpu_torch/engine/engine.py",
         "agentcontrolplane_tpu_torch/engine/planner.py",
+        "agentcontrolplane_tpu_torch/engine/spec.py",
         "agentcontrolplane_tpu_torch/server/rest.py",
         "agentcontrolplane_tpu_torch/parallel/distributed.py",
         "agentcontrolplane_tpu_torch/parallel/mesh.py",

@@ -20,7 +20,7 @@ Not replayed, each for its reason:
 - ``test_pad_fuse_waste_row_populates_and_conserves``: the goodput ledger
   is the profiler's (A.11);
 - the two prewarm cases: prewarm is A.3;
-- the ``spec_len=4`` cases: speculative decoding is A.7;
+- the ``spec_len=4`` cases: they are replayed in ``tests/test_torch_spec.py``;
 - the slot-layout cells of the busy matrix and the park-adopt case (A.10).
 """
 
