@@ -73,10 +73,10 @@ class TPUProviderConfig(APIModel):
     the timeouts and ``overlap_tool_calls`` to the client. ``prefill_chunk``
     and ``token_budget`` are the engine's knobs, set where the engine is
     built (``run --tpu-prefill-chunk/--tpu-token-budget``), not from a
-    manifest, as in the reference. The host KV tier's knobs
-    (``host_kv_bytes``, ``host_prefetch``) are the reference's and are kept
-    so its manifests load unchanged; the port's engine does not have that
-    tier yet (ROADMAP A.8).
+    manifest, as in the reference. So are the host KV tier's knobs
+    (``host_kv_bytes``, ``host_prefetch``: ``run --tpu-host-kv-bytes/
+    --tpu-host-prefetch``); the fields are kept so the reference's
+    manifests load unchanged, and nothing reads them, as in the reference.
     """
 
     checkpoint: Optional[str] = None

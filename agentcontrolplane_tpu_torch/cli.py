@@ -6,7 +6,7 @@ front door (``serve``):
   run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--tpu-park-max-s 30]
       [--tpu-prefill-chunk 0] [--tpu-token-budget 0] [--tpu-prefix-dedup 1]
       [--tpu-megastep 1] [--tpu-rate-planner 1] [--tpu-spec-len 0] [--tpu-spec-ngram 3]
-      [--device cpu]
+      [--tpu-host-kv-bytes 0] [--tpu-host-prefetch 1] [--device cpu]
   apply -f manifests.yaml
   get <Kind> [name] [-o yaml]
   delete <Kind> <name>
@@ -119,6 +119,8 @@ def cmd_run(args) -> int:
                         park_max_s=args.tpu_park_max_s,
                         prefill_chunk=args.tpu_prefill_chunk,
                         token_budget=args.tpu_token_budget,
+                        host_kv_bytes=args.tpu_host_kv_bytes,
+                        host_prefetch=bool(args.tpu_host_prefetch),
                         prefix_dedup=bool(args.tpu_prefix_dedup),
                         megastep=bool(args.tpu_megastep),
                         rate_planner=bool(args.tpu_rate_planner),
@@ -486,6 +488,23 @@ def build_parser() -> argparse.ArgumentParser:
         "prefill chunks + decode + speculative verify; 0 = auto-sized "
         "(decode always dispatches, one chunk per mid-prefill slot rides "
         "along); only meaningful with --tpu-prefill-chunk",
+    )
+    run.add_argument(
+        "--tpu-host-kv-bytes", type=int, default=0,
+        help="host-RAM KV offload tier budget in bytes: preemption, park "
+        "expiry, and mid-prefill deadline drops swap their written KV to "
+        "host RAM and re-admission swaps it back instead of re-running "
+        "prefill (greedy outputs byte-identical; see docs/serving-engine.md "
+        "'KV memory tiers'); 0 = off (discard and recompute)",
+    )
+    run.add_argument(
+        "--tpu-host-prefetch", type=int, default=1,
+        help="async host-KV prefetch (paged layout): stage the NEXT "
+        "restore chunk's host->device copies a cycle early so the scatter "
+        "commit rides the dispatch window instead of blocking the engine "
+        "thread (byte-identical on or off; "
+        "acp_engine_kv_prefetch_commits_total counts the overlap); "
+        "1 = on (default), 0 = blocking swap-ins",
     )
     run.add_argument(
         "--tpu-prefix-dedup", type=int, default=1,

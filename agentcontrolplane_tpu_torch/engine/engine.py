@@ -111,6 +111,29 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   speculation. A pass counts one decode step. In a fused cycle the pass
   takes the block's place (``v<W>x<T>`` in the shape key). When no slot
   drafts the plain block runs, the CUDA walk in every layer.
+- **KV memory tiers**: the device page pool is the first tier; the
+  **host-RAM tier** (``host_kv_bytes``, 0 = off by default as in the
+  reference; ``ops/paged.py::HostKVPool``) is the second. A preemption,
+  a parked slot released by pressure or expiry, and a mid-prefill
+  deadline drop copy the slot's written rows (a page-aligned strict
+  prefix of its row, gathered in pow2 page groups, one device -> host
+  copy joined on one event) into a pinned host entry instead of
+  discarding them. Admission matches an entry by the request's rid
+  (preempt -> resume) or by the longest token prefix (a conversation or
+  persona that comes back), at the lowest priority after adoption, the
+  cache and dedup, and consumes it once the slot's fresh pages are
+  reserved; the slot then enters the prefilling path (chunking on or
+  off) and its rows restore chunk by chunk under the token budget, EDF
+  with the prefill chunks, before model chunks prefill the rest. With
+  ``host_prefetch`` (on by default) the NEXT restore chunk's rows go
+  host -> device on a side stream while the cycle computes, and its
+  scatter lands in the next cycle, first in a fused megastep (the
+  ``s<m>-<m>...`` part of its key). Restored rows are a bit-exact copy
+  (int8 pools with their f32 scale twins), so greedy outputs are the
+  tier-off engine's. ``submit(export_kv=True)`` attaches the prompt's
+  rows to the result as ``kv_handoff`` (the prefill -> decode handoff
+  unit), and ``inject_host_kv`` lands such an entry in this engine's
+  tier before the next admission.
 - Pages are freed at finish and on cancel; queued requests past their
   deadline fail fast; ``max_queue`` sheds load.
 - **Constrained decoding** (``SamplingParams.json_only`` /
@@ -141,10 +164,12 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
 
 Left out for now (each is in ROADMAP): the scheduler autopilot
 (``autopilot=True`` raises; it reads the flight recorder), speculative
-decoding under a serving group (``spec_len > 0`` with ``group`` raises),
-fleet affinity and trace export (``affinity_key=``, ``trace=``), the host
-KV tier, the flight recorder, fault sites (``_spec_force_reject`` stands
-in for ``engine.spec_mismatch`` in the tests), and multi-host.
+decoding and the host KV tier under a serving group (``spec_len > 0`` or
+``host_kv_bytes > 0`` with ``group`` raises), fleet affinity and trace
+export (``affinity_key=``, ``trace=``), the flight recorder, fault sites
+(``_spec_force_reject`` stands in for ``engine.spec_mismatch`` in the
+tests; the host tier's ``engine.host_swap_error``/``host_swap_slow``/
+``prefetch_error`` are not ported), and multi-host.
 """
 
 from __future__ import annotations
@@ -177,7 +202,7 @@ from ..models.llama import (
 )
 from ..observability.metrics import REGISTRY
 from ..ops.cuda import paged_attention as walk
-from ..ops.paged import TRASH_PAGE, PageAllocator
+from ..ops.paged import TRASH_PAGE, HostKVEntry, HostKVPool, PageAllocator
 from ..ops.quant import QUANTIZABLE, QuantizedTensor, quantize_stacked
 from ..ops.sampling import advance_constraint, constrain_logits, sample, speculative_accept
 from ..parallel.mesh import ServingGroup, ServingMesh, check_serving_config
@@ -232,7 +257,11 @@ class GenerationResult:
     # times this request was preempted under KV pool pressure and resumed;
     # preemption is invisible in the output, this is its only trace
     preempt_count: int = 0
-    kv_handoff: Optional[object] = None  # always None: no disaggregation yet
+    # with submit(export_kv=True): the prompt's written KV, rows [0, cut)
+    # page-aligned, as a HostKVEntry a decode engine restores through
+    # inject_host_kv; None when the export was skipped (too few rows, a
+    # truncated prompt, a dedup follower)
+    kv_handoff: Optional[HostKVEntry] = None
 
 
 @dataclass
@@ -269,6 +298,9 @@ class _Request:
     # prompt + forced prefix + these, so decode continues where it stopped
     resume_tokens: list[int] = field(default_factory=list)
     preempt_count: int = 0
+    # prefill -> decode handoff: at a stop or length finish the prompt's KV
+    # rides out on the result (GenerationResult.kv_handoff); never parks
+    export_kv: bool = False
 
     def emit(self, tokens: list[int]) -> None:
         if self.on_tokens is not None and tokens:
@@ -315,6 +347,18 @@ class _Slot:
     spec: Optional[SpecState] = None
     ctx_buf: Optional[np.ndarray] = None
     ctx_len: int = 0
+    # host-tier restore: the HostKVEntry whose rows are restored into this
+    # slot's fresh pages a chunk a cycle under the token budget; cleared at
+    # the restore's cut, after which model chunks prefill the rest.
+    # swap_stall_s sums the engine-thread seconds blocked in restore copies
+    swap_entry: Optional[HostKVEntry] = None
+    swap_stall_s: float = 0.0
+    # host_prefetch: the NEXT restore chunk's rows already on their way to
+    # the device, {"start", "n", "groups": [(page ids, {name: blocks})],
+    # "event"} in the pow2 page groups the blocking copy scatters; the
+    # commit scatters them next cycle. Holding them here keeps them alive
+    # until then; a slot that leaves drops them unscattered
+    swap_staged: Optional[dict] = None
 
 
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -334,6 +378,21 @@ def _pow2_chunks(items: list, max_chunk: int) -> list[list]:
             b *= 2
         out.append(items[i : i + b])
         i += b
+    return out
+
+
+def _pow2_sizes(n: int) -> list[int]:
+    """Greedy power-of-two decomposition (7 -> [4, 2, 1]): the host tier's
+    page groups, so no group pads past real rows."""
+    out: list[int] = []
+    b = 1
+    while b * 2 <= n:
+        b *= 2
+    while n:
+        while b > n:
+            b //= 2
+        out.append(b)
+        n -= b
     return out
 
 
@@ -422,6 +481,16 @@ class Engine:
         # the scheduler autopilot needs the flight recorder's phase
         # summaries, which the port does not have yet: True raises
         autopilot: bool = False,
+        # the host-RAM KV tier (ops/paged.py HostKVPool): > 0 bounds a host
+        # pool that preemption, park expiry and mid-prefill deadline drops
+        # copy their written rows into instead of discarding them; a later
+        # admission restores them (a bit-exact copy) instead of re-running
+        # the prefill. 0 = off. Greedy outputs are equal on or off
+        host_kv_bytes: int = 0,
+        # stage the next restore chunk's host -> device copy a cycle early
+        # on a side stream; False = the blocking copy. Equal outputs either
+        # way; only swap_stall_s moves
+        host_prefetch: bool = True,
         max_queue: int = 0,  # 0 = unbounded
         quantize: Optional[str] = None,  # "int8" = weight-only int8 serving
         # alias for quantize="int8", matching the reference's knob names
@@ -444,6 +513,10 @@ class Engine:
         if spec_len > 0 and group is not None:
             raise ValueError("spec_len > 0 under a serving group is not ported yet: the verify "
                              "pass's per-token commit on sp ranks (ROADMAP A.14)")
+        if host_kv_bytes > 0 and group is not None:
+            raise ValueError("host_kv_bytes > 0 under a serving group is not ported yet: each "
+                             "rank holds a slice of every page, so entries, budgets and the "
+                             "handoff need their own design (ROADMAP A.14)")
         self.device = resolve_device(device)
         if isinstance(config, str):
             config = PRESETS[config]
@@ -504,6 +577,22 @@ class Engine:
         # a test seam: this many coming verify dispatches reject every draft
         # (the reference's engine.spec_mismatch fault site, ROADMAP A.11)
         self._spec_force_reject = 0
+        # the host KV tier: the pool is engine-thread owned; stats() reads
+        # the mirror ints. Entries are pinned when serving on CUDA
+        self.host_kv_bytes = max(0, int(host_kv_bytes))
+        self._host_pool = HostKVPool(self.host_kv_bytes) if self.host_kv_bytes else None
+        self.host_prefetch = bool(host_prefetch)  # read per restore chunk
+        self._pin = self.device.type == "cuda"
+        self._swap_stream = None  # the prefetch's side stream, made at first use
+        # handoff entries from any thread, landed in the pool by the engine
+        # thread at the top of _fill_slots, before admission matching
+        self._kv_inject: "queue.Queue[HostKVEntry]" = queue.Queue()
+        self.kv_injects = 0  # handoff entries landed in the host pool
+        self.kv_swap_outs = 0  # entries offloaded to the host tier
+        self.kv_swap_ins = 0  # restores completed
+        self.kv_prefetch_commits = 0  # restore chunks landed from a staged copy
+        self._host_kv_used = 0  # mirrors of the pool
+        self._host_kv_entries = 0
         # axis sizes, read by the LLM controller (``engine.mesh.shape``)
         self.mesh = ServingMesh.of(group)
         # lockstep frame stream across the group's ranks (None on one rank)
@@ -716,6 +805,7 @@ class Engine:
         timeout_s: Optional[float] = None,
         on_tool_call=None,
         park: bool = False,
+        export_kv: bool = False,
     ) -> Future:
         """Thread-safe; returns a Future[GenerationResult]. ``timeout_s``
         fails the request fast (DeadlineExceededError) if it is still queued
@@ -733,7 +823,13 @@ class Engine:
         the prompt's KV, so the conversation's next turn (a prompt that
         extends this one) adopts it and prefills only its suffix. It
         changes when KV is computed, never what is generated; a truncated
-        prompt (its tail kept) never parks."""
+        prompt (its tail kept) never parks.
+
+        ``export_kv=True`` (prefill -> decode disaggregation) copies the
+        prompt's written KV out at a stop or length finish and attaches it
+        to the result as ``GenerationResult.kv_handoff``, a
+        ``HostKVEntry`` another engine restores through
+        :meth:`inject_host_kv`. It supersedes parking."""
         s = sampling or SamplingParams()
         tokens = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         prefix_len = len(s.forced_prefix)
@@ -754,13 +850,19 @@ class Engine:
             deadline=(time.monotonic() + timeout_s) if timeout_s else None,
             on_tokens=on_tokens,
             on_tool_call=on_tool_call,
-            park=bool(park) and self.park_max_s > 0 and not truncated,
+            park=bool(park) and self.park_max_s > 0 and not truncated and not export_kv,
+            export_kv=bool(export_kv),
         )
         if on_tool_call is not None:
             req.tool_parser = ToolStreamParser()
         req.future.early_tool_calls = req.early_calls  # type: ignore[attr-defined]
         req.future.admitted = req.admitted  # type: ignore[attr-defined]
         req.future.rid = req.rid  # type: ignore[attr-defined]  # cancel() keys on it
+        if export_kv and self.group is not None:
+            req.future.set_exception(ValueError(
+                "export_kv under a serving group is not ported yet: each rank holds a slice "
+                "of every page (ROADMAP A.14)"))
+            return req.future
         if self._follower:
             # a locally submitted request would break lockstep: followers
             # only replay the leader's frame stream
@@ -923,7 +1025,18 @@ class Engine:
                 "int8": walk.INT8_LAUNCHES,
                 "state": walk.STATE_LAUNCHES,
             },
+            # the memory tiers: the host-RAM tier's occupancy (mirror ints,
+            # refreshed by _publish_memory_state) and dedup's payoff
             "memory": {
+                "host_kv": {
+                    "enabled": self.host_kv_bytes > 0,
+                    "max_bytes": self.host_kv_bytes,
+                    "used_bytes": self._host_kv_used,
+                    "entries": self._host_kv_entries,
+                    "swap_outs": self.kv_swap_outs,
+                    "swap_ins": self.kv_swap_ins,
+                    "injects": self.kv_injects,
+                },
                 "prefix_dedup": {
                     "enabled": self.prefix_dedup,
                     "shares": self.prefix_shares,
@@ -986,6 +1099,7 @@ class Engine:
                     self._sweep_parked()
                     if self._has_work():
                         self._dispatch_once()
+                    self._publish_memory_state()
         except Exception as e:  # an engine crash must not hang callers
             log.exception("engine loop crashed")
             self._slots.clear()
@@ -1218,8 +1332,9 @@ class Engine:
             if cut >= self.page_size and (best is None or cut > best[2]):
                 best = (s, sl.request.rid, cut)
         for g_req, g_slot, _pages, g_match in group:
-            if g_match is not None and g_match[1].get("share_of") is not None:
-                continue
+            if g_match is not None and (g_match[1].get("share_of") is not None
+                                        or g_match[1].get("swap") is not None):
+                continue  # a follower or a restore: not a root writer
             cut = self._common_cut(full, self._full_row(g_req))
             if cut >= self.page_size and (best is None or cut > best[2]):
                 best = (g_slot, g_req.rid, cut)
@@ -1264,7 +1379,11 @@ class Engine:
         chunk in ``_prefill_chunks``. With it off, dedup followers still
         start as prefilling slots (they may wait on their leader), and the
         rest prefill here: long rows spill first, then plain rows and
-        suffix continuations run as separate power-of-two batches."""
+        suffix continuations run as separate power-of-two batches. Host-tier
+        restores start as prefilling slots too (their rows land under the
+        budget). Injected handoff entries land in the host pool first, so
+        an inject before a submit is seen by its admission."""
+        self._drain_kv_inject()
         admitted = False
         while self._waiting and (self._free or self._parked_count):
             group = self._collect_group()
@@ -1277,8 +1396,12 @@ class Engine:
                 # up may have cancelled the future already
                 with contextlib.suppress(InvalidStateError):
                     req.admitted.set_result(True)
-                start, share = 0, None
-                if match is not None:
+                start, share, swap = 0, None, None
+                if match is not None and match[1].get("swap") is not None:
+                    # a host restore: its rows land chunk by chunk into
+                    # fresh pages, prefill_pos advancing from 0 as they do
+                    swap = match[1]["swap"]
+                elif match is not None:
                     # a hit borrows the entry's pages, a follower its
                     # leader's; an adopted slot kept its own: either way the
                     # prefix is in the table already
@@ -1297,16 +1420,16 @@ class Engine:
                 self._block_tables[slot, :] = TRASH_PAGE
                 self._block_tables[slot, : len(pages)] = pages
                 self._tables_dirty = True
-                if self.prefill_chunk or share is not None:
+                if self.prefill_chunk or share is not None or swap is not None:
                     # the re-admission edges reproject the rate plan (a
-                    # follower admitted with chunking off plans as "admit",
-                    # as in the reference)
+                    # follower or a restore admitted with chunking off plans
+                    # as "admit", as in the reference)
                     reason = "admit"
                     if self.prefill_chunk and req.preempt_count:
                         reason = "resume"
                     elif self.prefill_chunk and match is not None and match[1].get("in_slot"):
                         reason = "adopt"
-                    self._begin_chunked_prefill(req, slot, start, share, reason)
+                    self._begin_chunked_prefill(req, slot, start, share, reason, swap=swap)
                 else:
                     direct.append([(req, slot, pages), start])
             if not direct:
@@ -1327,11 +1450,14 @@ class Engine:
         the pages of each one's row, and resolving its KV reuse: adopting
         the parked slot of its conversation's previous turn, borrowing a
         prefix-cache entry's pages, or sharing a dedup leader's (a live
-        slot or an earlier member of this group). The reuse covering the
-        most rows wins; ties go to adoption (moves nothing), then the cache
-        (written rows), then dedup (may wait on its leader). Under pressure
-        parked slots (the dedup leader last) and then cache entries yield.
-        Stops at the first request the pool can't cover (FIFO)."""
+        slot or an earlier member of this group), or restoring a host-tier
+        entry (its rid's, else the longest token prefix). The reuse covering
+        the most rows wins; ties go to adoption (moves nothing), then the
+        cache (written rows), then dedup (may wait on its leader), then the
+        host tier (a copy). A host entry is consumed only once the row's
+        fresh pages are reserved. Under pressure parked slots (the dedup
+        leader last) and then cache entries yield. Stops at the first
+        request the pool can't cover (FIFO)."""
         group: list[tuple[_Request, int, list[int], Optional[tuple]]] = []
         while (self._waiting and len(group) < self.prefill_batch_max
                and (self._free or self._parked_count)):
@@ -1348,12 +1474,14 @@ class Engine:
             if self._prefix_enabled and not req.truncated:
                 match = self._match_prefix(req)
             full = self._full_row(req)
+            host_e, host_cut = self._match_host(req, full)
             dedup = self._match_dedup_leader(full, group) if not req.truncated else None
             adopt = self._match_parked(req)
             best_cut, _prio, kind = max(
-                (self._slots[adopt].park_cut if adopt is not None else 0, 2, "adopt"),
-                (match[1]["cut"] if match is not None else 0, 1, "cache"),
-                (dedup[2] if dedup is not None else 0, 0, "dedup"),
+                (self._slots[adopt].park_cut if adopt is not None else 0, 3, "adopt"),
+                (match[1]["cut"] if match is not None else 0, 2, "cache"),
+                (dedup[2] if dedup is not None else 0, 1, "dedup"),
+                (host_cut, 0, "host"),
             )
             if best_cut <= 0:
                 kind = None
@@ -1394,6 +1522,11 @@ class Engine:
             if kind == "dedup":
                 match = (None, {"cut": best_cut, "share_of": dedup[:2]})
                 self.prefix_shares += 1
+            elif kind == "host":
+                # the reservation holds: consume the entry (its bytes return
+                # to the budget; the rows restore chunk by chunk)
+                self._host_pool.pop(host_e.rid)
+                match = (None, {"cut": best_cut, "swap": host_e})
             elif kind is None:
                 match = None
             self._waiting.popleft()
@@ -1697,18 +1830,20 @@ class Engine:
 
     def _begin_chunked_prefill(self, req: _Request, slot: int, start: int,
                                share_of: Optional[tuple] = None,
-                               reason: str = "admit") -> None:
+                               reason: str = "admit",
+                               swap: Optional[HostKVEntry] = None) -> None:
         """Admit a request as a PREFILLING slot: slot and pages reserved,
         ``start`` rows already valid (cache pages, an adopted slot's prompt,
         a dedup leader's pages), no model compute yet, and its rate plan
-        made (``reason``: admit, resume or adopt). Its lane uploads as
-        inactive until the final chunk."""
+        made (``reason``: admit, resume or adopt). ``swap`` is a host-tier
+        entry whose rows restore before any model chunk. Its lane uploads
+        as inactive until the final chunk."""
         self._admit_seq += 1
         sl = _Slot(
             request=req, prompt_len=len(req.prompt),
             prefix_len=len(req.sampling.forced_prefix), admit_seq=self._admit_seq,
             prefilling=True, prefill_pos=start, prefill_row=self._full_row(req),
-            share_of=share_of,
+            share_of=share_of, swap_entry=swap,
         )
         self._project_quota(sl, reason)
         self._slots[slot] = sl
@@ -1803,6 +1938,9 @@ class Engine:
             if self._channel is not None:
                 self._cancelled.add(sl.request.rid)
             else:
+                # the partial prompt KV goes to the host tier first: a retry
+                # of the same task prefix-matches it
+                self._swap_out(slot, sl, reason="expire")
                 self._drop_prefilling_slot(slot)
 
     def _drop_prefilling_slot(self, slot: int) -> _Slot:
@@ -1823,9 +1961,13 @@ class Engine:
         follower waits, spending nothing, until its leader has written the
         shared rows. Mid chunks write KV only; a final chunk samples the
         first token (a row whose only chunk it is takes the plain causal
-        program). With the megastep the chunks are planned here and left in
-        ``_fuse_pending`` for this cycle's decode site; nothing is recorded
-        or advanced until they dispatch. Returns the tokens spent."""
+        program). A host restore's chunk (rows up to its cut) costs budget
+        like a prefill chunk and is ordered with them; it lands here, or,
+        when its rows were staged last cycle and the cycle fuses, as the
+        megastep's swaps phase. With the megastep the chunks are planned
+        here and left in ``_fuse_pending`` for this cycle's decode site;
+        nothing is recorded or advanced until they dispatch. Returns the
+        tokens spent."""
         pre = [(s, sl) for s, sl in self._slots.items() if sl.prefilling]
         if self._channel is None:
             pre.sort(key=lambda t: (t[1].request.deadline if t[1].request.deadline is not None
@@ -1845,32 +1987,47 @@ class Engine:
         sched: list[tuple[int, _Slot, int, int]] = []  # (slot, sl, start, n)
         spent = 0
         for slot, sl in ready:
-            n = min(self._slot_chunk_tokens(sl, CHK), len(sl.prefill_row) - sl.prefill_pos)
+            end = self._swap_in_cut(sl) if sl.swap_entry is not None else len(sl.prefill_row)
+            n = min(self._slot_chunk_tokens(sl, CHK), end - sl.prefill_pos)
             if sched and spent + n > chunk_budget:
                 break  # later slots wait a cycle
             sched.append((slot, sl, sl.prefill_pos, n))
             spent += n
         if not sched:
             return 0
-        mids = [c for c in sched if c[2] + c[3] < len(c[1].prefill_row)]
-        finals = [c for c in sched if c[2] + c[3] >= len(c[1].prefill_row)]
+        restores = [c for c in sched if c[1].swap_entry is not None]
+        model = [c for c in sched if c[1].swap_entry is None]
+        mids = [c for c in model if c[2] + c[3] < len(c[1].prefill_row)]
+        finals = [c for c in model if c[2] + c[3] >= len(c[1].prefill_row)]
         plain = [c for c in finals if c[2] == 0]
         conts = [c for c in finals if c[2] > 0]
-        if self.megastep:
+        staged_ready = any(self._staged_for(sl, st, n) is not None for _, sl, st, n in restores)
+        fused = self.megastep and bool(mids or conts or plain or staged_ready)
+        deferred = self._run_restores(restores, defer=fused)
+        landed = [c for c in restores if not any(c[0] == s[0] for s in deferred)]
+        if fused:
             # a fused plain or continuation final samples its first token
             # inside the fused cycle, so it joins the NEXT cycle's decode
             # lanes (the split path's joins this one's): a shift in the
-            # schedule, not in any greedy token
-            self._fuse_pending = {"mids": mids, "finals": conts, "plains": plain}
+            # schedule, not in any greedy token. Staged restores ride it as
+            # its swaps phase
+            self._fuse_pending = {"mids": mids, "finals": conts, "plains": plain,
+                                  "swaps": deferred, "landed": landed}
         else:
-            self._dispatch_split(mids, plain, conts)
+            self._dispatch_split(mids, plain, conts, landed=landed)
         return spent
 
-    def _dispatch_split(self, mids: list, plains: list, conts: list) -> None:
-        """A round's chunks through the split dispatches, one per pow2
-        batch of each kind (mid chunks, plain finals, continuation finals),
-        then the round recorded."""
+    def _dispatch_split(self, mids: list, plains: list, conts: list, landed: list = (),
+                        swaps: list = ()) -> None:
+        """A round's chunks through the split dispatches: staged restore
+        scatters first (their rows are the cycle's oldest), then one
+        dispatch per pow2 batch of each kind (mid chunks, plain finals,
+        continuation finals), then the round recorded with the restore
+        chunks that already ``landed``."""
         with self._hol_clock():
+            for slot, sl, st, n, staged in swaps:
+                sl.swap_stall_s += self._commit_staged_swap(staged)
+                self._advance_restore(slot, sl, st, n)
             for batch in _pow2_chunks(mids, self.prefill_batch_max):
                 self._chunk_dispatch(batch)
             for batch in _pow2_chunks(plains, self.prefill_batch_max):
@@ -1879,7 +2036,7 @@ class Engine:
                 self._prefill_group(self._chunk_items(batch),
                                     starts=np.asarray([c[2] for c in batch], dtype=np.int64))
         self._advance_mids(mids)
-        self._record_chunk_round(mids + plains + conts)
+        self._record_chunk_round([*landed, *(c[:4] for c in swaps), *mids, *plains, *conts])
 
     def _advance_mids(self, mids: list) -> None:
         """Mid chunks that dispatched: their rows are written."""
@@ -2250,18 +2407,24 @@ class Engine:
         dispatch would have landed before the preemption discarded it) but
         is never recorded as a dispatched chunk."""
 
-        def live(c):
-            slot, sl, st, _n = c
-            return self._slots.get(slot) is sl and sl.prefilling and sl.prefill_pos == st
+        def live(c, restoring=False):
+            slot, sl, st = c[:3]
+            return (self._slots.get(slot) is sl and sl.prefilling and sl.prefill_pos == st
+                    and (sl.swap_entry is not None) == restoring)
 
         for phase in ("mids", "plains", "finals"):
             pending[phase] = [c for c in pending[phase] if live(c)]
+        # a staged restore scatters only into a slot still mid-restore at
+        # the staged start: a preempt or cancel since freed those pages
+        pending["swaps"] = [c for c in pending["swaps"] if live(c, restoring=True)]
 
     def _dispatch_pending_split(self, pending: dict) -> None:
-        """A fused cycle that does not fuse (its shape is past the bound):
-        its live lanes through the split dispatches."""
+        """A fused cycle that does not fuse (its shape is past the bound,
+        or only staged scatters are left): its live lanes through the split
+        dispatches."""
         self._validate_pending(pending)
-        self._dispatch_split(pending["mids"], pending["plains"], pending["finals"])
+        self._dispatch_split(pending["mids"], pending["plains"], pending["finals"],
+                             landed=pending["landed"], swaps=pending["swaps"])
 
     def _megastep_flush(self, pending: Optional[dict]) -> None:
         """A fused cycle with nothing left to decode (no live slot, or
@@ -2270,13 +2433,17 @@ class Engine:
             self._dispatch_pending_split(pending)
 
     def _megastep_key(self, mids: list, plains: list, finals: list,
-                      d: Optional[dict], ver: Optional[dict] = None) -> str:
+                      d: Optional[dict], ver: Optional[dict] = None, swaps: list = ()) -> str:
         """The fused shape, as the reference keys it:
-        ``megastep[paged,m<bucket>x<B>+p<bucket>x<B>+f<bucket>x<B>+d<W>x<K>]``
-        (present phases only, ``v<W>x<T>`` for a verify pass in place of the
-        decode block; ``+tbl`` once the JSON table exists), each phase's
-        batch padded to a power of two. Host arithmetic only."""
+        ``megastep[paged,s<m>-<m>+m<bucket>x<B>+p<bucket>x<B>+f<bucket>x<B>+d<W>x<K>]``
+        (present phases only: ``s`` lists the staged scatters' pow2 page
+        groups in order, ``v<W>x<T>`` stands for a verify pass in place of
+        the decode block; ``+tbl`` once the JSON table exists), each lane
+        phase's batch padded to a power of two. Host arithmetic only."""
         parts = []
+        if swaps:
+            parts.append("s" + "-".join(str(len(ids)) for *_c, staged in swaps
+                                        for ids, _blocks in staged["groups"]))
         if mids:
             bucket = _next_bucket(max(n for _, _, _, n in mids), self.prefill_buckets)
             parts.append(f"m{bucket}x{_pow2(len(mids))}")
@@ -2297,26 +2464,31 @@ class Engine:
 
     def _megastep_dispatch(self, pending: dict, d: Optional[dict] = None,
                            ver: Optional[dict] = None) -> Optional[bool]:
-        """THE fused cycle: this cycle's mid chunks (KV only), plain
-        finals, continuation finals (each with its first-token sample) and
-        the decode block or the verify pass (``ver``), in that order on
+        """THE fused cycle: this cycle's staged restore scatters, mid chunks
+        (KV only), plain finals, continuation finals (each with its
+        first-token sample) and the decode block or the verify pass
+        (``ver``), in that order on
         ``self.cache``, each phase ONE lane batch padded to a power of two
         (pad lanes write the trash page), then ONE host read for the
         finals' first tokens and automaton states and the block's (or the
         pass's) tokens. The commits follow: mid chunks advance, the block or
         the pass commits (its lanes predate this cycle's finals), then the
-        finals and plains flip to decoding. True when it dispatched; None
-        when the caller must run the split dispatches (a new shape past
-        ``megastep_max_programs``, or no chunk lane left beside a decode
-        block or a verify pass)."""
+        finals and plains flip to decoding. A fused restore adds no stall
+        seconds: its copy overlapped the last cycle. True when it
+        dispatched; None when the caller must run the split dispatches (a
+        new shape past ``megastep_max_programs``, staged scatters alone, or
+        no chunk lane or scatter left beside a decode block or a verify
+        pass)."""
         self._validate_pending(pending)
         mids, plains, finals = pending["mids"], pending["plains"], pending["finals"]
+        swaps = pending["swaps"]
         if not (mids or plains or finals):
-            if d is None and ver is None:  # every planned lane was dropped
-                self._record_chunk_round([])
+            if not swaps and d is None and ver is None:  # every planned lane was dropped
+                self._record_chunk_round(pending["landed"])
                 return True
-            return None
-        key = self._megastep_key(mids, plains, finals, d, ver)
+            if (d is None and ver is None) or not swaps:
+                return None
+        key = self._megastep_key(mids, plains, finals, d, ver, swaps)
         if (key not in self._megastep_shapes
                 and len(self._megastep_shapes) >= self.megastep_max_programs):
             self.megastep_fallbacks += 1
@@ -2328,6 +2500,8 @@ class Engine:
         pl_items, fin_items = self._chunk_items(plains), self._chunk_items(finals)
         p_out = f_out = d_out = (None, None)
         v_out = (None, None, None)
+        for *_c, staged in swaps:
+            self._scatter_staged(staged)
         if mids:
             self._mid_device(self._mid_lanes(mids, _pow2(len(mids))))
         if plains:
@@ -2346,6 +2520,9 @@ class Engine:
             *p_out, *f_out, *d_out, *v_out)
         self.megastep_dispatches += 1
         self.prefill_tokens += sum(n for _, _, _, n in mids)
+        for slot, sl, st, n, _staged in swaps:
+            self._count_prefetch_commit()
+            self._advance_restore(slot, sl, st, n)
         self._advance_mids(mids)
         if d is not None:
             self._commit_decode_block(d, block, d_states)
@@ -2355,7 +2532,8 @@ class Engine:
             self._finish_prefill_dispatch(fin_items, fin_ln, f_firsts, f_states)
         if plains:
             self._finish_prefill_dispatch(pl_items, pl_ln, p_firsts, p_states)
-        self._record_chunk_round(mids + plains + finals)
+        self._record_chunk_round([*pending["landed"], *(c[:4] for c in swaps), *mids, *plains,
+                                  *finals])
         return True
 
     def _consume_tokens(self, slot: int, sl: _Slot, toks) -> None:
@@ -2463,10 +2641,14 @@ class Engine:
             self._park(slot, sl)
             self._resolve_result(sl, reason)
             return
+        kv_entry = None
+        if req.export_kv and reason in ("stop", "length") and not self._stopping:
+            # the handoff: the prompt's rows out before the pages go
+            kv_entry = self._export_kv_handoff(slot, sl)
         self._slots.pop(slot)
         self._release_slot(slot)
         self._applied.discard(req.rid)
-        self._resolve_result(sl, reason)
+        self._resolve_result(sl, reason, kv_entry)
 
     def _release_slot(self, slot: int) -> None:
         """A vacated slot: its mirrors zeroed, its id and pages returned."""
@@ -2480,7 +2662,8 @@ class Engine:
         self._block_tables[slot, :] = TRASH_PAGE
         self._tables_dirty = True
 
-    def _resolve_result(self, sl: _Slot, reason: str) -> None:
+    def _resolve_result(self, sl: _Slot, reason: str,
+                        kv_entry: Optional[HostKVEntry] = None) -> None:
         """Resolve a slot's future with its result: at a finish, and at a
         park (the caller gets its result at once; only the KV lingers)."""
         req = sl.request
@@ -2497,6 +2680,7 @@ class Engine:
             ttft_ms=(sl.first_token_at - req.enqueued) * 1e3,
             latency_ms=(now - req.enqueued) * 1e3,
             preempt_count=req.preempt_count,
+            kv_handoff=kv_entry,
         )
         if not req.future.done():
             req.future.set_result(result)
@@ -2630,7 +2814,9 @@ class Engine:
         save its sampled tokens on the request, free its pages and requeue
         it at the FRONT. Re-admitted, it prefills prompt + partial and
         decodes on; its greedy result is byte-identical to an uncontended
-        run and only ``preempt_count`` shows it."""
+        run and only ``preempt_count`` shows it. With the host tier its
+        written rows are copied out before the pages go, and the resume
+        restores them instead of prefilling them again."""
         if self._slots[slot].parked:
             self._release_parked(slot, reason=reason)  # nothing to save
             return
@@ -2645,6 +2831,7 @@ class Engine:
             self._unshare_followers(slot, sl)
         else:
             req.resume_tokens = list(sl.generated[sl.prefix_len:])
+        self._swap_out(slot, sl, reason="preempt")
         req.preempt_count += 1
         self.preemptions += 1
         self._release_slot(slot)
@@ -2730,11 +2917,14 @@ class Engine:
 
     def _release_parked(self, slot: int, reason: str = "pressure") -> None:
         """Free a parked slot entirely (pressure, expiry, stop, or a
-        preemption landing on it): pure bookkeeping, its future resolved
-        at park time."""
+        preemption landing on it): its future resolved at park time. Its
+        prompt KV may still serve the same persona or conversation later,
+        so pressure and expiry copy it to the host tier first."""
         sl = self._slots.get(slot)
         if sl is None or not sl.parked:
             return
+        if reason in ("pressure", "expired", "pool_pressure", "fault"):
+            self._swap_out(slot, sl, reason=f"park_{reason}")
         self._slots.pop(slot)
         self._parked_count -= 1
         self._release_slot(slot)
@@ -2799,3 +2989,335 @@ class Engine:
                              "(suffix-only prefill)")
         self._waiting.popleft()
         return [(req, slot, kept + fresh, (None, {"cut": cut, "in_slot": True}))]
+
+    # -- the host KV tier ------------------------------------------------
+
+    def set_host_kv_bytes(self, n: int) -> None:
+        """Resize the host KV tier (0 disables it) on an idle engine, for
+        A/B runs on one warm engine; shrinking evicts the LRU entries past
+        the new budget."""
+        self.host_kv_bytes = max(0, int(n))
+        if not self.host_kv_bytes:
+            self._host_pool = None
+        elif self._host_pool is None:
+            self._host_pool = HostKVPool(self.host_kv_bytes)
+        else:
+            pool = self._host_pool
+            pool.max_bytes = self.host_kv_bytes
+            while pool.used_bytes > pool.max_bytes and len(pool):
+                pool.pop(next(iter(pool._entries)))
+        self._publish_memory_state()
+
+    def inject_host_kv(self, entry: HostKVEntry) -> bool:
+        """Land a ``HostKVEntry`` (another engine's ``kv_handoff``) in this
+        engine's host tier; thread-safe. The engine thread commits it at
+        the top of the next admission, before matching, so a request
+        submitted after the inject sees it. False when the tier is off or
+        the engine is not running (the request then prefills in full)."""
+        if self._host_pool is None or self._thread is None or self._stopping:
+            return False
+        self._kv_inject.put(entry)
+        return True
+
+    def _drain_kv_inject(self) -> None:
+        """Injected entries into the host pool (engine thread). One that no
+        longer fits (the pool shrank) is dropped: its request recomputes."""
+        landed = False
+        while True:
+            try:
+                entry = self._kv_inject.get_nowait()
+            except queue.Empty:
+                break
+            if self._host_pool is not None and self._host_pool.put(entry):
+                landed = True
+                self.kv_injects += 1
+        if landed:
+            self._publish_memory_state()
+
+    def _publish_memory_state(self) -> None:
+        """The mirrors stats() reads, and the host tier's gauge."""
+        pool = self._host_pool
+        self._host_kv_used = pool.used_bytes if pool is not None else 0
+        self._host_kv_entries = len(pool) if pool is not None else 0
+        if pool is not None:
+            REGISTRY.gauge_set("acp_engine_host_kv_bytes", float(self._host_kv_used),
+                               help="bytes of swapped-out KV resident in the host-RAM "
+                               "offload tier (bounded by --tpu-host-kv-bytes)")
+
+    def _swap_min_rows(self) -> int:
+        """Rows below one page are not worth a host round trip."""
+        return self.page_size
+
+    def _match_host(self, req: _Request, full: list[int]) -> tuple:
+        """Admission's host-tier candidate: the entry swapped out under this
+        rid (preempt -> resume) if its tokens are a strict prefix of the
+        row, else the longest token-prefix entry; ``(entry, cut)`` with the
+        cut page-aligned below the row's last token, or ``(None, 0)``. A
+        peek: the entry is consumed only once the reservation holds."""
+        pool = self._host_pool
+        if pool is None or req.truncated:
+            return None, 0
+        e = pool.get(req.rid)
+        if e is not None and not (0 < e.cut < len(full) and tuple(full[: e.cut]) == e.tokens):
+            e = None
+        if e is None:
+            e = pool.match_prefix(full)
+        if e is None:
+            return None, 0
+        cut = (min(e.cut, len(full) - 1) // self.page_size) * self.page_size
+        if cut < self._swap_min_rows():
+            return None, 0
+        return e, cut
+
+    def _swap_out(self, slot: int, sl: _Slot, reason: str) -> bool:
+        """Copy a slot's written rows to the host pool right before its
+        pages are released (``reason``: preempt, expire, park_<why>): rows
+        ``[0, cut)``, the cut page-aligned and below the row's last token,
+        a bit-exact copy, so a later restore gives what a recompute would.
+        A slot preempted mid-restore re-puts its whole consumed entry, with
+        no copy, under its own rid. No swap for a dedup follower still
+        waiting (its shared rows may be unwritten), a truncated request, or
+        fewer than a page of rows. True when an entry landed."""
+        pool = self._host_pool
+        if pool is None or self._stopping:
+            return False
+        req = sl.request
+        if req.truncated or sl.share_of is not None:
+            return False
+        if sl.prefilling:
+            rows = sl.prefill_pos
+        elif sl.parked:
+            rows = sl.park_cut
+        else:
+            rows = int(self._seq_lens[slot])
+        row = self._full_row(req)
+        cut = (min(rows, len(row) - 1) // self.page_size) * self.page_size
+        restoring = sl.prefilling and sl.swap_entry is not None
+        if cut < self._swap_min_rows() and not restoring:
+            return False
+        if restoring:
+            entry = sl.swap_entry
+            if entry.rid != req.rid:
+                entry = HostKVEntry(rid=req.rid, tokens=entry.tokens, k=entry.k, v=entry.v,
+                                    k_scale=entry.k_scale, v_scale=entry.v_scale)
+        else:
+            out = self._extract_pages(self._slot_pages[slot][: cut // self.page_size])
+            entry = HostKVEntry(rid=req.rid, tokens=tuple(row[:cut]), k=out["k"], v=out["v"],
+                                k_scale=out.get("ks"), v_scale=out.get("vs"))
+        if not pool.put(entry):
+            return False  # bigger than the whole budget: the resume recomputes
+        self.kv_swap_outs += 1
+        REGISTRY.counter_add("acp_engine_kv_swap_out_total", 1.0,
+                             help="KV offloads to the host-RAM tier (preemption, park expiry, "
+                             "and mid-prefill deadline drops that would otherwise discard "
+                             "written KV)")
+        log.debug("swapped out rid %s (slot %d, %d rows, %s)", req.rid, slot, entry.cut, reason)
+        self._publish_memory_state()
+        return True
+
+    def _export_kv_handoff(self, slot: int, sl: _Slot) -> Optional[HostKVEntry]:
+        """The prefill -> decode handoff unit of a finishing ``export_kv``
+        request: ``_swap_out``'s page-aligned rows ``[0, cut)``, attached to
+        the result as ``handoff-<rid>`` instead of landing in this engine's
+        pool. None for a truncated prompt, a dedup follower or too few
+        rows."""
+        req = sl.request
+        if req.truncated or sl.share_of is not None:
+            return None
+        row = self._full_row(req)
+        cut = min(int(self._seq_lens[slot]), len(row) - 1)
+        cut = (cut // self.page_size) * self.page_size
+        if cut < self._swap_min_rows():
+            return None
+        out = self._extract_pages(self._slot_pages[slot][: cut // self.page_size])
+        return HostKVEntry(rid=f"handoff-{req.rid}", tokens=tuple(row[:cut]), k=out["k"],
+                           v=out["v"], k_scale=out.get("ks"), v_scale=out.get("vs"))
+
+    def _extract_pages(self, pages: list[int]) -> dict[str, torch.Tensor]:
+        """Gather whole pages to host tensors, token-major: ``{"k"/"v": [L,
+        n*P, H_kv, d]}`` plus ``{"ks"/"vs": [L, n*P, H_kv]}`` for an int8
+        pool (its bytes and scales verbatim). The gathers run in pow2 page
+        groups; on the card each pool tensor goes device -> host in ONE
+        copy into pinned memory, and one event joins them all before the
+        entry may be read."""
+        L, P = self.config.n_layers, self.page_size
+        groups, i = [], 0
+        for m in _pow2_sizes(len(pages)):
+            ids = self._upload(np.asarray(pages[i: i + m], dtype=np.int64))
+            groups.append({name: a.index_select(1, ids) for name, a in self.cache.items()})
+            i += m
+        out: dict[str, torch.Tensor] = {}
+        for name, a in self.cache.items():
+            parts = [g[name] for g in groups]
+            rows = (torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]).reshape(
+                L, len(pages) * P, *a.shape[3:])
+            if self._pin:
+                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                rows = host
+            out[name] = rows
+        if self._pin:
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        return out
+
+    def _swap_in_cut(self, sl: _Slot) -> int:
+        """Rows a mid-restore slot takes from its entry: the entry's cut,
+        page-aligned and never past the strict-prefix edge of the row."""
+        cut = min(sl.swap_entry.cut, len(sl.prefill_row) - 1)
+        return (cut // self.page_size) * self.page_size
+
+    def _swap_groups(self, slot: int, entry: HostKVEntry, start: int, n: int) -> list:
+        """Rows ``[start, start + n)`` of ``entry`` on the device, as the
+        pow2 page groups the scatter writes: ``[(page ids, {name: [L, m, P,
+        ...]})]``. On the card the copies are issued on the current stream,
+        one per layer and pool tensor (a layer's rows are contiguous in
+        host memory), asynchronous from pinned memory."""
+        P = self.page_size
+        pages = self._slot_pages[slot][start // P: (start + n) // P]
+        if TRASH_PAGE in pages:
+            raise RuntimeError(f"slot {slot}: a restore would write the trash page")
+        rows = {"k": entry.k, "v": entry.v}
+        if "ks" in self.cache:
+            if entry.k_scale is None:
+                raise RuntimeError("an entry without scale rows cannot restore into an int8 pool")
+            rows.update(ks=entry.k_scale, vs=entry.v_scale)
+        groups, i = [], 0
+        for m in _pow2_sizes(len(pages)):
+            lo, hi = start + i * P, start + (i + m) * P
+            ids = torch.tensor(pages[i: i + m], dtype=torch.int64)
+            if self._pin:
+                ids = ids.pin_memory().to(self.device, non_blocking=True)
+            blocks = {}
+            for name, a in rows.items():
+                if self._pin:
+                    dev = torch.empty((a.shape[0], hi - lo, *a.shape[2:]), dtype=a.dtype,
+                                      device=self.device)
+                    for layer in range(a.shape[0]):
+                        dev[layer].copy_(a[layer, lo:hi], non_blocking=True)
+                else:
+                    dev = a[:, lo:hi]
+                blocks[name] = dev.reshape(a.shape[0], m, P, *a.shape[2:])
+            groups.append((ids, blocks))
+            i += m
+        return groups
+
+    def _scatter(self, groups: list) -> None:
+        """Write restored page groups into the pools, by page id along dim 1
+        of each pool tensor (in place). On the card the blocks are marked
+        as used by the current stream, so a staged copy's memory is not
+        reused before its scatter has run."""
+        cur = torch.cuda.current_stream(self.device) if self._pin else None
+        for ids, blocks in groups:
+            if cur is not None:
+                ids.record_stream(cur)
+            for name, b in blocks.items():
+                if cur is not None:
+                    b.record_stream(cur)
+                self.cache[name].index_copy_(1, ids, b)
+
+    def _swap_in_rows(self, slot: int, entry: HostKVEntry, start: int, n: int) -> float:
+        """The blocking restore of rows ``[start, start + n)`` (page-aligned)
+        into the slot's pages: the host -> device copies, a wait until they
+        land, the scatter. Returns the engine-thread seconds it blocked."""
+        t0 = time.monotonic()
+        groups = self._swap_groups(slot, entry, start, n)
+        if self._pin:
+            torch.cuda.current_stream(self.device).synchronize()
+        self._scatter(groups)
+        return time.monotonic() - t0
+
+    def _stage_swap_in(self, slot: int, sl: _Slot) -> None:
+        """The prefetch's stage half: the NEXT restore chunk's rows start
+        host -> device on a side stream, in the blocking path's page groups,
+        and an event marks their arrival. No page is written until the
+        commit half scatters them next cycle, so a slot that leaves first
+        just drops them."""
+        start = sl.prefill_pos
+        n = min(self._slot_chunk_tokens(sl, self._chunk_tokens()), self._swap_in_cut(sl) - start)
+        if n <= 0:
+            sl.swap_staged = None
+            return
+        event = None
+        if self._pin:
+            if self._swap_stream is None:
+                self._swap_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._swap_stream):
+                groups = self._swap_groups(slot, sl.swap_entry, start, n)
+            event = torch.cuda.Event()
+            event.record(self._swap_stream)
+        else:
+            groups = self._swap_groups(slot, sl.swap_entry, start, n)
+        sl.swap_staged = {"start": start, "n": n, "groups": groups, "event": event}
+
+    @staticmethod
+    def _staged_for(sl: _Slot, start: int, n: int) -> Optional[dict]:
+        """The slot's staged rows if they are exactly this chunk's."""
+        st = sl.swap_staged
+        return st if st is not None and st["start"] == start and st["n"] == n else None
+
+    def _scatter_staged(self, staged: dict) -> None:
+        """The commit half: the compute stream waits for the staged copies,
+        then scatters them."""
+        if staged["event"] is not None:
+            torch.cuda.current_stream(self.device).wait_event(staged["event"])
+        self._scatter(staged["groups"])
+
+    def _count_prefetch_commit(self) -> None:
+        self.kv_prefetch_commits += 1
+        REGISTRY.counter_add("acp_engine_kv_prefetch_commits_total", 1.0,
+                             help="host-KV restore chunks whose rows were prefetched (staged "
+                             "host->device a cycle early) and landed by scatter commit")
+
+    def _commit_staged_swap(self, staged: dict) -> float:
+        """A staged chunk's split commit; returns the seconds it blocked."""
+        t0 = time.monotonic()
+        self._scatter_staged(staged)
+        self._count_prefetch_commit()
+        return time.monotonic() - t0
+
+    def _run_restores(self, restores: list, defer: bool = False) -> list:
+        """Land this round's restore chunks ``(slot, sl, start, n)``: a chunk
+        staged last cycle commits its staged rows, any other runs the
+        blocking copy. With ``defer`` (the cycle fuses) a staged chunk is
+        returned instead, as ``(slot, sl, start, n, staged)``, for the
+        megastep's swaps phase."""
+        deferred: list = []
+        if not restores:
+            return deferred
+        with self._hol_clock():
+            for slot, sl, st, n in restores:
+                staged = self._staged_for(sl, st, n)
+                sl.swap_staged = None
+                if staged is not None and defer:
+                    deferred.append((slot, sl, st, n, staged))
+                    continue
+                if staged is not None:
+                    sl.swap_stall_s += self._commit_staged_swap(staged)
+                else:
+                    sl.swap_stall_s += self._swap_in_rows(slot, sl.swap_entry, st, n)
+                self._advance_restore(slot, sl, st, n)
+        return deferred
+
+    def _advance_restore(self, slot: int, sl: _Slot, st: int, n: int) -> None:
+        """A restore chunk landed: the slot's rows advance; at the cut the
+        restore is done, else the next chunk is staged."""
+        sl.prefill_pos = st + n
+        self._seq_lens[slot] = sl.prefill_pos
+        if sl.prefill_pos >= self._swap_in_cut(sl):
+            self._finish_swap_in(slot, sl)
+        elif self.host_prefetch:
+            self._stage_swap_in(slot, sl)
+
+    def _finish_swap_in(self, slot: int, sl: _Slot) -> None:
+        """The restore reached its cut: the slot is a plain mid-prefill slot
+        from here, and model chunks prefill the rest of its row."""
+        self.kv_swap_ins += 1
+        REGISTRY.counter_add("acp_engine_kv_swap_in_total", 1.0,
+                             help="host-tier KV restores completed (re-admissions that "
+                             "swapped rows back in instead of re-running prefill)")
+        log.debug("restored rid %s (slot %d, %d rows, %.6f s stalled)", sl.request.rid, slot,
+                  sl.prefill_pos, sl.swap_stall_s)
+        sl.swap_entry = None
+        self._publish_memory_state()

@@ -13,6 +13,10 @@ and the yardstick the kernel is held against on the card. They gather each
 slot's pages — the ``[S, max_pages, P, H_kv, d]`` copy the kernel exists to
 avoid — and, for int8 pools, dequantize the gathered rows.
 
+``HostKVEntry`` and ``HostKVPool`` are the host-RAM KV tier: swapped-out
+rows as torch CPU tensors (the card's machine has no ``ml_dtypes``, so
+numpy cannot hold bf16), in the reference pool's LRU byte budget.
+
 Context-parallel serving (``sp`` ranks) keeps a ``[P / sp]`` slice of every
 page on each rank; ``merge_sp_states`` and ``fold_self_term`` are the plain
 torch algebra that turns the ranks' unnormalized states into the output,
@@ -23,6 +27,8 @@ merges the splits of the CUDA kernel's split-KV walk inside one launch;
 
 from __future__ import annotations
 
+from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -347,3 +353,105 @@ class PageAllocator:
                 self._free.append(p)
             else:
                 self._refs[p] = left
+
+
+@dataclass
+class HostKVEntry:
+    """Swapped-out KV in host RAM: token-major rows ``[0, cut)`` of a
+    request's prefill row, as torch CPU tensors (pinned when the engine
+    serves on CUDA).
+
+    ``tokens`` is the exact token sequence whose KV the rows hold, so an
+    entry matches either by the rid it was swapped under (preempt ->
+    resume) or by token-prefix equality (park expiry or a mid-prefill
+    deadline, then a later request re-sending the same conversation).
+
+    int8 pools swap their bytes verbatim with their f32 scale rows
+    (``k_scale``/``v_scale``, [L, cut, H_kv]), so a restore is bit-exact
+    with no requantization."""
+
+    rid: str
+    tokens: tuple
+    k: torch.Tensor  # [L, cut, H_kv, d] (bf16/f32, or int8 with scales below)
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None  # [L, cut, H_kv] f32
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def cut(self) -> int:
+        return len(self.tokens)
+
+    @property
+    def nbytes(self) -> int:
+        n = 0
+        for t in (self.k, self.v, self.k_scale, self.v_scale):
+            if t is not None:
+                n += t.numel() * t.element_size()
+        return n
+
+
+class HostKVPool:
+    """The bounded host-RAM KV tier (engine-thread owned, no locking).
+    A put LRU-evicts until it fits ``max_bytes``; an entry that alone
+    exceeds the budget is refused (the caller recomputes instead).
+    ``audit()`` snapshots the accounting: ``used_bytes`` equals the sum of
+    the live entries' bytes and never exceeds the budget."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = int(max_bytes)
+        self.used_bytes = 0
+        self._entries: OrderedDict[str, HostKVEntry] = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def put(self, entry: HostKVEntry) -> bool:
+        """Admit ``entry`` keyed by its rid (a re-put replaces), evicting
+        the least recently used until it fits. False when the entry alone
+        exceeds the budget (nothing is evicted then)."""
+        if entry.nbytes > self.max_bytes:
+            return False
+        old = self._entries.pop(entry.rid, None)
+        if old is not None:
+            self.used_bytes -= old.nbytes
+        while self.used_bytes + entry.nbytes > self.max_bytes and self._entries:
+            _, evicted = self._entries.popitem(last=False)
+            self.used_bytes -= evicted.nbytes
+        self._entries[entry.rid] = entry
+        self.used_bytes += entry.nbytes
+        return True
+
+    def get(self, rid: str) -> Optional[HostKVEntry]:
+        """The entry of ``rid`` without removing it (the reservation may
+        still fail; consuming is :meth:`pop`). A hit refreshes recency."""
+        e = self._entries.get(rid)
+        if e is not None:
+            self._entries.move_to_end(rid)
+        return e
+
+    def match_prefix(self, row: list[int]) -> Optional[HostKVEntry]:
+        """The longest entry whose tokens are a STRICT prefix of ``row`` (a
+        suffix token must remain to give logits); refreshes its recency."""
+        best: Optional[HostKVEntry] = None
+        for e in self._entries.values():
+            if e.cut < len(row) and (best is None or e.cut > best.cut):
+                if tuple(row[: e.cut]) == e.tokens:
+                    best = e
+        if best is not None:
+            self._entries.move_to_end(best.rid)
+        return best
+
+    def pop(self, rid: str) -> Optional[HostKVEntry]:
+        """Consume an entry (a restore took it; its bytes return)."""
+        e = self._entries.pop(rid, None)
+        if e is not None:
+            self.used_bytes -= e.nbytes
+        return e
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self.used_bytes = 0
+
+    def audit(self) -> tuple[int, dict[str, int]]:
+        """``(used_bytes, {rid: entry bytes})``, copies."""
+        return self.used_bytes, {r: e.nbytes for r, e in self._entries.items()}

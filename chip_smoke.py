@@ -41,7 +41,9 @@ without printing a result:
    first's parked slot, a 200-token row prefilled in chunks of 16 and a
    burst of four on one persona (three dedup shares), both with the fused
    megastep on (the default) and off, greedy tokens equal to uncontended
-   runs, across the two modes and to the CPU's;
+   runs, across the two modes and to the CPU's, and the preempted group
+   and the two turns again with the host KV tier on (the turns' parked
+   slot expiring into it) equal to the same;
 5. serving — llama3-8b at full width and depth with random weights from
    seed 0 behind the HTTP server, first in bf16, then (after the bf16
    engine is freed) with int8 weights and int8 KV pages: five chat
@@ -69,17 +71,31 @@ without printing a result:
    cache (8 hits), and 8 x (512 + 192) tokens on a second engine of 256
    pages over the same weights (preemption, token counts equal to an
    uncontended run, the pool whole after), every part's decode steps
-   through the walk; then, on each of the two engines, the chunked/dedup
+   through the walk; then, on each of the two engines, the host-KV phase
+   (the host-RAM tier at 1 GiB): (a) the preemption group again on the
+   256-page engine with the tier on (swap-outs and restores >= 1, token
+   counts equal to the uncontended run's, both pools whole, streams
+   identical to it counted against the tier-off run), (b) on bf16 4
+   conversations x 2 turns whose parked slots expire between the turns (4
+   swap-outs, 4 restores by token prefix, only the suffixes prefilled),
+   beside the same turns adopted and re-prefilled, (c) a 1,920-row entry
+   restored in 8 chunks of 256 while 4 lanes decode, prefetch on and off
+   (every restored page bit-equal to the entry, int8 scale twins included;
+   prefetch commits >= 1 on and 0 off; a fused ``s16...`` key), beside the
+   row prefilled in chunks, and (d) on bf16 an ``export_kv`` request's
+   ``kv_handoff`` injected back and restored bit-equal by its row plus a
+   suffix; every part's decode steps through the walk; then, on each of
+   the two engines, the chunked/dedup
    phase with the prefix cache off and parked slots expired: (a) a
    1,920-token row prefilled whole and in 256-token chunks on a scratch
    pool, bf16 logits held against an f32 pass (each within 3e-2 relative
    L2, chunked within 1.5 x whole + 2e-3), int8 KV chunked against whole
    (5e-2); (b) four greedy decoders of 128 tokens with a 1,920-token
    request landing mid-decode, chunking off and at 256 (through the fused
-   megastep) in turns, twice each (the decoders' longest gap between
+   megastep) in turns, once each (the decoders' longest gap between
    commits, the long request's TTFT, hol wait, chunks, budget
    utilization; its tokens and finish equal across modes), and on bf16
-   (b') the same at 256 with the megastep off, twice, and (d) the long
+   (b') the same at 256 with the megastep off, once, and (d) the long
    request with a deadline of 0.6 x (b)'s chunked TTFT, the rate planner
    on and then off (the planned quota >= 2, every chunk quota x 256
    tokens up to the largest bucket, the first token within ceil(8 /
@@ -87,7 +103,7 @@ without printing a result:
    prefill cycles, fused dispatches, shapes and fallbacks and its walk
    launches (n_layers x decode steps in every fused run) printed; (c)
    eight requests sharing a 768-token prefix with their
-   own 64-token tails, dedup on and off in turns, twice each (7 shares on,
+   own 64-token tails, dedup on and off in turns, once each (7 shares on,
    0 off, page peaks within 15% of 112 and 448, token counts and finishes
    equal, TTFTs); the walk launches of (b) and (c) equal n_layers x decode
    steps; last, on each of the two engines,
@@ -142,7 +158,10 @@ without printing a result:
    launches (read from its ``/v1/engine``) must match.
 
 ``--kernels-only`` stops after the kernel phase (a first check of a new
-kernel; it prints no result line).
+kernel; it prints no result line). ``--host-kv-only`` runs the model phase
+and then, on a bf16 and an int8 llama3-8b engine with no HTTP server, the
+kv-reuse phase's preemption group and the host-KV phase (a first check of
+that phase; no result line either).
 
 The last two lines are one JSON object describing the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -832,6 +851,12 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
             res = [f.result(timeout=120) for f in futs]
             out["preempted"] = [r.tokens for r in res]
             out["preempt_counts"] = [r.preempt_count for r in res]
+            # the same with the host tier on: the resumes restore their rows
+            tight.set_host_kv_bytes(1 << 22)
+            with tight.hold_admission():
+                futs = [tight.submit(p, sp) for p in prompts]
+            out["preempted_host"] = [f.result(timeout=120).tokens for f in futs]
+            out["host_swaps"] = [tight.kv_swap_outs, tight.kv_swap_ins]
             roomy, plain = engines["roomy"], engines["plain"]
             s1, s2 = SamplingParams(max_tokens=16, forced_prefix=forced), SamplingParams(
                 max_tokens=8)
@@ -840,6 +865,16 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
             out["parked"] = [r1.tokens, r2.tokens]
             out["adoptions"] = roomy.stats()["tool_overlap"]["park_adoptions"]
             out["unparked"] = [plain.generate(turn1, s1).tokens, plain.generate(turn2, s2).tokens]
+            # the turns again, the parked slot expiring into the host tier
+            # between them: the second restores it by token prefix
+            roomy.set_host_kv_bytes(1 << 22)
+            _forget_prefixes(roomy)
+            r1 = roomy.submit(turn1, s1, on_tool_call=lambda i, tc: None, park=True).result(120)
+            _idle_parked(roomy)
+            _forget_prefixes(roomy)
+            out["expired"] = [r1.tokens, roomy.submit(turn2, s2).result(120).tokens]
+            out["expiry_swaps"] = [roomy.kv_swap_outs, roomy.kv_swap_ins]
+            roomy.set_host_kv_bytes(0)
             # the chunked row and the burst fused (the default), then split;
             # each run cold (no prefix-cache entry from the one before)
             fused0 = roomy.megastep_dispatches
@@ -885,6 +920,11 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
     for name, ok in (
         ("preempted", sum(card["preempt_counts"]) >= 1),
         ("preempted = uncontended on the card", card["preempted"] == card["uncontended"]),
+        ("swapped and restored", min(card["host_swaps"]) >= 1),
+        ("preempted with the host tier = uncontended on the card",
+         card["preempted_host"] == card["uncontended"]),
+        ("an expired park restored", card["expiry_swaps"] == [1, 1]),
+        ("restored turns = unparked on the card", card["expired"] == card["unparked"]),
         ("adopted", card["adoptions"] == 1),
         ("parked turns = unparked on the card", card["parked"] == card["unparked"]),
         ("chunked = unchunked on the card", card["chunked"] == card["unchunked"]),
@@ -903,8 +943,10 @@ def tiny_engine_runs(cfg, dense: dict) -> dict:
         if not ok:
             fail(f"model engines: not {name}: card {card}, cpu {cpu}")
     say(f"model engines tiny-f32: 6 requests on a 9-page pool, preempt counts "
-        f"{card['preempt_counts']}, tokens = each prompt alone; two turns, the second adopting "
-        f"the first's parked slot, = an engine without parking or cache; a "
+        f"{card['preempt_counts']}, tokens = each prompt alone, and so with the host tier on "
+        f"({card['host_swaps'][0]} swap-outs, {card['host_swaps'][1]} restores); two turns, the "
+        f"second adopting the first's parked slot, and again restoring it from the host tier "
+        f"after it expired, = an engine without parking or cache; a "
         f"{len(TINY_CHUNKED_ROW)}-token row in chunks of 16 = unchunked; a burst of "
         f"{len(TINY_TAILS)} on one persona ({card['shares']} shares) = each alone, both with the "
         f"megastep on ({card['megastep_dispatches']} fused dispatches) = off; all = the "
@@ -1205,6 +1247,7 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
         if constrained:
             perf["constrained"] = constrained_phase(engine, base, card, perf["profile"])
         perf["kv_reuse"] = kv_reuse_phase(engine, card, label)
+        perf["host_kv"] = host_kv_phase(engine, card, label, perf["kv_reuse"]["preemption"])
         perf["chunked"] = chunked_phase(engine, card, label)
         perf["spec"] = spec_phase(engine, card, label)
         perf["control_plane"] = control_plane_phase(engine, card, label)
@@ -1227,7 +1270,7 @@ TOOLS = [
         "name": "search_docs", "description": "Search the team's runbooks.",
         "parameters": {"type": "object", "properties": {"query": {"type": "string"}}}}},
 ]
-TIMING_REPEATS = 5
+TIMING_REPEATS = 3  # kept low: the script's wall
 
 
 def _force(name: str) -> dict:
@@ -1711,7 +1754,10 @@ def preemption_check(engine, card: str, label: str) -> dict:
     weights) with a 256-page pool: 8 requests of 512-token prompts and
     max_tokens 192 need 44 pages each, 352 in all, so it must preempt.
     Every request finishes with as many tokens as the same group run
-    uncontended on the serving engine, and the pool is whole after."""
+    uncontended on the serving engine, and the pool is whole after. The
+    second engine stays up for the host-tier phase, which reruns the group
+    on it with the tier on: the doc carries it (``_small``), the
+    uncontended results and the prompts, and that phase stops it."""
     import torch
 
     from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
@@ -1747,6 +1793,7 @@ def preemption_check(engine, card: str, label: str) -> dict:
     small.start()
     try:
         pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+        prefill0 = small.prefill_tokens
         res, wall_s = group(small)
         walk = _walk_check(f"kv reuse {label} preemption", small.decode_steps, cfg.n_layers,
                            engine.quantize_kv)
@@ -1764,11 +1811,10 @@ def preemption_check(engine, card: str, label: str) -> dict:
             fail(f"kv reuse {label}: after preemption {st['kv_pages']['free']} free + "
                  f"{cached_pages} cached pages != {PREEMPT_PAGES - 1}")
         steps = small.decode_steps
-    finally:
+        prefilled = small.prefill_tokens - prefill0
+    except BaseException:
         small.stop()
-        del small
-        gc.collect()
-        torch.cuda.empty_cache()
+        raise
     say(f"kv reuse {label}: preemption on a {PREEMPT_PAGES - 1}-page pool ({pool_gb:.2f} GB, "
         f"the serving engine's weights): {PREEMPT_REQUESTS} x ({PREEMPT_PROMPT} + "
         f"{PREEMPT_TOKENS}) tokens, preempt counts {preempts} ({sum(preempts)} preemptions), "
@@ -1780,7 +1826,8 @@ def preemption_check(engine, card: str, label: str) -> dict:
             "decode_steps": steps, "wall_s": wall_s, "uncontended_wall_s": solo_s,
             "uncontended_decode_steps": solo_walk // cfg.n_layers, "launches": walk,
             "pool_bytes": pool_gb * 1e9, "free_pages": st["kv_pages"]["free"],
-            "cached_pages": cached_pages}
+            "cached_pages": cached_pages, "prefill_tokens": prefilled,
+            "_small": small, "_solo": solo, "_prompts": prompts}
 
 
 def kv_reuse_phase(engine, card: str, label: str) -> dict:
@@ -1820,6 +1867,384 @@ def kv_reuse_phase(engine, card: str, label: str) -> dict:
     return out
 
 
+# -- host KV tier phase --------------------------------------------------
+
+HOST_KV_BYTES = 1 << 30  # the host tier's budget in every part
+HOST_LONG_PROMPT, HOST_CHUNK = 1930, 256  # (c): parked as a 1,920-row entry; restore chunks
+HOST_RESTORE_CHUNKS = 8  # (c): 7 x 256 + 128 rows
+HOST_DECODERS, HOST_DECODER_PROMPT, HOST_DECODE_TOKENS = 4, 64, 128  # (c): the decoding lanes
+HOST_SUFFIX, HOST_LONG_TOKENS = 16, 16  # (c): the row past the entry; its budget
+HANDOFF_PROMPT, HANDOFF_SUFFIX = 512, 32  # (d)
+
+
+class _RestoreWatch:
+    """On the engine thread: every restore chunk that lands
+    (``_advance_restore``) and, at ``_finish_swap_in``, the slot's pages
+    held against the entry's rows (``torch.equal``, scale twins included),
+    the stall seconds and the time. ``close()`` takes the hooks off."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.chunks: list = []
+        self.done: list = []  # (rows, bit-equal, stall s, monotonic time)
+        advance, finish = engine._advance_restore, engine._finish_swap_in
+
+        def on_advance(slot, sl, st, n):
+            self.chunks.append((st, n))
+            advance(slot, sl, st, n)
+
+        def on_finish(slot, sl):
+            self.done.append((sl.prefill_pos, self.equal(slot, sl), sl.swap_stall_s,
+                              time.monotonic()))
+            finish(slot, sl)
+
+        engine._advance_restore, engine._finish_swap_in = on_advance, on_finish
+
+    def equal(self, slot, sl) -> bool:
+        import torch
+
+        e, n = self.engine, sl.prefill_pos
+        pages = torch.tensor(e._slot_pages[slot][: n // e.page_size], device=e.device)
+        entry = sl.swap_entry
+        rows = {"k": entry.k, "v": entry.v}
+        if "ks" in e.cache:
+            rows.update(ks=entry.k_scale, vs=entry.v_scale)
+        for name, want in rows.items():
+            pool = e.cache[name]
+            got = pool.index_select(1, pages).reshape(pool.shape[0], n, *pool.shape[3:])
+            if not torch.equal(got, want[:, :n].to(e.device)):
+                return False
+        return True
+
+    def close(self) -> None:
+        del self.engine._advance_restore, self.engine._finish_swap_in
+
+
+def _host_audit(engine, what: str) -> int:
+    """The host pool's accounting: used bytes = the sum of its entries,
+    within the budget."""
+    pool = engine._host_pool
+    used, entries = pool.audit()
+    if used != sum(entries.values()) or used > pool.max_bytes:
+        fail(f"{what}: host pool used {used} B, entries {sum(entries.values())} B, budget "
+             f"{pool.max_bytes} B")
+    return used
+
+
+def _host_preemption(small, card: str, label: str, pre: dict) -> dict:
+    """(a) The kv-reuse phase's preemption group again on its 256-page
+    engine, the host tier on: the preempted rows go to the host and come
+    back as restores. Token counts and finishes equal the uncontended
+    run's; walk launches n_layers x decode steps; both pools whole."""
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    solo, prompts = pre.pop("_solo"), pre.pop("_prompts")
+    what = f"host kv {label} (a)"
+    _forget_prefixes(small)  # the host-off run's entries would serve these rows
+    small.set_host_kv_bytes(HOST_KV_BYTES)
+    watch = _RestoreWatch(small)
+    c0 = (small.kv_swap_outs, small.kv_swap_ins, small.preemptions, small.prefill_tokens,
+          small.decode_steps)
+    pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+    with small.hold_admission():
+        futs = [small.submit(p, SamplingParams(max_tokens=PREEMPT_TOKENS)) for p in prompts]
+    t0 = time.monotonic()
+    res = [f.result(timeout=900) for f in futs]
+    wall_s = time.monotonic() - t0
+    steps = small.decode_steps - c0[4]
+    walk = _walk_check(what, steps, small.config.n_layers, small.quantize_kv)
+    watch.close()
+    outs, ins = small.kv_swap_outs - c0[0], small.kv_swap_ins - c0[1]
+    preempts = small.preemptions - c0[2]
+    prefilled = small.prefill_tokens - c0[3]
+    used = _host_audit(small, what)
+    st = small.stats()
+    cached_pages = st["prefix_cache"]["cached_tokens"] // small.page_size
+    if outs < 1 or ins < 1 or preempts < 1:
+        fail(f"{what}: {preempts} preemptions, {outs} swap-outs, {ins} swap-ins")
+    if not all(ok for _n, ok, _s, _t in watch.done) or len(watch.done) != ins:
+        fail(f"{what}: restored pages differ from their entries' rows ({watch.done})")
+    if [len(r.tokens) for r in res] != [len(r.tokens) for r in solo] or any(
+            r.finish_reason != s.finish_reason for r, s in zip(res, solo)):
+        fail(f"{what}: token counts {[len(r.tokens) for r in res]} vs uncontended "
+             f"{[len(r.tokens) for r in solo]}")
+    if st["active_slots"] or st["kv_pages"]["free"] + cached_pages != PREEMPT_PAGES - 1:
+        fail(f"{what}: after the run {st['kv_pages']['free']} free + {cached_pages} cached "
+             f"pages != {PREEMPT_PAGES - 1}")
+    same = sum(r.tokens == s.tokens for r, s in zip(res, solo))
+    restored = sum(n for n, _ok, _s, _t in watch.done)
+    stall = sum(s for _n, _ok, s, _t in watch.done)
+    say(f"{what}: {PREEMPT_REQUESTS} x ({PREEMPT_PROMPT} + {PREEMPT_TOKENS}) tokens on the "
+        f"{PREEMPT_PAGES - 1}-page engine, host tier {HOST_KV_BYTES >> 20} MiB: {preempts} "
+        f"preemptions, {outs} swap-outs, {ins} swap-ins (every restored page bit-equal to its "
+        f"entry), token counts equal to the uncontended run's; streams identical to it {same} "
+        f"of {PREEMPT_REQUESTS} (host tier off: {pre['identical_streams']}); rows restored "
+        f"{restored}, rows prefilled by the model {prefilled} (host tier off: "
+        f"{pre['prefill_tokens']}); restore stalls {stall * 1e3:.1f} ms; {steps} decode steps "
+        f"in {wall_s:.1f} s (off: {pre['decode_steps']} in {pre['wall_s']:.1f} s); host pool "
+        f"{used} B after; walk launches {walk} = {small.config.n_layers} x {steps}  [{card}]")
+    small.set_host_kv_bytes(0)
+    return {"preemptions": preempts, "swap_outs": outs, "swap_ins": ins,
+            "identical_streams": same, "identical_streams_host_off": pre["identical_streams"],
+            "rows_restored": restored, "prefill_tokens": prefilled,
+            "prefill_tokens_host_off": pre["prefill_tokens"], "stall_s": stall,
+            "decode_steps": steps, "wall_s": wall_s, "launches": walk, "host_used_bytes": used}
+
+
+def _host_expiry(engine, card: str, label: str) -> dict:
+    """(b) 4 conversations x 2 turns (768-token first prompts, 32 sampled
+    + 64 tool tokens), three ways: every parked slot expired between the
+    turns with the host tier on (the second turn restores by token
+    prefix), parked slots adopted, and expired with the tier off (the
+    whole history prefilled again). The prefix cache is emptied before
+    each second turn, so only the named mechanism serves it."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    what = f"host kv {label} (b)"
+    P = engine.page_size
+    watch = _RestoreWatch(engine)
+    pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+    steps0 = engine.decode_steps
+    out = {}
+    for seed, name, expire, host in ((400, "restored", True, True), (401, "adopted", False, True),
+                                     (402, "re-prefilled", True, False)):
+        engine.set_host_kv_bytes(HOST_KV_BYTES if host else 0)
+        _forget_prefixes(engine)
+        g = torch.Generator().manual_seed(seed)
+        prompts = [torch.randint(0, 256, (KV_FIRST_PROMPT,), generator=g).tolist()
+                   for _ in range(KV_CONVERSATIONS)]
+        sp = SamplingParams(max_tokens=KV_TURN_TOKENS)
+        with engine.hold_admission():
+            futs = [engine.submit(p, sp, park=True) for p in prompts]
+        first = [f.result(timeout=600) for f in futs]
+        s0 = engine.stats()
+        if expire:
+            _idle_parked(engine)
+        _forget_prefixes(engine)
+        s1 = engine.stats()
+        turn2 = [p + r.tokens + torch.randint(0, 256, (KV_TOOL_RESULT,), generator=g).tolist()
+                 for p, r in zip(prompts, first)]
+        with engine.hold_admission():
+            futs = [engine.submit(p, sp) for p in turn2]
+        res = [f.result(timeout=600) for f in futs]
+        s2 = engine.stats()
+        h0, h1, h2 = (s["memory"]["host_kv"] for s in (s0, s1, s2))
+        # an adopted slot keeps its prompt's whole pages; a host entry
+        # stops below the prompt's last row (a strict prefix of its row)
+        n = len(prompts[0])
+        kept = {"restored": (n - 1) // P * P, "adopted": n // P * P}.get(name, 0)
+        doc = {
+            "ttft_turn2_ms": statistics.median(r.ttft_ms for r in res),
+            "ttft_turn1_ms": statistics.median(r.ttft_ms for r in first),
+            "rows_prefilled_turn2": s2["prefill_tokens"] - s1["prefill_tokens"],
+            "expected_rows": sum(len(p) - kept for p in turn2),
+            "expired": s1["tool_overlap"]["park_releases"] - s0["tool_overlap"]["park_releases"],
+            "swap_outs": h1["swap_outs"] - h0["swap_outs"],
+            "swap_ins": h2["swap_ins"] - h1["swap_ins"],
+            "adoptions": s2["tool_overlap"]["park_adoptions"] - s1["tool_overlap"][
+                "park_adoptions"],
+        }
+        out[name] = doc
+        if host:
+            _host_audit(engine, what)
+    r = out["restored"]
+    if (r["swap_outs"], r["expired"], r["swap_ins"]) != (KV_CONVERSATIONS,) * 3:
+        fail(f"{what}: {r['expired']} parks expired, {r['swap_outs']} swap-outs, "
+             f"{r['swap_ins']} swap-ins in turn 2, want {KV_CONVERSATIONS} each")
+    if r["rows_prefilled_turn2"] != r["expected_rows"]:
+        fail(f"{what}: turn 2 prefilled {r['rows_prefilled_turn2']} rows, the suffixes past the "
+             f"restored rows hold {r['expected_rows']}")
+    if not all(ok for _n, ok, _s, _t in watch.done) or len(watch.done) != KV_CONVERSATIONS:
+        fail(f"{what}: {len(watch.done)} restores, bit-equal {[d[1] for d in watch.done]}")
+    watch.close()
+    walk = _walk_check(what, engine.decode_steps - steps0, engine.config.n_layers,
+                       engine.quantize_kv)
+    say(f"{what}: {KV_CONVERSATIONS} conversations x 2 turns, {KV_FIRST_PROMPT}-token first "
+        f"prompts: turn 2 TTFT median (rows prefilled per request): "
+        + ", ".join(f"{n} {d['ttft_turn2_ms']:.1f} ms ({d['rows_prefilled_turn2'] / KV_CONVERSATIONS:.0f})"
+                    for n, d in out.items())
+        + f"; {r['expired']} parks expired, {r['swap_outs']} swap-outs, {r['swap_ins']} "
+        f"restores (bit-equal); adoptions {out['adopted']['adoptions']}; walk launches {walk}"
+        f"  [{card}]")
+    out["launches"] = walk
+    return out
+
+
+def _host_chunked(engine, card: str, label: str) -> dict:
+    """(c) A parked 1,930-token prompt expires into a 1,920-row entry,
+    restored while 4 lanes decode, with 256-token chunks: in 8 restore
+    chunks, then one model chunk of the rest, prefetch on and off; then,
+    on bf16, the same row with no entry, prefilled in 7.6 chunks. The restored
+    pages are bit-equal to the entry (scale twins included on int8);
+    prefetch commits >= 1 on and 0 off; a fused key starts with s16."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    what = f"host kv {label} (c)"
+    g = torch.Generator().manual_seed(500)
+    long = torch.randint(0, 256, (HOST_LONG_PROMPT,), generator=g).tolist()
+    row = long + torch.randint(0, 256, (HOST_SUFFIX,), generator=g).tolist()
+    decoders = [torch.randint(0, 256, (HOST_DECODER_PROMPT,), generator=g).tolist()
+                for _ in range(HOST_DECODERS)]
+    cache_on, engine._prefix_enabled = engine._prefix_enabled, False
+    engine.set_host_kv_bytes(HOST_KV_BYTES)
+    engine.submit(long, SamplingParams(max_tokens=1), park=True).result(timeout=600)
+    _idle_parked(engine)
+    entry = engine._host_pool.match_prefix(row)
+    if entry is None or entry.cut != HOST_CHUNK * (HOST_RESTORE_CHUNKS - 1) + HOST_CHUNK // 2:
+        fail(f"{what}: the expired park left no 1,920-row entry ({entry and entry.cut})")
+    engine.prefill_chunk = HOST_CHUNK
+    pa.LAUNCHES = pa.INT8_LAUNCHES = 0
+    steps0 = engine.decode_steps
+    runs = {}
+    # the row prefilled in chunks beside it on bf16 only (the int8 wall)
+    modes = (("prefetch", True), ("blocking", False)) + (
+        () if engine.quantize_kv else (("prefill", None),))
+    for name, prefetch in modes:
+        if prefetch is None:
+            engine.set_host_kv_bytes(0)
+        else:
+            engine.host_prefetch = prefetch
+            if engine._host_pool.get(entry.rid) is None:
+                engine.inject_host_kv(entry)  # the run before consumed it
+        watch = _RestoreWatch(engine)
+        keys0, commits0 = set(engine._megastep_shapes), engine.kv_prefetch_commits
+        s0 = engine.decode_steps
+        futs = [engine.submit(p, SamplingParams(max_tokens=HOST_DECODE_TOKENS))
+                for p in decoders]
+        deadline = time.monotonic() + 300
+        while engine.decode_steps == s0 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        t0 = time.monotonic()
+        r = engine.submit(row, SamplingParams(max_tokens=HOST_LONG_TOKENS)).result(timeout=600)
+        res = [f.result(timeout=600) for f in futs]
+        watch.close()
+        runs[name] = {
+            "ttft_ms": r.ttft_ms, "tokens": r.tokens,
+            "restore_chunks": watch.chunks, "restores": len(watch.done),
+            "bit_equal": all(ok for _n, ok, _s, _t in watch.done),
+            "rows_restored": sum(n for n, _ok, _s, _t in watch.done),
+            "stall_s": sum(s for _n, _ok, s, _t in watch.done),
+            "restore_wall_ms": (watch.done[0][3] - t0) * 1e3 if watch.done else None,
+            "prefetch_commits": engine.kv_prefetch_commits - commits0,
+            "new_keys": sorted(engine._megastep_shapes - keys0),
+            "decoder_tokens": [len(x.tokens) for x in res],
+        }
+    engine.prefill_chunk, engine.host_prefetch = 0, True
+    engine._prefix_enabled = cache_on
+    walk = _walk_check(what, engine.decode_steps - steps0, engine.config.n_layers,
+                       engine.quantize_kv)
+    for name in ("prefetch", "blocking"):
+        d = runs[name]
+        if (d["restores"], d["rows_restored"], len(d["restore_chunks"])) != (
+                1, entry.cut, HOST_RESTORE_CHUNKS) or not d["bit_equal"]:
+            fail(f"{what} {name}: {d['restores']} restores of {d['rows_restored']} rows in "
+                 f"{len(d['restore_chunks'])} chunks, bit-equal {d['bit_equal']}; want 1 of "
+                 f"{entry.cut} in {HOST_RESTORE_CHUNKS}, bit-equal")
+    if runs["prefetch"]["prefetch_commits"] < 1 or runs["blocking"]["prefetch_commits"]:
+        fail(f"{what}: prefetch commits {runs['prefetch']['prefetch_commits']} on, "
+             f"{runs['blocking']['prefetch_commits']} off")
+    s_key = f"megastep[paged,s{HOST_CHUNK // engine.page_size}+"  # one group of 16 pages
+    if not any(k.startswith(s_key) for k in runs["prefetch"]["new_keys"]):
+        fail(f"{what}: no fused key starts with {s_key}: {runs['prefetch']['new_keys']}")
+    if runs.get("prefill", {}).get("restores"):
+        fail(f"{what}: the run without an entry restored")
+    p, b, f = runs["prefetch"], runs["blocking"], runs.get("prefill")
+    beside = (f"{f['ttft_ms']:.1f} ms prefilling all {len(row)} rows in chunks; restored vs "
+              f"prefilled tokens equal {p['tokens'] == f['tokens']}" if f else "no prefill run")
+    say(f"{what}: a {entry.cut}-row entry restored in {HOST_RESTORE_CHUNKS} chunks of "
+        f"{HOST_CHUNK} while {HOST_DECODERS} lanes decode, bit-equal with prefetch on and off; "
+        f"restore stalls {p['stall_s'] * 1e3:.2f} ms on vs {b['stall_s'] * 1e3:.2f} ms off "
+        f"({p['prefetch_commits']} prefetch commits on, {b['prefetch_commits']} off); submit -> "
+        f"restored {p['restore_wall_ms']:.1f} / {b['restore_wall_ms']:.1f} ms; the long "
+        f"request's TTFT {p['ttft_ms']:.1f} / {b['ttft_ms']:.1f} ms restored (tokens equal on "
+        f"vs off {p['tokens'] == b['tokens']}) vs {beside}; new fused keys {p['new_keys']}; walk launches {walk}  [{card}]")
+    for d in runs.values():
+        d.pop("tokens")
+    return {"runs": runs, "entry_rows": entry.cut, "entry_bytes": entry.nbytes,
+            "entry_pinned": entry.k.is_pinned(), "launches": walk}
+
+
+def _host_handoff(engine, card: str, label: str) -> dict:
+    """(d) A request with ``export_kv=True``: its ``kv_handoff`` entry is
+    injected back into the same engine, then the same row plus a suffix
+    restores from ``handoff-<rid>``, bit-equal to the export."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+
+    what = f"host kv {label} (d)"
+    g = torch.Generator().manual_seed(600)
+    prompt = torch.randint(0, 256, (HANDOFF_PROMPT,), generator=g).tolist()
+    follow = prompt + torch.randint(0, 256, (HANDOFF_SUFFIX,), generator=g).tolist()
+    cache_on, engine._prefix_enabled = engine._prefix_enabled, False
+    engine.set_host_kv_bytes(HOST_KV_BYTES)
+    fut = engine.submit(prompt, SamplingParams(max_tokens=8), export_kv=True)
+    r = fut.result(timeout=600)
+    e = r.kv_handoff
+    want_cut = ((HANDOFF_PROMPT - 1) // engine.page_size) * engine.page_size
+    if e is None or e.rid != f"handoff-{fut.rid}" or e.cut != want_cut:
+        fail(f"{what}: kv_handoff {e and (e.rid, e.cut)}, want handoff-{fut.rid} of {want_cut}")
+    pool = engine._host_pool
+    popped: list = []
+    pool.pop = lambda rid, real=pool.pop: popped.append(rid) or real(rid)
+    watch = _RestoreWatch(engine)
+    injects0 = engine.kv_injects
+    t0 = time.monotonic()
+    if not engine.inject_host_kv(e):
+        fail(f"{what}: inject_host_kv refused the entry")
+    r2 = engine.submit(follow, SamplingParams(max_tokens=8)).result(timeout=600)
+    watch.close()
+    del pool.pop
+    engine._prefix_enabled = cache_on
+    if (engine.kv_injects - injects0, popped, [(n, ok) for n, ok, _s, _t in watch.done]) != (
+            1, [e.rid], [(e.cut, True)]):
+        fail(f"{what}: injects {engine.kv_injects - injects0}, consumed {popped}, restores "
+             f"{watch.done}")
+    say(f"{what}: export_kv on a {HANDOFF_PROMPT}-token prompt -> {e.rid} of {e.cut} rows "
+        f"({e.nbytes / 1e6:.1f} MB, pinned {e.k.is_pinned()}); injected into the same engine, "
+        f"its row + {HANDOFF_SUFFIX} tokens restored it (bit-equal to the export) and "
+        f"prefilled the {len(follow) - e.cut} rows past it: TTFT {r2.ttft_ms:.1f} ms (the export's own "
+        f"{r.ttft_ms:.1f} ms), inject -> done {(time.monotonic() - t0) * 1e3:.1f} ms  [{card}]")
+    return {"rows": e.cut, "bytes": e.nbytes, "ttft_ms": r2.ttft_ms, "export_ttft_ms": r.ttft_ms}
+
+
+def host_kv_phase(engine, card: str, label: str, pre: dict) -> dict:
+    """The host-RAM KV tier on the serving engines: (a) preemption with the
+    tier on, on the kv-reuse phase's 256-page engine; (b) park expiry and a
+    prefix-match restore (bf16); (c) a chunked restore with prefetch on and
+    off; (d) the prefill -> decode handoff (bf16). The tier is off again
+    after, as by default."""
+    import torch
+
+    t_phase = time.monotonic()
+    small = pre.pop("_small")
+    try:
+        out = {"card": card, "preemption": _host_preemption(small, card, label, pre)}
+    finally:
+        small.stop()
+        del small
+        gc.collect()
+        torch.cuda.empty_cache()
+    try:
+        if not engine.quantize_kv:
+            out["expiry"] = _host_expiry(engine, card, label)
+        out["chunked"] = _host_chunked(engine, card, label)
+        if not engine.quantize_kv:
+            out["handoff"] = _host_handoff(engine, card, label)
+    finally:
+        _idle_parked(engine)
+        engine.set_host_kv_bytes(0)
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
 # -- chunked prefill / dedup phase --------------------------------------
 
 CHUNK_ROW, CHUNK_SIZE = 1920, 256  # (a): the row, and its chunks (7 KV-only + the final)
@@ -1827,10 +2252,10 @@ CHUNK_F32_TOL = 3e-2  # (a) bf16: each path's relative L2 from the f32 pass
 CHUNK_INT8_TOL = 5e-2  # (a) int8 KV: chunked vs whole
 HOL_DECODERS, HOL_DECODE_TOKENS = 4, 128  # (b): the lanes decoding when the long row lands
 HOL_PROMPT, HOL_LONG_TOKENS = 64, 16  # (b): decoder prompts; the long request's budget
-HOL_REPEATS = 2  # on bf16; the int8 engine runs (b) and (c) once each (the wall)
+HOL_REPEATS = 1  # (b) once on both engines, as (c) (DEDUP_REPEATS): the script's wall
 DEADLINE_SHARE = 0.6  # (d): the deadline, as a share of (b)'s chunked TTFT
 DEDUP_REQUESTS, DEDUP_PREFIX, DEDUP_TAIL, DEDUP_TOKENS = 8, 768, 64, 32  # (c)
-DEDUP_REPEATS = 2
+DEDUP_REPEATS = 1
 # (c): pages at the peak, from the shapes: each slot grows to 56 pages (832
 # rows + 8 decode blocks of lookahead); dedup shares the prefix's 48
 DEDUP_PEAKS = {True: 48 + 8 * (56 - 48), False: 8 * 56}
@@ -2070,8 +2495,8 @@ def chunked_phase(engine, card: str, label: str) -> dict:
     level, (b) a long request landing on decoding lanes, whole and chunked
     (fused) in turns, and on bf16 (b') chunked with the megastep off and
     (d) chunked with a deadline, the planner on then off, (c) a burst
-    sharing a prefix, dedup on and off in turns; (b) and (c) twice on bf16,
-    once on int8. Parked slots are expired
+    sharing a prefix, dedup on and off in turns; (b) HOL_REPEATS and (c)
+    DEDUP_REPEATS times on bf16, once on int8. Parked slots are expired
     and the prefix cache is emptied and off for the phase, so every run is
     cold; the knobs are put back after. Every run's decode steps go
     through the expected walk only."""
@@ -2237,7 +2662,7 @@ def chunked_phase(engine, card: str, label: str) -> dict:
 SPEC_LEN = 6
 SPEC_REQUESTS = 8
 SPEC_TOKENS = 64
-SPEC_REPEATS = 2  # runs of each mode, in turns
+SPEC_REPEATS = 1  # runs of each mode, in turns (one: the script's wall)
 SPEC_INT8_REQUESTS = 4
 SPEC_INT8_TOKENS = 32
 SPEC_PREFIX = 500  # rows below the verified ones: 500 % 16 = 4, mid-page
@@ -3817,6 +4242,29 @@ def _ptxas_summary(logs: dict) -> dict:
     return out
 
 
+def host_kv_only(card: str) -> dict:
+    """``--host-kv-only``: the preemption group and the host-KV phase on a
+    bf16 and then an int8 llama3-8b engine, one at a time."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import Engine
+
+    out = {}
+    for label, kw in (("bf16", {}), ("int8", dict(quantize_weights=True, quantize_kv=True))):
+        engine = Engine("llama3-8b", device="cuda", seed=0, max_slots=8, max_ctx=2048,
+                        page_size=16, decode_block_size=8, **kw)
+        engine.start()
+        try:
+            pre = preemption_check(engine, card, label)
+            out[label] = {"preemption": pre, "host_kv": host_kv_phase(engine, card, label, pre)}
+        finally:
+            engine.stop()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3864,6 +4312,14 @@ def main() -> int:
         walls[name] = time.monotonic() - t0
         return out
 
+    if "--host-kv-only" in sys.argv[1:]:
+        model = timed("model", model_phase)
+        host = timed("host_kv", host_kv_only, card)
+        (out_dir / "chip_smoke_host_kv.json").write_text(json.dumps(
+            {"card": card, "model": model, "host_kv": host, "walls_s": walls}, indent=1,
+            default=str))
+        say(f"host kv only: {time.monotonic() - t_start:.1f} s  [{card}]")
+        return 0
     kernels = timed("kernels", kernel_phase)
     if kernels_only:
         (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(
@@ -3874,23 +4330,26 @@ def main() -> int:
     perf = timed("serving_bf16", serving_phase, card, "bf16", constrained=True)
     walls["constrained"] = perf["constrained"]["phase_s"]
     walls["kv_reuse_bf16"] = perf["kv_reuse"]["phase_s"]
+    walls["host_kv_bf16"] = perf["host_kv"]["phase_s"]
     walls["chunked_bf16"] = perf["chunked"]["phase_s"]
     walls["spec_bf16"] = perf["spec"]["phase_s"]
     walls["control_plane_bf16"] = perf["control_plane"]["phase_s"]
     walls["operator_bf16"] = perf["operator"]["phase_s"]
     walls["serving_bf16"] -= (walls["constrained"] + walls["kv_reuse_bf16"]
-                              + walls["chunked_bf16"] + walls["spec_bf16"]
+                              + walls["host_kv_bf16"] + walls["chunked_bf16"] + walls["spec_bf16"]
                               + walls["control_plane_bf16"] + walls["operator_bf16"])
     gc.collect()
     torch.cuda.empty_cache()
     perf_int8 = timed("serving_int8", serving_phase, card, "int8", quantize_weights=True,
                       quantize_kv=True)
     walls["kv_reuse_int8"] = perf_int8["kv_reuse"]["phase_s"]
+    walls["host_kv_int8"] = perf_int8["host_kv"]["phase_s"]
     walls["chunked_int8"] = perf_int8["chunked"]["phase_s"]
     walls["spec_int8"] = perf_int8["spec"]["phase_s"]
     walls["control_plane_int8"] = perf_int8["control_plane"]["phase_s"]
     walls["operator_int8"] = perf_int8["operator"]["phase_s"]
-    walls["serving_int8"] -= (walls["kv_reuse_int8"] + walls["chunked_int8"]
+    walls["serving_int8"] -= (walls["kv_reuse_int8"] + walls["host_kv_int8"]
+                              + walls["chunked_int8"]
                               + walls["spec_int8"] + walls["control_plane_int8"]
                               + walls["operator_int8"])
     say(f"serving int8 vs bf16: weights {perf_int8['weight_bytes'] / 1e9:.3f} / "
@@ -3966,8 +4425,8 @@ def main() -> int:
          "parallel": par, "quickstart": quickstart, "walls_s": walls, "seconds": time.monotonic() - t_start}, indent=1,
         default=str))
     say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
-        + " s (serving phases without the constrained, kv-reuse, chunked, spec, control-plane "
-          "and operator phases)")
+        + " s (serving phases without the constrained, kv-reuse, host-kv, chunked, spec, "
+          "control-plane and operator phases)")
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

@@ -222,3 +222,49 @@ def test_run_with_a_preset_needs_the_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="(?i)cuda"):
         port_main(["run", "--tpu-preset", "tiny", "--port", "0"])
+
+
+def test_run_host_kv_flags_parse_and_reach_the_engine(tmp_path, monkeypatch):
+    """``run --tpu-host-kv-bytes/--tpu-host-prefetch`` carry the reference's
+    defaults and help, parse, and reach ``Engine`` as the reference's
+    ``_build_engine`` passes them."""
+    import argparse
+
+    import agentcontrolplane_tpu_torch.operator as port_operator
+    from agentcontrolplane_tpu.cli import build_parser as ref_parser
+    from agentcontrolplane_tpu_torch import cli as port_cli
+    from agentcontrolplane_tpu_torch.engine import engine as port_engine_mod
+
+    flags = ("tpu_host_kv_bytes", "tpu_host_prefetch")
+
+    def run_flags(parser) -> dict:
+        run = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction)).choices["run"]
+        return {a.dest: (a.default, a.help) for a in run._actions if a.dest in flags}
+
+    ours = run_flags(port_cli.build_parser())
+    assert len(ours) == len(flags) and ours == run_flags(ref_parser())
+    built = {}
+
+    class FakeEngine:
+        def __init__(self, *args, **kw):
+            built.update(kw)
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+    async def no_serve():
+        return None
+
+    monkeypatch.setattr(port_engine_mod, "Engine", FakeEngine)
+    monkeypatch.setattr(port_operator, "serve_until_signalled", no_serve)
+    base = ["run", "--db", str(tmp_path / "acp.db"), "--tpu-preset", "tiny", "--device", "cpu",
+            "--port", "0"]
+    port_cli.cmd_run(port_cli.build_parser().parse_args(base))
+    assert (built["host_kv_bytes"], built["host_prefetch"]) == (0, True)
+    port_cli.cmd_run(port_cli.build_parser().parse_args(
+        base + ["--tpu-host-kv-bytes", str(1 << 30), "--tpu-host-prefetch", "0"]))
+    assert (built["host_kv_bytes"], built["host_prefetch"]) == (1 << 30, False)
