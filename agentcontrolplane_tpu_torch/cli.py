@@ -5,8 +5,8 @@ front door (``serve``):
 
   run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--tpu-park-max-s 30]
       [--tpu-prefill-chunk 0] [--tpu-token-budget 0] [--tpu-prefix-dedup 1]
-      [--tpu-megastep 1] [--tpu-rate-planner 1] [--tpu-spec-len 0] [--tpu-spec-ngram 3]
-      [--tpu-host-kv-bytes 0] [--tpu-host-prefetch 1] [--device cpu]
+      [--tpu-megastep 1] [--tpu-rate-planner 1] [--tpu-autopilot 0] [--tpu-spec-len 0]
+      [--tpu-spec-ngram 3] [--tpu-host-kv-bytes 0] [--tpu-host-prefetch 1] [--device cpu]
   apply -f manifests.yaml
   get <Kind> [name] [-o yaml]
   delete <Kind> <name>
@@ -16,6 +16,9 @@ front door (``serve``):
   task create <agent> <message> [--follow]
   task show <name>
   engine
+  perf [--json] [--top 20]
+  timeline [<rid>] [--last 50]
+  trace export [-o trace.json]
   chat [--system ...]
   serve --preset llama3-8b [--tp N --sp M]
 
@@ -26,9 +29,8 @@ bearer token, over the standard library (the card's machine has no httpx).
 ``run`` builds its engine on the card unless ``--device cpu`` is given and
 raises without CUDA. Not served yet: checkpoints and LoRA (ROADMAP A.9,
 A.15), the served store (A.12), prewarm (A.3), multi-host serving
-(A.14), and the ``perf``, ``timeline``, ``trace`` (A.11), ``fleet``,
-``replay``, ``chaos`` (A.12), ``engine-follower`` (A.14) and ``train``
-(A.15) commands.
+(A.14), ``trace export --fleet`` and the ``fleet``, ``replay``, ``chaos``
+(A.12), ``engine-follower`` (A.14) and ``train`` (A.15) commands.
 """
 
 from __future__ import annotations
@@ -124,6 +126,7 @@ def cmd_run(args) -> int:
                         prefix_dedup=bool(args.tpu_prefix_dedup),
                         megastep=bool(args.tpu_megastep),
                         rate_planner=bool(args.tpu_rate_planner),
+                        autopilot=bool(args.tpu_autopilot),
                         spec_len=args.tpu_spec_len, spec_ngram=args.tpu_spec_ngram)
         engine.start()
     options = OperatorOptions(
@@ -347,6 +350,156 @@ def cmd_engine(args) -> int:
     return 0
 
 
+def cmd_perf(args) -> int:
+    """The dispatch profiler: per-program dispatch telemetry (where the
+    device time goes, how much of each dispatch is padding), first
+    dispatches after prewarm, and the goodput/waste ledger (token positions
+    computed against committed, the waste by cause)."""
+    resp = _client(args).get("/v1/engine/perf")
+    if resp.status_code != 200:
+        print(f"error: {resp.text}", file=sys.stderr)
+        return 1
+    doc = resp.json()
+    if args.json:
+        print(json.dumps(doc, indent=2))
+        return 0
+    g = doc.get("goodput", {})
+    computed = g.get("computed", 0)
+    print(
+        f"goodput: {g.get('goodput', 0)}/{computed} token positions "
+        f"({g.get('ratio', 1.0):.1%}); profiler "
+        f"{'enabled' if doc.get('enabled') else 'DISABLED'}, "
+        f"prewarmed={doc.get('prewarmed')}"
+    )
+    waste = {k: v for k, v in g.get("waste", {}).items() if v}
+    if waste:
+        print("waste by cause:")
+        for cause, n in sorted(waste.items(), key=lambda kv: -kv[1]):
+            pct = 100.0 * n / computed if computed else 0.0
+            print(f"  {cause:<18}{n:>12}  ({pct:.1f}%)")
+    cold = doc.get("cold_compiles", {})
+    if cold.get("serving"):
+        print(f"SERVING-TIME COLD COMPILES: {cold['serving']} "
+              "(each was a latency stall — widen prewarm coverage)")
+        for ev in cold.get("events", []):
+            print(f"  {ev['program']:<34}{ev['wall_s'] * 1e3:>10.1f}ms")
+    programs = doc.get("programs", {})
+    if programs:
+        print(f"{'PROGRAM':<34}{'N':>7}{'HOST ms':>10}{'DEV ms':>10}"
+              f"{'PAD%':>7}  TOKENS")
+        for key, p in list(programs.items())[: args.top]:
+            dev = p.get("device_ms_mean")
+            print(
+                f"{key:<34}{p['dispatches']:>7}"
+                f"{p['host_ms_mean']:>10.3f}"
+                f"{dev if dev is not None else float('nan'):>10.3f}"
+                f"{p['padding_pct']:>7.1f}  {p['real_tokens']}"
+            )
+    return 0
+
+
+def _print_flight_event(e: dict, rel_key: str | None = None) -> None:
+    stamp = (
+        f"+{e[rel_key] * 1e3:9.1f}ms" if rel_key and rel_key in e
+        else f"t={e['t']:.3f}"
+    )
+    who = e.get("rid", "-")
+    slot = f"slot {e['slot']}" if "slot" in e else ""
+    detail = ""
+    if e.get("detail"):
+        detail = " ".join(f"{k}={v}" for k, v in e["detail"].items())
+    print(f"  {stamp}  {e['kind']:<20}{who:<10}{slot:<9}{detail}")
+
+
+def cmd_timeline(args) -> int:
+    """The flight recorder: with a request id, that request's decisions
+    (admit, chunks, preempts, park and adopt, finish) with its phase
+    latencies; without one, the recent window and the request ids whose
+    timelines are queryable."""
+    http = _client(args)
+    if not args.request_id:
+        resp = http.get("/v1/engine/flight", params={"last": str(args.last)})
+        if resp.status_code != 200:
+            print(f"error: {resp.text}", file=sys.stderr)
+            return 1
+        doc = resp.json()
+        print(
+            f"flight recorder: {doc['window_events']}/{doc['capacity']} "
+            f"events windowed, {doc['recorded_total']} recorded total, "
+            f"enabled={doc['enabled']}"
+        )
+        if doc.get("request_ids"):
+            print("recent request ids: " + " ".join(doc["request_ids"]))
+        for e in doc["events"]:
+            _print_flight_event(e)
+        return 0
+    resp = http.get(f"/v1/requests/{args.request_id}/timeline")
+    if resp.status_code != 200:
+        print(f"error: {resp.text}", file=sys.stderr)
+        return 1
+    doc = resp.json()
+    print(f"request {doc['request_id']}  total {doc['total_s'] * 1e3:.1f}ms")
+    for e in doc["events"]:
+        _print_flight_event(e, rel_key="t_rel")
+    if doc.get("phases"):
+        print("phases (sum ~ end-to-end; tool_overlap_hidden overlaps decode):")
+        for phase, dur in doc["phases"].items():
+            print(f"  {phase:<22}{dur * 1e3:>10.1f}ms")
+    if doc.get("rate_plan"):
+        rp = doc["rate_plan"]
+        print(
+            f"rate plan: quota {rp['quota']} chunk(s)/cycle, "
+            f"{rp['reprojections']} reprojection(s); actual "
+            f"{rp['chunks_dispatched']} chunks / {rp['chunk_tokens']} "
+            f"tokens over {rp['prefill_span_s'] * 1e3:.1f}ms"
+        )
+        for pr in rp["projections"]:
+            print(
+                f"  {pr['reason']:<8} quota={pr['quota']} "
+                f"tokens_left={pr['tokens_left']} "
+                f"seconds_left={pr['seconds_left']}"
+            )
+    return 0
+
+
+def cmd_trace_export(args) -> int:
+    """Pull the anonymized workload trace off a running server
+    (``/v1/engine/trace``). The document is validated before it is written,
+    so an export this command exits 0 on loads in the replayer. The fleet's
+    stitched trace comes with the fleet (ROADMAP A.12)."""
+    from .observability.trace_export import validate_trace
+
+    path = "/v1/engine/trace"
+    resp = _client(args).get(path)
+    if resp.status_code != 200:
+        print(
+            f"error: GET {path} -> {resp.status_code}: {resp.text[:200]}",
+            file=sys.stderr,
+        )
+        return 1
+    doc = resp.json()
+    problems = validate_trace(doc)
+    if problems:
+        print("error: server returned an unreplayable trace:", file=sys.stderr)
+        for problem in problems[:10]:
+            print(f"  {problem}", file=sys.stderr)
+        return 1
+    payload = json.dumps(doc, indent=2, sort_keys=True)
+    if args.output:
+        with open(args.output, "w") as fh:
+            fh.write(payload + "\n")
+        summary = (
+            f"wrote {args.output}: {len(doc['requests'])} request(s) over "
+            f"{doc.get('span_s', 0.0):.3f}s from {doc.get('source')}"
+        )
+        if not doc.get("complete", True):
+            summary += "  [INCOMPLETE: recorder evicted timelines mid-window]"
+        print(summary)
+    else:
+        print(payload)
+    return 0
+
+
 def _post_stream(server: str, token: Optional[str], payload: dict):
     """POST a streamed chat completion (``http.client``, no timeout) ->
     (connection, response); the caller reads the SSE lines and closes."""
@@ -530,6 +683,13 @@ def build_parser() -> argparse.ArgumentParser:
         "flat one-chunk cadence — deadlines met by arithmetic, not EDF "
         "luck (see docs/megastep.md); 0 = flat cadence",
     )
+    run.add_argument(
+        "--tpu-autopilot", type=int, default=0,
+        help="scheduler autopilot: steer --tpu-prefill-chunk / "
+        "--tpu-token-budget / --tpu-spec-len one bounded step at a time "
+        "from observed phase attribution, budget utilization and "
+        "speculative acceptance (see docs/megastep.md); 0 = off",
+    )
     run.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     run.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     run.set_defaults(fn=cmd_run)
@@ -577,6 +737,42 @@ def build_parser() -> argparse.ArgumentParser:
 
     eng = sub.add_parser("engine", help="engine status")
     eng.set_defaults(fn=cmd_engine)
+
+    pf = sub.add_parser(
+        "perf",
+        help="compute efficiency observatory: per-program dispatch "
+        "telemetry, cold compiles, goodput/waste accounting",
+    )
+    pf.add_argument("--json", action="store_true", help="raw JSON payload")
+    pf.add_argument(
+        "--top", type=int, default=20,
+        help="program rows to show (sorted by total host time)",
+    )
+    pf.set_defaults(fn=cmd_perf)
+
+    tl = sub.add_parser(
+        "timeline",
+        help="flight recorder: a request's lifecycle timeline (or, with no "
+        "id, the recent engine decision window)",
+    )
+    tl.add_argument("request_id", nargs="?", help="engine request id (rid)")
+    tl.add_argument(
+        "--last", type=int, default=50,
+        help="window events to show when no request id is given",
+    )
+    tl.set_defaults(fn=cmd_timeline)
+
+    trc = sub.add_parser(
+        "trace",
+        help="anonymized replayable workload traces (flight recorder export)",
+    )
+    trsub = trc.add_subparsers(dest="trace_command", required=True)
+    te = trsub.add_parser("export", help="export the engine's workload trace as validated JSON")
+    te.add_argument(
+        "-o", "--output", default=None,
+        help="write the trace here (default: stdout)",
+    )
+    te.set_defaults(fn=cmd_trace_export)
 
     chat = sub.add_parser("chat", help="interactive chat with the engine (SSE)")
     chat.add_argument("--system", default="")

@@ -17,12 +17,13 @@ port's copy of the reference's ``controllers/toolcall.py``).
                                label
     AwaitingHumanInput      -> poll the human contact's status
 
-The reference's deterministic fault sites (``tool.slow``, ``tool.error``)
-come with its fault injector (ROADMAP A.11).
+The deterministic fault sites ``tool.slow`` and ``tool.error``
+(``faults.py``) stretch or fail an MCP execution.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import time
 from dataclasses import dataclass, field
@@ -53,6 +54,7 @@ from ..api.resources import (
     TC_PHASE_RUNNING,
     TC_PHASE_SUCCEEDED,
 )
+from ..faults import FAULTS
 from ..humanlayer.client import FunctionCallSpec, HumanLayerClientFactory
 from ..kernel.errors import AlreadyExists, Conflict, NotFound
 from ..kernel.events import EventRecorder
@@ -296,6 +298,15 @@ class ToolCallReconciler:
         tc.status.status = "Ready"
         tc.status.status_detail = f"Executing {server}/{tool}"
         self._update_status(tc)
+        # the fault sites (faults.py): "tool.slow" stretches this execution
+        # by ``seconds`` (a parked slot outliving a slow tool); "tool.error"
+        # fails it, so the error joins the conversation as a tool result
+        if FAULTS.enabled:
+            slow = FAULTS.pop("tool.slow")
+            if slow is not None:
+                await asyncio.sleep(float(slow.get("seconds", 0.05)))
+            if FAULTS.pop("tool.error") is not None:
+                return self._fail(tc, "fault injection: tool error")
         try:
             result = await self.mcp_manager.call_tool(server, tool, args)
         except Exception as e:

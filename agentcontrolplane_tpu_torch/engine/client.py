@@ -4,9 +4,10 @@ port's copy of the reference's ``agentcontrolplane_tpu/engine/client.py``.
 The engine is stateless with respect to conversations (the whole context
 window arrives every time); the KV cache is per-request state inside it.
 
-Not passed yet, because the port's engine does not have them:
-``affinity_key=`` (fleet routing, A.12) and ``trace=`` (the flight
-recorder's phase spans, A.11).
+The caller's span context rides into ``Engine.submit(trace=)``, so the
+flight recorder exports the request's phase windows as child spans of the
+Task's trace. Not passed yet, because the port's engine does not have it:
+``affinity_key=`` (fleet routing, ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -66,6 +67,10 @@ class TPUEngineClient(LLMClient):
         # WHEN execution can start, never what is generated.
         self.overlap_tool_calls = bool(overlap_tool_calls)
         self.supports_early_tool_calls = self.overlap_tool_calls
+        # the Task controller passes its LLMRequest span context down
+        # (send_request trace_context=...); the engine's phase spans parent
+        # under it
+        self.supports_trace_context = True
         # the generation clock starts at SLOT ADMISSION, not submit: queue
         # wait under saturation must not eat the request's budget; the
         # queue wait is bounded separately (and generously)
@@ -85,7 +90,7 @@ class TPUEngineClient(LLMClient):
         return forced_call_prefix(self.engine.tokenizer, tools, self.tool_choice)
 
     async def send_request(self, messages: list[Message], tools: list[Tool],
-                           on_tool_call=None) -> Message:
+                           on_tool_call=None, trace_context=None) -> Message:
         """``on_tool_call`` (honored when ``overlap_tool_calls``): called on
         the event loop as ``(index, MessageToolCall)`` for each streamed call
         the moment its arguments close; indices are dense over the calls
@@ -132,6 +137,8 @@ class TPUEngineClient(LLMClient):
             # soon as the overlapped tools complete) adopts it and prefills
             # only its suffix
             park=overlap,
+            # the engine's phase spans parent under the caller's span
+            trace=trace_context,
         )
         try:
             result = await self._await_result(future)

@@ -162,21 +162,40 @@ cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
   one frame per loop iteration; followers refuse ``submit`` and replay the
   frames. Sampling generators are seeded identically on every rank.
 
-Left out for now (each is in ROADMAP): the scheduler autopilot
-(``autopilot=True`` raises; it reads the flight recorder), speculative
-decoding and the host KV tier under a serving group (``spec_len > 0`` or
-``host_kv_bytes > 0`` with ``group`` raises), fleet affinity and trace
-export (``affinity_key=``, ``trace=``), the flight recorder, fault sites
-(``_spec_force_reject`` stands in for ``engine.spec_mismatch`` in the
-tests; the host tier's ``engine.host_swap_error``/``host_swap_slow``/
-``prefetch_error`` are not ported), and multi-host.
+- **Observability and robustness**: the flight recorder (``self.flight``,
+  ``observability/flight.py``) records every scheduling decision per
+  request (submit, admit, prefill chunks and rounds, prefill_done, decode
+  blocks, verify passes, preempt, park, adopt, swaps, expire, cancel,
+  finish, crash, restart), so each request's wall splits into
+  ``queue_wait`` / ``prefill`` / ``decode`` / ``preempt_stall`` /
+  ``host_stall`` / ``tool_overlap_hidden``, exported as histograms and as
+  child spans of ``submit(trace=)``'s context. The dispatch profiler
+  (``self.profiler``, ``observability/profiler.py``) times every dispatch
+  by the reference's program keys and keeps the goodput/waste ledger. The
+  fault sites of ``faults.py`` sit where the reference's do; the armed
+  invariant checker (``check_invariants`` or ``$ACP_INVARIANTS``,
+  ``engine/invariants.py``) audits the host bookkeeping after every busy
+  cycle; the stall watchdog counts cycles over ``stall_mult`` x the
+  fastest busy cycle and ``stall_min_s``; the brownout ladder
+  (``brownout``, ``engine/brownout.py``) and the autopilot (``autopilot``,
+  ``engine/planner.py``) step knobs from pressure and from the recorder's
+  phase summaries. Under a serving group brownout and the autopilot are
+  forced off (they read wall clocks), and the recorder and profiler only
+  record: no decision reads them.
+
+Left out for now (each is in ROADMAP): speculative decoding and the host
+KV tier under a serving group (``spec_len > 0`` or ``host_kv_bytes > 0``
+with ``group`` raises), fleet affinity (``affinity_key=``), prewarm, the
+fleet fault sites, and multi-host.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import heapq
 import logging
+import os
 import queue
 import threading
 import time
@@ -200,7 +219,10 @@ from ..models.llama import (
     prefill_paged_continue_kv,
     verify_paged_continue,
 )
+from ..faults import FAULTS
+from ..observability.flight import FlightRecorder, phase_summaries
 from ..observability.metrics import REGISTRY
+from ..observability.profiler import DispatchProfiler
 from ..ops.cuda import paged_attention as walk
 from ..ops.paged import TRASH_PAGE, HostKVEntry, HostKVPool, PageAllocator
 from ..ops.quant import QUANTIZABLE, QuantizedTensor, quantize_stacked
@@ -208,7 +230,9 @@ from ..ops.sampling import advance_constraint, constrain_logits, sample, specula
 from ..parallel.mesh import ServingGroup, ServingMesh, check_serving_config
 from .constrain import build_token_table
 from .coordination import FrameChannel, deserialize_request
-from .planner import CycleClock, project_quota
+from .brownout import LADDER, BrownoutController, BrownoutPolicy
+from .invariants import check_engine_invariants
+from .planner import Autopilot, AutopilotLimits, CycleClock, project_quota
 from .spec import SpecState, ngram_propose
 from .tokenizer import ByteTokenizer, Tokenizer
 from .toolparse import ToolStreamParser
@@ -301,6 +325,9 @@ class _Request:
     # prefill -> decode handoff: at a stop or length finish the prompt's KV
     # rides out on the result (GenerationResult.kv_handoff); never parks
     export_kv: bool = False
+    # the caller's span context (trace_id, span_id): the flight recorder
+    # exports the request's phase windows as child spans under it
+    trace: Optional[object] = None
 
     def emit(self, tokens: list[int]) -> None:
         if self.on_tokens is not None and tokens:
@@ -478,9 +505,27 @@ class Engine:
         # deadlines and under a group (the leader's wall clock)
         rate_planner: bool = True,
         planner_max_quota: int = 8,  # chunks per slot per cycle, at most
-        # the scheduler autopilot needs the flight recorder's phase
-        # summaries, which the port does not have yet: True raises
+        # the scheduler autopilot (engine/planner.py): every
+        # autopilot_interval busy cycles, step prefill_chunk / token_budget
+        # / spec_len once from the flight recorder's phase summaries, the
+        # budget utilization and the spec acceptance. Forced off under a
+        # group (wall-clock inputs would fork the ranks)
         autopilot: bool = False,
+        autopilot_interval: int = 128,
+        # the stall watchdog: a busy cycle over stall_mult x the fastest
+        # busy cycle seen AND over stall_min_s records a `stall` event and
+        # counts in acp_engine_stalls_total. Observation only
+        stall_mult: float = 8.0,
+        stall_min_s: float = 0.25,
+        # the brownout ladder (engine/brownout.py): under shed or stall
+        # pressure, step spec_len -> park acceptance -> chunk quota down one
+        # rung per interval, and back up when it lifts. Forced off under a
+        # group
+        brownout: bool = False,
+        brownout_interval: int = 64,
+        # the armed invariant checker (engine/invariants.py) after every
+        # busy cycle; None reads $ACP_INVARIANTS
+        check_invariants: Optional[bool] = None,
         # the host-RAM KV tier (ops/paged.py HostKVPool): > 0 bounds a host
         # pool that preemption, park expiry and mid-prefill deadline drops
         # copy their written rows into instead of discarding them; a later
@@ -507,9 +552,6 @@ class Engine:
         # (params_from_jax(..., group=) or parallel.mesh.shard_params)
         group: Optional[ServingGroup] = None,
     ):
-        if autopilot:
-            raise ValueError("autopilot=True is not ported yet: it steers the knobs from the "
-                             "flight recorder's phase summaries (ROADMAP A.11)")
         if spec_len > 0 and group is not None:
             raise ValueError("spec_len > 0 under a serving group is not ported yet: the verify "
                              "pass's per-token commit on sp ranks (ROADMAP A.14)")
@@ -574,9 +616,6 @@ class Engine:
         self.spec_proposed = 0  # draft tokens sent to verification
         self.spec_accepted = 0  # draft tokens the model agreed with
         self.spec_dispatches = 0  # verify dispatches
-        # a test seam: this many coming verify dispatches reject every draft
-        # (the reference's engine.spec_mismatch fault site, ROADMAP A.11)
-        self._spec_force_reject = 0
         # the host KV tier: the pool is engine-thread owned; stats() reads
         # the mirror ints. Entries are pinned when serving on CUDA
         self.host_kv_bytes = max(0, int(host_kv_bytes))
@@ -607,6 +646,41 @@ class Engine:
             quantize = "int8"
         self.quantize = quantize
         self.quantize_kv = bool(quantize_kv)
+        # the autopilot, the watchdog and the brownout ladder
+        self.autopilot_enabled = bool(autopilot) and group is None
+        self._autopilot = Autopilot(
+            AutopilotLimits(
+                chunk_min=page_size,
+                chunk_max=self.prefill_buckets[-1],
+                budget_max=4 * max_slots * self.decode_block_size + 4 * self.prefill_buckets[-1],
+                spec_len_max=16,
+            ),
+            interval=autopilot_interval,
+        ) if self.autopilot_enabled else None
+        self.stall_mult = float(stall_mult)
+        self.stall_min_s = float(stall_min_s)
+        self.stalls = 0  # busy cycles the watchdog judged stalled
+        self._cycle_s = 0.0  # the cycle clock's EWMA, mirrored for stats()
+        # the fastest busy cycle seen: the stall baseline (one-sided, so a
+        # slow cycle never raises it)
+        self._cycle_floor = 0.0
+        self.brownout_enabled = bool(brownout) and group is None
+        self._brownout = BrownoutController(
+            BrownoutPolicy(interval=max(1, int(brownout_interval)))
+        ) if self.brownout_enabled else None
+        self._brownout_level = 0  # the applied rung
+        self._brownout_saved: dict = {}  # knob -> its value before the rung
+        # fault sites (faults.py), each guarded by the plain bool
+        # FAULTS.enabled; the flight recorder and the profiler (public: the
+        # REST routes and the CLI read them through their own methods);
+        # the armed audit
+        self._faults = FAULTS
+        self.flight = FlightRecorder()
+        self.profiler = DispatchProfiler(flight=self.flight)
+        self.check_invariants = (
+            bool(check_invariants) if check_invariants is not None
+            else os.environ.get("ACP_INVARIANTS", "") not in ("", "0")
+        )
 
         t0 = time.monotonic()
         if params is None:
@@ -703,7 +777,7 @@ class Engine:
             quantize_kv=self.quantize_kv, group=self.group,
         )
         self.pool_bytes = sum(t.numel() * t.element_size() for t in self.cache.values())
-        self._allocator = PageAllocator(self.num_pages)
+        self._allocator = PageAllocator(self.num_pages, track_scales=self.quantize_kv)
         # prompt-prefix tokens -> {"cut", "pages"}, LRU order; each entry
         # holds one reference on its pages
         with self._prefix_lock:
@@ -794,6 +868,9 @@ class Engine:
                 self._stopping = False
                 self._thread = threading.Thread(target=self._run, name="torch-engine", daemon=True)
                 self._thread.start()
+                REGISTRY.counter_add("acp_engine_restarts_total", 1.0,
+                                     help="engine loops rebuilt and restarted after a crash")
+                self.flight.record("restart")
                 return True
             return self._thread is not None and self._thread.is_alive()
 
@@ -806,6 +883,7 @@ class Engine:
         on_tool_call=None,
         park: bool = False,
         export_kv: bool = False,
+        trace=None,
     ) -> Future:
         """Thread-safe; returns a Future[GenerationResult]. ``timeout_s``
         fails the request fast (DeadlineExceededError) if it is still queued
@@ -829,7 +907,11 @@ class Engine:
         prompt's written KV out at a stop or length finish and attaches it
         to the result as ``GenerationResult.kv_handoff``, a
         ``HostKVEntry`` another engine restores through
-        :meth:`inject_host_kv`. It supersedes parking."""
+        :meth:`inject_host_kv`. It supersedes parking.
+
+        ``trace`` (a span context: ``trace_id`` / ``span_id`` attributes or
+        keys) parents the request's phase spans when the flight recorder
+        has a tracer."""
         s = sampling or SamplingParams()
         tokens = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         prefix_len = len(s.forced_prefix)
@@ -852,6 +934,7 @@ class Engine:
             on_tool_call=on_tool_call,
             park=bool(park) and self.park_max_s > 0 and not truncated and not export_kv,
             export_kv=bool(export_kv),
+            trace=trace,
         )
         if on_tool_call is not None:
             req.tool_parser = ToolStreamParser()
@@ -874,13 +957,24 @@ class Engine:
         if self._thread is None or self._stopping:
             req.future.set_exception(RuntimeError("engine is not running"))
             return req.future
+        # the persona fingerprint trace export groups requests by: a hash of
+        # the first 64 prompt tokens, no prompt content
+        persona = hashlib.sha1(
+            repr(tokens[:64]).encode()).hexdigest()[:16] if self.flight.enabled else ""
+        self.flight.record("submit", rid=req.rid, prompt_tokens=len(tokens),
+                           timeout_s=timeout_s, park=req.park, key=persona)
+        forced_full = self._faults.enabled and self._faults.pop("engine.queue_full") is not None
         depth = self._queue.qsize() + len(self._waiting)
-        if self.max_queue and depth >= self.max_queue:
+        if forced_full or (self.max_queue and depth >= self.max_queue):
             self.sheds += 1
+            REGISTRY.counter_add("acp_engine_shed_requests_total", 1.0,
+                                 help="requests shed at admission (bounded queue or fault)")
+            self.flight.record("shed", rid=req.rid, depth=depth)
             req.future.set_exception(EngineOverloadedError(
                 f"admission queue full ({depth} waiting, cap {self.max_queue}); retry later",
                 retry_after_s=max(1.0, min(30.0, depth * 0.25)),
             ))
+            self.flight.discard(req.rid)  # the timeline ends at the shed
             return req.future
         self._outstanding.add(req.future)
         req.future.add_done_callback(self._outstanding.discard)
@@ -944,7 +1038,17 @@ class Engine:
             "prefilling_slots": self._prefilling_count,
             "waiting": len(self._waiting) + self._queue.qsize(),
             "max_queue": self.max_queue,
+            # the gray-failure signals: the cycle clock's EWMA, the
+            # watchdog's stalls, admission sheds, and the ladder's rung
+            "cycle_s": round(self._cycle_s, 6),
+            "stalls": self.stalls,
             "sheds": self.sheds,
+            "brownout": {
+                "enabled": self.brownout_enabled,
+                "level": self._brownout_level,
+                "steps_down": self._brownout.steps_down if self._brownout is not None else 0,
+                "steps_up": self._brownout.steps_up if self._brownout is not None else 0,
+            },
             "preemptions": self.preemptions,
             "preempted_waiting": self._preempted_waiting(),
             "decode_block_size": self.decode_block_size,
@@ -1007,8 +1111,10 @@ class Engine:
                     "enabled": self.rate_planner,
                     "quota_projections": self.quota_projections,
                     "quota_reprojections": self.quota_reprojections,
-                    "autopilot": False,  # not ported yet (ROADMAP A.11)
-                    "autopilot_adjustments": 0,
+                    "autopilot": self.autopilot_enabled,
+                    "autopilot_adjustments": (
+                        self._autopilot.adjustments if self._autopilot is not None else 0
+                    ),
                 },
             },
             "tool_overlap": {
@@ -1050,6 +1156,10 @@ class Engine:
                     "pages": self._allocator.allocated_count if self.quantize_kv else 0,
                 },
             },
+            # the recorder's occupancy and the profiler's per-program stats
+            # and ledger (each through its own cross-thread read)
+            "flight": self.flight.stats(),
+            "perf": self.profiler.stats(),
         }
         if self._prefix_enabled:
             with self._prefix_lock:
@@ -1093,20 +1203,55 @@ class Engine:
         try:
             with torch.inference_mode():
                 while not self._stopping:
-                    self._admit(block=not self._has_work())
+                    admitted = self._admit(block=not self._has_work())
                     if self._stopping:
                         break
+                    # the watchdog's window: everything from here to the
+                    # check after the dispatch is one cycle's wall time,
+                    # fault throttles included
+                    t_cycle = time.monotonic()
+                    # after _admit: a crash armed while the loop idles fires
+                    # with the next request admitted but unresolved
+                    if self._faults.enabled and self._faults.pop("engine.crash") is not None:
+                        raise RuntimeError("fault injection: engine crash")
+                    if self._faults.enabled and (admitted or self._has_work()):
+                        # busy cycles only: the idle wakeups of _admit must
+                        # not drain the times= budget before work arrives
+                        slow = self._faults.pop("engine.slow_cycle")
+                        if slow is not None:
+                            time.sleep(float(slow.get("delay_s", 0.01)))
                     self._sweep_parked()
+                    if not self._has_work() and not admitted:
+                        self._publish_memory_state()
+                        continue
                     if self._has_work():
                         self._dispatch_once()
+                    self._stall_check(time.monotonic() - t_cycle)
+                    # the mirrors before the audit, so it sees the cycle's end
                     self._publish_memory_state()
+                    self.profiler.publish()
+                    if self._autopilot is not None:
+                        self._autopilot_tick()
+                    if self._brownout is not None:
+                        self._brownout_tick()
+                    if self.check_invariants:
+                        if (self._faults.enabled
+                                and self._faults.pop("engine.invariant_break") is not None):
+                            self._parked_count += 1  # a deliberate mirror corruption
+                        check_engine_invariants(self)
         except Exception as e:  # an engine crash must not hang callers
             log.exception("engine loop crashed")
+            # recorded and dumped BEFORE any state is torn down: the dump
+            # shows the engine as the crash found it
+            self.flight.record("crash", error=repr(e))
+            self.flight.dump_crash(self, e)
             self._slots.clear()
             self._parked_count = 0
             self._prefilling_count = 0
             self._stopping = True
             self._crashed = True
+            REGISTRY.counter_add("acp_engine_crashes_total", 1.0,
+                                 help="engine loops that died on an exception")
             for fut in list(self._outstanding):
                 if not fut.done():
                     fut.set_exception(RuntimeError(f"engine crashed: {e}"))
@@ -1124,6 +1269,79 @@ class Engine:
                 fut.set_exception(RuntimeError("engine stopped"))
         for slot in list(self._slots):
             self._finish(slot, "stop")
+        # timelines the drain did not retire; the window keeps their events
+        self.flight.discard_live()
+
+    def _stall_check(self, dt: float) -> None:
+        """The stall watchdog: ``dt`` is a busy cycle's wall time (fault
+        throttles included). A cycle over ``stall_mult`` x the fastest busy
+        cycle seen and over ``stall_min_s`` is a stall. The baseline is the
+        minimum, so a slow cycle never masks later stalls. Also mirrors the
+        cycle clock's EWMA for stats()."""
+        self._cycle_s = self._cycle_clock.cycle_s
+        if dt > 0 and (self._cycle_floor == 0.0 or dt < self._cycle_floor):
+            self._cycle_floor = dt
+        base = self._cycle_floor
+        if base <= 0.0 or dt < self.stall_min_s or dt < self.stall_mult * base:
+            return
+        self.stalls += 1
+        self.flight.record("stall", cycle_s=round(dt, 4), floor_s=round(base, 5))
+        REGISTRY.counter_add("acp_engine_stalls_total", 1.0,
+                             help="busy cycles the engine's watchdog judged stalled (wall time "
+                             "over stall_mult x the fastest busy cycle and over stall_min_s)")
+
+    def _brownout_tick(self) -> None:
+        """The brownout ladder (``engine/brownout.py``): on interval
+        boundaries judge the shed and stall pressure and move at most one
+        rung. Down saves and sheds the next knob in ``LADDER`` order; up
+        restores the last one. The controller decides; the engine applies
+        the knob, records it and sets the gauge."""
+        bo = self._brownout
+        if bo is None or not bo.due():
+            return
+        target = bo.step(self.sheds, self.stalls)
+        if target == self._brownout_level:
+            return
+        if target > self._brownout_level:
+            knob, downed = LADDER[self._brownout_level]
+            self._brownout_saved[knob] = getattr(self, knob)
+            setattr(self, knob, downed)
+            self._brownout_level += 1
+            self.flight.record("brownout", level=self._brownout_level, **{f"set_{knob}": downed})
+        else:
+            knob, _ = LADDER[self._brownout_level - 1]
+            restored = self._brownout_saved.pop(knob, getattr(self, knob))
+            setattr(self, knob, restored)
+            self._brownout_level -= 1
+            self.flight.record("brownout", level=self._brownout_level,
+                               **{f"set_{knob}": restored})
+        REGISTRY.gauge_set("acp_engine_brownout_level", float(self._brownout_level),
+                           help="the degradation ladder's rung (0 = full service; 1 = "
+                           "speculation off; 2 = + park acceptance off; 3 = + chunk quota 1)")
+        log.info("brownout level -> %d", self._brownout_level)
+
+    def _autopilot_tick(self) -> None:
+        """The scheduler autopilot (``engine/planner.py``): on interval
+        boundaries the recorder's phase summaries (p99 per phase), the
+        budget utilization and the spec acceptance steer the scheduling
+        knobs one bounded step; each change is a flight event."""
+        ap = self._autopilot
+        if ap is None or not ap.due():
+            return
+        phases = {k: v.get("p99", 0.0) for k, v in phase_summaries().items()}
+        util = self._budget_spent_total / self._budget_total if self._budget_total else 0.0
+        acc = self.spec_accepted / self.spec_proposed if self.spec_proposed else None
+        knobs = {"prefill_chunk": self.prefill_chunk, "token_budget": self.token_budget,
+                 "spec_len": self.spec_len}
+        changes = ap.step(phases, util, acc, knobs)
+        if not changes:
+            return
+        for knob, value in changes.items():
+            setattr(self, knob, value)
+        self.flight.record("autopilot", **{f"set_{k}": v for k, v in changes.items()})
+        REGISTRY.counter_add("acp_engine_autopilot_adjustments_total", 1.0,
+                             help="scheduler-knob adjustments applied by the autopilot")
+        log.info("autopilot adjusted knobs: %s", changes)
 
     def _admit(self, block: bool) -> bool:
         """Move queued requests into free slots (prefill), strictly FIFO.
@@ -1168,6 +1386,8 @@ class Engine:
                 if r.rid in self._applied:
                     self._applied.discard(r.rid)
                     r.future.cancel()
+                    self.flight.record("cancel", rid=r.rid, where="queued")
+                    self.flight.discard(r.rid)
                 else:
                     kept.append(r)
             self._waiting = kept
@@ -1225,11 +1445,17 @@ class Engine:
             )
             REGISTRY.counter_add("acp_engine_deadline_expired_total", 1.0,
                                  help="requests failed fast because their deadline passed")
+            self._record_expire(r, "queued")
         if self._channel is not None:
             self._cancelled.update(r.rid for r in expired)
             return
         gone = {id(r) for r in expired}
         self._waiting = deque(r for r in self._waiting if id(r) not in gone)
+
+    def _record_expire(self, req: _Request, where: str) -> None:
+        """A deadline expiry ends the request's timeline."""
+        self.flight.record("expire", rid=req.rid, where=where)
+        self.flight.discard(req.rid)
 
     @staticmethod
     def _full_row(req: _Request) -> list[int]:
@@ -1367,6 +1593,8 @@ class Engine:
             if (sl.prefilling and sl.share_of is not None and sl.share_of[0] == leader_slot
                     and sl.share_of[1] == rid):
                 if sl.prefill_pos > pos:
+                    # the follower recomputes rows its leader had covered
+                    self.profiler.reclassify("dedup_rewind", sl.prefill_pos - pos)
                     sl.prefill_pos = pos
                     self._seq_lens[s] = pos
                 sl.share_of = None
@@ -1416,6 +1644,15 @@ class Engine:
                     self._prefix_misses += 1
                     REGISTRY.counter_add("acp_engine_prefix_cache_miss_requests", 1.0,
                                          help="admissions that missed the prefix cache")
+                # the reservation decision: slot and pages taken, the reuse
+                # start resolved (no model compute has run yet)
+                self.flight.record(
+                    "admit", rid=req.rid, slot=slot, start=start, pages=len(pages),
+                    resumed=req.preempt_count > 0,
+                    adopted=bool(match is not None and match[1].get("in_slot")),
+                    chunked=bool(self.prefill_chunk), swapped=swap is not None,
+                    shared=share is not None,
+                )
                 self._slot_pages[slot] = pages
                 self._block_tables[slot, :] = TRASH_PAGE
                 self._block_tables[slot, : len(pages)] = pages
@@ -1468,6 +1705,8 @@ class Engine:
                 # every rank of a group alike: the decision reads only the
                 # request)
                 self._waiting.popleft()
+                self.flight.record("cancel", rid=req.rid, where="illegal_prefix")
+                self.flight.discard(req.rid)
                 req.future.set_exception(RuntimeError("forced_prefix is not a legal JSON prefix"))
                 continue
             match = None
@@ -1522,6 +1761,8 @@ class Engine:
             if kind == "dedup":
                 match = (None, {"cut": best_cut, "share_of": dedup[:2]})
                 self.prefix_shares += 1
+                self.flight.record("prefix_share", rid=req.rid, cut=best_cut, leader=dedup[1],
+                                   pages=len(shared))
             elif kind == "host":
                 # the reservation holds: consume the entry (its bytes return
                 # to the budget; the rows restore chunk by chunk)
@@ -1553,6 +1794,8 @@ class Engine:
         if total_pages <= self._allocator.num_pages - 1:
             return False
         self._waiting.popleft()
+        self.flight.record("cancel", rid=req.rid, where="oversize", pages_needed=total_pages)
+        self.flight.discard(req.rid)
         req.future.set_exception(RuntimeError(
             f"prompt needs {total_pages} KV pages but the pool has {self._allocator.num_pages - 1}"
         ))
@@ -1608,8 +1851,25 @@ class Engine:
         (``prefill_paged_continue``): the rows below its start are already
         in the slot's block table and are never written."""
         ln = self._prefill_lanes(chunk, starts)
-        firsts, states = self._host_read(*self._prefill_device(ln))
+        prof_t0 = self.profiler.start()
+        out = self._prefill_device(ln)
+        if self.profiler.enabled:
+            # keyed as the reference keys its programs: kind x bucket x
+            # batch, +tbl once the JSON table exists
+            B, bucket = len(chunk), ln["tokens"].shape[1]
+            real = int(ln["lengths"][:B].sum())
+            kind = "prefill_cont" if ln["cont"] else "prefill"
+            self.profiler.record(f"{kind}[paged,{bucket}x{B}{self._tbl()}]", prof_t0,
+                                 out=out[0], real_tokens=real, padded_tokens=B * bucket - real,
+                                 real_slots=B)
+            self.profiler.account(goodput=real, pad_bucket=B * bucket - real)
+        firsts, states = self._host_read(*out)
         self._finish_prefill_dispatch(chunk, ln, firsts, states)
+
+    def _tbl(self) -> str:
+        """The ``+tbl`` suffix of a program key once the JSON table exists
+        (the reference's programs trace another shape from then on)."""
+        return "+tbl" if self._token_table is not None else ""
 
     def _prefill_lanes(self, chunk: list, starts: Optional[np.ndarray] = None,
                        width: int = 0) -> dict:
@@ -1732,8 +1992,13 @@ class Engine:
         for i, (req, slot, _pages) in enumerate(chunk):
             s = req.sampling
             first = int(firsts[i])
-            if req.first_token_at == 0.0:  # once per request, not per resume
+            is_first = req.first_token_at == 0.0
+            if is_first:  # once per request, not per resume
                 req.first_token_at = now
+            # the prompt's KV is resident and the first token sampled; for a
+            # resumed request this ends its preempt_stall window
+            self.flight.record("prefill_done", rid=req.rid, slot=slot, seq=len(rows[i]),
+                               first=is_first)
             prior = self._slots.get(slot)
             if prior is not None and prior.prefilling:
                 # a final chunk: the slot keeps its admission stamp, so the
@@ -1790,6 +2055,7 @@ class Engine:
                     toks[i] = self._full_row(req)[st: st + CH]
                     starts[i] = st
                     page_ids[i] = pages[st // P: (st + CH) // P]
+                prof_t0 = self.profiler.start()
                 self.cache = prefill_paged_continue_kv(
                     self.params, self.cache, self._upload(toks),
                     self._upload(np.full(B, CH, dtype=np.int64)), self._upload(starts),
@@ -1797,6 +2063,11 @@ class Engine:
                     self._upload(self._block_tables[[e[0][1] for e in batch]]),
                     self.config, group=self.group,
                 )
+                if self.profiler.enabled:
+                    # spill rounds run whole CH-token rows: no bucket padding
+                    self.profiler.record(f"spill[paged,{CH}x{B}]", prof_t0,
+                                         out=self.cache["k"], real_tokens=B * CH, real_slots=B)
+                    self.profiler.account(goodput=B * CH)
                 self.prefill_tokens += B * CH
                 for e in batch:
                     e[1] += CH
@@ -1845,14 +2116,14 @@ class Engine:
             prefilling=True, prefill_pos=start, prefill_row=self._full_row(req),
             share_of=share_of, swap_entry=swap,
         )
-        self._project_quota(sl, reason)
+        self._project_quota(slot, sl, reason)
         self._slots[slot] = sl
         self._prefilling_count += 1
         self._seq_lens[slot] = start
         self._last_tokens[slot] = 0
         self._state_dirty = True
 
-    def _project_quota(self, sl: _Slot, reason: str) -> None:
+    def _project_quota(self, slot: int, sl: _Slot, reason: str) -> None:
         """The chunk-rate plan (``engine/planner.py``): the request's
         deadline turned into chunks per cycle, so its prefill lands by
         arithmetic rather than by the luck of the cycle's other chunks.
@@ -1866,8 +2137,9 @@ class Engine:
         if not self.rate_planner or self.group is not None or sl.request.deadline is None:
             return
         tokens_left = max(0, len(sl.prefill_row or []) - sl.prefill_pos)
+        seconds_left = sl.request.deadline - time.monotonic()
         sl.chunk_quota = project_quota(
-            tokens_left, self._chunk_tokens(), sl.request.deadline - time.monotonic(),
+            tokens_left, self._chunk_tokens(), seconds_left,
             self._cycle_clock.cycle_s or 0.05, max_quota=self.planner_max_quota)
         self.quota_projections += 1
         if reason != "admit":
@@ -1875,6 +2147,9 @@ class Engine:
             REGISTRY.counter_add("acp_engine_quota_reprojections_total", 1.0,
                                  help="chunk-rate plans recomputed at a re-admission edge "
                                  "(preempt-resume / park-adopt)")
+        self.flight.record("quota", rid=sl.request.rid, slot=slot, quota=sl.chunk_quota,
+                           tokens_left=tokens_left,
+                           seconds_left=round(max(0.0, seconds_left), 4), reason=reason)
 
     def _slot_chunk_tokens(self, sl: _Slot, chunk: int) -> int:
         """One slot's chunk this cycle: its quota x the base chunk, as ONE
@@ -1935,12 +2210,15 @@ class Engine:
                 "deadline expired mid-prefill (partial prompt KV released)"))
             REGISTRY.counter_add("acp_engine_deadline_expired_total", 1.0,
                                  help="requests failed fast because their deadline passed")
+            self._record_expire(sl.request, "mid_prefill")
             if self._channel is not None:
                 self._cancelled.add(sl.request.rid)
             else:
                 # the partial prompt KV goes to the host tier first: a retry
-                # of the same task prefix-matches it
-                self._swap_out(slot, sl, reason="expire")
+                # of the same task prefix-matches it; dropped outright, the
+                # chunks already spent are waste
+                if not self._swap_out(slot, sl, reason="expire"):
+                    self.profiler.reclassify("preempt_discard", sl.prefill_pos)
                 self._drop_prefilling_slot(slot)
 
     def _drop_prefilling_slot(self, slot: int) -> _Slot:
@@ -1969,6 +2247,16 @@ class Engine:
         nothing is recorded or advanced until they dispatch. Returns the
         tokens spent."""
         pre = [(s, sl) for s, sl in self._slots.items() if sl.prefilling]
+        if self._faults.enabled and pre:
+            # a deterministic mid-prefill preemption: the prefilling slot
+            # with the most rows written (steps = chunks dispatched, so
+            # after_steps=N lets N chunks land first)
+            spec = self._faults.pop("engine.preempt_mid_prefill", steps=self.prefill_chunks)
+            if spec is not None:
+                self._preempt(max(pre, key=lambda t: (t[1].prefill_pos, t[0]))[0], reason="fault")
+                pre = [(s, sl) for s, sl in self._slots.items() if sl.prefilling]
+                if not pre:
+                    return 0
         if self._channel is None:
             pre.sort(key=lambda t: (t[1].request.deadline if t[1].request.deadline is not None
                                     else float("inf"), t[1].admit_seq))
@@ -1996,6 +2284,7 @@ class Engine:
         if not sched:
             return 0
         restores = [c for c in sched if c[1].swap_entry is not None]
+        restore_slots = {c[0] for c in restores}
         model = [c for c in sched if c[1].swap_entry is None]
         mids = [c for c in model if c[2] + c[3] < len(c[1].prefill_row)]
         finals = [c for c in model if c[2] + c[3] >= len(c[1].prefill_row)]
@@ -2003,8 +2292,11 @@ class Engine:
         conts = [c for c in finals if c[2] > 0]
         staged_ready = any(self._staged_for(sl, st, n) is not None for _, sl, st, n in restores)
         fused = self.megastep and bool(mids or conts or plain or staged_ready)
-        deferred = self._run_restores(restores, defer=fused)
-        landed = [c for c in restores if not any(c[0] == s[0] for s in deferred)]
+        aborted, refund, deferred = self._run_restores(restores, defer=fused)
+        spent -= refund  # an aborted restore dispatched nothing
+        landed = [c for c in restores
+                  if c[0] not in aborted and not any(c[0] == s[0] for s in deferred)]
+        rnd = {"spent": spent, "budget": chunk_budget, "restores": restore_slots}
         if fused:
             # a fused plain or continuation final samples its first token
             # inside the fused cycle, so it joins the NEXT cycle's decode
@@ -2012,18 +2304,19 @@ class Engine:
             # schedule, not in any greedy token. Staged restores ride it as
             # its swaps phase
             self._fuse_pending = {"mids": mids, "finals": conts, "plains": plain,
-                                  "swaps": deferred, "landed": landed}
+                                  "swaps": deferred, "landed": landed, "round": rnd}
         else:
-            self._dispatch_split(mids, plain, conts, landed=landed)
+            self._dispatch_split(mids, plain, conts, rnd, landed=landed)
         return spent
 
-    def _dispatch_split(self, mids: list, plains: list, conts: list, landed: list = (),
-                        swaps: list = ()) -> None:
+    def _dispatch_split(self, mids: list, plains: list, conts: list, rnd: dict,
+                        landed: list = (), swaps: list = ()) -> None:
         """A round's chunks through the split dispatches: staged restore
         scatters first (their rows are the cycle's oldest), then one
         dispatch per pow2 batch of each kind (mid chunks, plain finals,
         continuation finals), then the round recorded with the restore
-        chunks that already ``landed``."""
+        chunks that already ``landed`` (``rnd``: the round's tokens spent,
+        its budget and its restoring slots)."""
         with self._hol_clock():
             for slot, sl, st, n, staged in swaps:
                 sl.swap_stall_s += self._commit_staged_swap(staged)
@@ -2036,7 +2329,7 @@ class Engine:
                 self._prefill_group(self._chunk_items(batch),
                                     starts=np.asarray([c[2] for c in batch], dtype=np.int64))
         self._advance_mids(mids)
-        self._record_chunk_round([*landed, *(c[:4] for c in swaps), *mids, *plains, *conts])
+        self._record_chunk_round([*landed, *(c[:4] for c in swaps), *mids, *plains, *conts], rnd)
 
     def _advance_mids(self, mids: list) -> None:
         """Mid chunks that dispatched: their rows are written."""
@@ -2044,9 +2337,18 @@ class Engine:
             sl.prefill_pos = st + n
             self._seq_lens[slot] = sl.prefill_pos
 
-    def _record_chunk_round(self, landed: list) -> None:
-        """Count the chunks that dispatched (split or fused)."""
+    def _record_chunk_round(self, landed: list, rnd: dict) -> None:
+        """Record and count the chunks that dispatched (split or fused): a
+        ``prefill_chunk`` event per chunk and the round's ``prefill_round``
+        (chunks, tokens spent, budget)."""
         self.prefill_chunks += len(landed)
+        if self.flight.enabled:
+            for slot, sl, st, n in landed:
+                self.flight.record("prefill_chunk", rid=sl.request.rid, slot=slot, start=st, n=n,
+                                   final=st + n >= len(sl.prefill_row or ()),
+                                   swap=slot in rnd["restores"])
+            self.flight.record("prefill_round", scheduled=len(landed), spent=rnd["spent"],
+                               budget=rnd["budget"])
         REGISTRY.counter_add("acp_engine_prefill_chunks_total", float(len(landed)),
                              help="prefill chunk dispatches (per-slot chunks) under the "
                              "unified token-budget scheduler")
@@ -2088,8 +2390,15 @@ class Engine:
     def _chunk_dispatch(self, batch: list[tuple[int, _Slot, int, int]]) -> None:
         """One split mid-chunk dispatch."""
         ln = self._mid_lanes(batch)
+        prof_t0 = self.profiler.start()
         self._mid_device(ln)
-        self.prefill_tokens += int(ln["lengths"].sum())
+        real = int(ln["lengths"].sum())
+        if self.profiler.enabled:
+            B, bucket = len(batch), ln["tokens"].shape[1]
+            self.profiler.record(f"chunk[paged,{bucket}x{B}]", prof_t0, out=self.cache["k"],
+                                 real_tokens=real, padded_tokens=B * bucket - real, real_slots=B)
+            self.profiler.account(goodput=real, pad_bucket=B * bucket - real)
+        self.prefill_tokens += real
 
     def _slot_budget(self, slot: int, sl: _Slot) -> int:
         """Sampled tokens this slot may still emit: the smaller of its
@@ -2154,6 +2463,12 @@ class Engine:
         split dispatches, then the plain block or the verify pass."""
         pending, self._fuse_pending = self._fuse_pending, None
         self._apply_cancels()
+        if self._faults.enabled and self._n_active():
+            spec = self._faults.pop("engine.force_preempt", steps=self.decode_steps)
+            if spec is not None:
+                victim = self._pick_victim()
+                if victim is not None:
+                    self._preempt(victim, reason="fault")
         if self._n_active() and self.spec_len and self._decode_spec(pending):
             return
         if self._n_active():
@@ -2177,8 +2492,18 @@ class Engine:
     def _decode_dispatch(self, d: dict) -> None:
         """The split decode block: its body, its one host read, its
         commit."""
-        block, states = self._host_read(*self._decode_block(d))
-        self._commit_decode_block(d, block, states)
+        W, K, n_act = d["W"], self.decode_block_size, self._n_active()
+        key = f"decode[paged,{W}x{K}{self._tbl()}]"
+        prof_t0 = self.profiler.start()
+        out = self._decode_block(d)
+        if self.profiler.enabled:
+            # the dispatch-time view (lanes live at upload); the commit
+            # accounts the lanes that finished inside the block
+            self.profiler.record(key, prof_t0, out=out[0], real_tokens=n_act * K,
+                                 padded_tokens=(W - n_act) * K, real_slots=n_act,
+                                 padded_slots=W - n_act)
+        block, states = self._host_read(*out)
+        self._commit_decode_block(d, block, states, key)
 
     def _decode_block(self, d: dict) -> tuple:
         """The device half of a decode block: K steps of ``decode_step_paged``
@@ -2220,17 +2545,26 @@ class Engine:
         return torch.stack(steps), (con_states if constrained else None)
 
     def _commit_decode_block(self, d: dict, block: np.ndarray,
-                             con_states: Optional[np.ndarray]) -> None:
-        """The commit of a decode block (split or fused): the automaton
-        states mirrored (the next dirty upload must hold them), each live
-        lane's tokens committed. Lanes that were not in the block (parked,
-        prefilling, or a slot past its width) are skipped."""
+                             con_states: Optional[np.ndarray], key: str) -> None:
+        """The commit of a decode block (split or fused; ``key`` its
+        program): the automaton states mirrored (the next dirty upload must
+        hold them), each live lane's tokens committed, one ``decode_block``
+        event, and the block's W x K positions accounted: committed tokens
+        are goodput, the rest width padding. Lanes that were not in the
+        block (parked, prefilling, or a slot past its width) are skipped."""
+        W, K = d["W"], self.decode_block_size
         if con_states is not None:
-            self._con_states[: d["W"]] = con_states
-        self.decode_steps += self.decode_block_size
+            self._con_states[:W] = con_states
+        self.decode_steps += K
+        self.flight.record("decode_block", width=W, steps=K, active=self._n_active(),
+                           program=key)
+        emitted = 0
         for slot, sl in list(self._slots.items()):
-            if slot < d["W"] and not sl.parked and not sl.prefilling:
+            if slot < W and not sl.parked and not sl.prefilling:
+                n0 = len(sl.generated)
                 self._consume_tokens(slot, sl, block[:, slot])
+                emitted += len(sl.generated) - n0
+        self.profiler.account(goodput=emitted, pad_width=W * K - emitted)
 
     # -- speculative decoding --------------------------------------------
 
@@ -2287,9 +2621,8 @@ class Engine:
         drafts = {s: d for s, d in drafts.items() if s in self._slots}
         if not any(drafts.values()):
             return False  # the drafting slots were preempted: the plain block
-        force_reject = self._spec_force_reject > 0
-        if force_reject:
-            self._spec_force_reject -= 1
+        force_reject = bool(self._faults.enabled
+                            and self._faults.pop("engine.spec_mismatch") is not None)
         ver = self._verify_lanes(drafts, budgets, force_reject)
         if pending is not None:
             if self._megastep_dispatch(pending, ver=ver):
@@ -2298,7 +2631,16 @@ class Engine:
             # alone on the lanes fixed above (a final that joins here emits
             # nothing in it)
             self._dispatch_pending_split(pending)
-        self._commit_spec_verify(ver, *self._host_read(*self._verify_device(ver)))
+        W, T = ver["W"], ver["T"]
+        key = f"spec_verify[paged,{W}x{T}{self._tbl()}]"
+        prof_t0 = self.profiler.start()
+        out = self._verify_device(ver)
+        if self.profiler.enabled:
+            real_in, n_part = int(ver["n_input"].sum()), int(ver["active"].sum())
+            self.profiler.record(key, prof_t0, out=out[0], real_tokens=real_in,
+                                 padded_tokens=W * T - real_in, real_slots=n_part,
+                                 padded_slots=W - n_part)
+        self._commit_spec_verify(ver, *self._host_read(*out), key)
         return True
 
     def _verify_lanes(self, drafts: dict, budgets: dict, force_reject: bool) -> dict:
@@ -2359,22 +2701,26 @@ class Engine:
         return out, n_emit, (states if constrained else None)
 
     def _commit_spec_verify(self, ver: dict, out: np.ndarray, n_emit: np.ndarray,
-                            con_states: Optional[np.ndarray]) -> None:
-        """The commit of a verify pass (split or fused): the lanes' automaton
-        states mirrored, each live slot's accepted prefix and corrected
-        token committed, and its controller fed. A slot that was not a lane
-        of the pass (a final that joined after its lanes were fixed) emits
-        nothing."""
+                            con_states: Optional[np.ndarray], key: str) -> None:
+        """The commit of a verify pass (split or fused; ``key`` its
+        program): the lanes' automaton states mirrored, each live slot's
+        accepted prefix and corrected token committed, and its controller
+        fed; then the W x T positions accounted (committed tokens, the
+        rejected draft tail, padding) and one ``spec_verify`` event. A slot
+        that was not a lane of the pass (a final that joined after its lanes
+        were fixed) emits nothing."""
         act = ver["active"]
         if con_states is not None:
             self._con_states[: ver["W"]][act] = con_states[act]
         self.decode_steps += 1  # one model forward, however many tokens land
         self.spec_dispatches += 1
         self._state_dirty = True
+        emitted = rejected = 0
         for slot, sl in list(self._slots.items()):
             if sl.parked or sl.prefilling or slot >= ver["W"]:
                 continue
             n, prop = int(n_emit[slot]), int(ver["proposed"][slot])
+            n_gen0 = len(sl.generated)
             if prop:
                 # emitted = the accepted prefix + one corrected token, except
                 # where emission ended ON a matching draft token (a stop
@@ -2396,6 +2742,20 @@ class Engine:
                                      help="draft tokens accepted by speculative verification")
             if n > 0:
                 self._consume_tokens(slot, sl, out[slot, :n])
+            emitted += len(sl.generated) - n_gen0
+            if prop:
+                # the positions past the emitted prefix: the rejected tail
+                rejected += max(0, 1 + prop - n)
+        W, T, drafts = ver["W"], ver["T"], ver["drafts"]
+        self.profiler.account(goodput=emitted, spec_rejected=rejected,
+                              pad_width=W * T - emitted - rejected)
+        if self.flight.enabled:
+            self.flight.record(
+                "spec_verify", slots=sum(1 for d in drafts.values() if d),
+                proposed=sum(len(d) for d in drafts.values()),
+                emitted=sum(int(n_emit[s]) for s in drafts),
+                forced_reject=ver["force_reject"], program=key,
+            )
 
     # -- the fused megastep ----------------------------------------------
 
@@ -2424,7 +2784,7 @@ class Engine:
         dispatches."""
         self._validate_pending(pending)
         self._dispatch_split(pending["mids"], pending["plains"], pending["finals"],
-                             landed=pending["landed"], swaps=pending["swaps"])
+                             pending["round"], landed=pending["landed"], swaps=pending["swaps"])
 
     def _megastep_flush(self, pending: Optional[dict]) -> None:
         """A fused cycle with nothing left to decode (no live slot, or
@@ -2484,7 +2844,7 @@ class Engine:
         swaps = pending["swaps"]
         if not (mids or plains or finals):
             if not swaps and d is None and ver is None:  # every planned lane was dropped
-                self._record_chunk_round(pending["landed"])
+                self._record_chunk_round(pending["landed"], pending["round"])
                 return True
             if (d is None and ver is None) or not swaps:
                 return None
@@ -2496,14 +2856,18 @@ class Engine:
                                  help="fused cycles split-dispatched because a new megastep "
                                  "shape would exceed megastep_max_programs")
             return None
+        new_shape = key not in self._megastep_shapes
         self._megastep_shapes.add(key)
         pl_items, fin_items = self._chunk_items(plains), self._chunk_items(finals)
         p_out = f_out = d_out = (None, None)
         v_out = (None, None, None)
+        n_act = self._n_active()
+        prof_t0 = self.profiler.start()
         for *_c, staged in swaps:
             self._scatter_staged(staged)
         if mids:
-            self._mid_device(self._mid_lanes(mids, _pow2(len(mids))))
+            mid_ln = self._mid_lanes(mids, _pow2(len(mids)))
+            self._mid_device(mid_ln)
         if plains:
             pl_ln = self._prefill_lanes(pl_items, width=_pow2(len(plains)))
             p_out = self._prefill_device(pl_ln)
@@ -2516,6 +2880,14 @@ class Engine:
             d_out = self._decode_block(d)
         elif ver is not None:
             v_out = self._verify_device(ver)
+        if new_shape:
+            self.flight.record("megastep_shape", program=key)
+        if self.profiler.enabled:
+            probe = next((o[0] for o in (d_out, v_out, f_out, p_out) if o[0] is not None),
+                         self.cache["k"])
+            self._profile_megastep(key, prof_t0, probe, swaps, mids, plains, finals,
+                                   mid_ln if mids else None, pl_ln if plains else None,
+                                   fin_ln if finals else None, d, ver, n_act)
         p_firsts, p_states, f_firsts, f_states, block, d_states, *v_np = self._host_read(
             *p_out, *f_out, *d_out, *v_out)
         self.megastep_dispatches += 1
@@ -2525,16 +2897,55 @@ class Engine:
             self._advance_restore(slot, sl, st, n)
         self._advance_mids(mids)
         if d is not None:
-            self._commit_decode_block(d, block, d_states)
+            self._commit_decode_block(d, block, d_states, key)
         elif ver is not None:
-            self._commit_spec_verify(ver, *v_np)
+            self._commit_spec_verify(ver, *v_np, key)
         if finals:
             self._finish_prefill_dispatch(fin_items, fin_ln, f_firsts, f_states)
         if plains:
             self._finish_prefill_dispatch(pl_items, pl_ln, p_firsts, p_states)
         self._record_chunk_round([*pending["landed"], *(c[:4] for c in swaps), *mids, *plains,
-                                  *finals])
+                                  *finals], pending["round"])
         return True
+
+    def _profile_megastep(self, key: str, t0: float, probe, swaps: list, mids: list,
+                          plains: list, finals: list, mid_ln, pl_ln, fin_ln,
+                          d: Optional[dict], ver: Optional[dict], n_act: int) -> None:
+        """One fused dispatch for the profiler: real and padded positions
+        over its phases (restored rows count as real tokens only: they are
+        moved KV, not computed), and each chunk phase accounted as its split
+        program would be, plus ``pad_fuse`` for the pow2 pad lanes fusion
+        adds (the split path's pow2 decomposition has none). The decode or
+        verify phase is accounted at its commit."""
+        real = padded = real_slots = padded_slots = 0
+        real += sum(int(ids.shape[0]) * self.page_size
+                    for *_c, staged in swaps for ids, _b in staged["groups"])
+        for lanes, ln in ((mids, mid_ln), (plains, pl_ln), (finals, fin_ln)):
+            if not lanes:
+                continue
+            B, Bp, bucket = len(lanes), _pow2(len(lanes)), ln["tokens"].shape[1]
+            n = int(ln["lengths"][:B].sum())
+            real += n
+            padded += Bp * bucket - n
+            real_slots += B
+            padded_slots += Bp - B
+            self.profiler.account(goodput=n, pad_bucket=B * bucket - n,
+                                  pad_fuse=(Bp - B) * bucket)
+        if d is not None:
+            W, K = d["W"], self.decode_block_size
+            real += n_act * K
+            padded += (W - n_act) * K
+            real_slots += n_act
+            padded_slots += W - n_act
+        elif ver is not None:
+            W, T = ver["W"], ver["T"]
+            real_in, n_part = int(ver["n_input"].sum()), int(ver["active"].sum())
+            real += real_in
+            padded += W * T - real_in
+            real_slots += n_part
+            padded_slots += W - n_part
+        self.profiler.record(key, t0, out=probe, real_tokens=real, padded_tokens=padded,
+                             real_slots=real_slots, padded_slots=padded_slots)
 
     def _consume_tokens(self, slot: int, sl: _Slot, toks) -> None:
         """Commit one block's tokens for one slot and finish it at the first
@@ -2597,6 +3008,8 @@ class Engine:
             idx = len(req.early_calls)
             req.early_calls.append((now, tc))
             self.tool_calls_early += 1
+            # the emit edge of this call's tool_overlap_hidden window
+            self.flight.record("tool_call", rid=req.rid, index=idx, name=tc.function.name)
             if req.on_tool_call is not None:
                 try:
                     req.on_tool_call(idx, tc)
@@ -2627,6 +3040,9 @@ class Engine:
             # request never admitted
             self._drop_prefilling_slot(slot)
             self._applied.discard(req.rid)
+            self.flight.record("cancel", rid=req.rid, slot=slot, where="mid_prefill",
+                               reason=reason)
+            self.flight.discard(req.rid)
             if not req.future.done():
                 if reason == "cancelled":
                     req.future.cancel()
@@ -2639,7 +3055,7 @@ class Engine:
         if (req.park and reason in ("stop", "length") and not self._stopping
                 and self._park_cut_for(sl) > 0):
             self._park(slot, sl)
-            self._resolve_result(sl, reason)
+            self._resolve_result(sl, reason, slot)
             return
         kv_entry = None
         if req.export_kv and reason in ("stop", "length") and not self._stopping:
@@ -2648,7 +3064,7 @@ class Engine:
         self._slots.pop(slot)
         self._release_slot(slot)
         self._applied.discard(req.rid)
-        self._resolve_result(sl, reason, kv_entry)
+        self._resolve_result(sl, reason, slot, kv_entry)
 
     def _release_slot(self, slot: int) -> None:
         """A vacated slot: its mirrors zeroed, its id and pages returned."""
@@ -2662,10 +3078,13 @@ class Engine:
         self._block_tables[slot, :] = TRASH_PAGE
         self._tables_dirty = True
 
-    def _resolve_result(self, sl: _Slot, reason: str,
+    def _resolve_result(self, sl: _Slot, reason: str, slot: int = -1,
                         kv_entry: Optional[HostKVEntry] = None) -> None:
         """Resolve a slot's future with its result: at a finish, and at a
-        park (the caller gets its result at once; only the KV lingers)."""
+        park (the caller gets its result at once; only the KV lingers). The
+        timeline's ``finish`` and its phase export come BEFORE the future
+        resolves, so a caller that reads the timeline at once sees it
+        whole."""
         req = sl.request
         gen = sl.generated
         if gen and gen[-1] in self.tokenizer.stop_tokens:
@@ -2682,6 +3101,8 @@ class Engine:
             preempt_count=req.preempt_count,
             kv_handoff=kv_entry,
         )
+        self.flight.finish(req.rid, reason, slot=slot, trace=req.trace, tokens=len(gen),
+                           preempts=req.preempt_count)
         if not req.future.done():
             req.future.set_result(result)
 
@@ -2697,6 +3118,8 @@ class Engine:
         ``page_lookahead_blocks`` dispatches ahead, so a slot re-uploads its
         table once per window, not at every page crossing; a failed top-up
         is harmless."""
+        if self._faults.enabled:
+            self._faults.apply_page_pressure(self._allocator)
         K = self.decode_block_size
         crossed: list[int] = []
         for slot in list(self._slots):
@@ -2831,12 +3254,19 @@ class Engine:
             self._unshare_followers(slot, sl)
         else:
             req.resume_tokens = list(sl.generated[sl.prefix_len:])
-        self._swap_out(slot, sl, reason="preempt")
+        rows_written = sl.prefill_pos if sl.prefilling else int(self._seq_lens[slot])
+        if not self._swap_out(slot, sl, reason="preempt"):
+            # no host copy landed: the resume recomputes the written KV, so
+            # its goodput becomes waste
+            self.profiler.reclassify("preempt_discard", rows_written)
         req.preempt_count += 1
         self.preemptions += 1
         self._release_slot(slot)
         REGISTRY.counter_add("acp_engine_preemptions_total", 1.0,
                              help="slots preempted (and requeued) under KV pool pressure")
+        self.flight.record("preempt", rid=req.rid, slot=slot, reason=reason,
+                           sampled=len(req.resume_tokens), count=req.preempt_count,
+                           mid_prefill=sl.prefilling)
         # a request that can't fit the WHOLE pool can never resume: finish
         # it at its current length (real exhaustion, not contention)
         ever = min(-(-(len(self._full_row(req)) + self.decode_block_size) // self.page_size),
@@ -2867,6 +3297,8 @@ class Engine:
             latency_ms=(now - req.enqueued) * 1e3,
             preempt_count=req.preempt_count,
         )
+        self.flight.finish(req.rid, "length", trace=req.trace, tokens=len(gen),
+                           preempts=req.preempt_count)
         if not req.future.done():
             req.future.set_result(result)
 
@@ -2914,6 +3346,7 @@ class Engine:
         REGISTRY.counter_add("acp_engine_parks_total", 1.0,
                              help="slots parked at generation end awaiting the "
                              "conversation's next turn")
+        self.flight.record("park", rid=sl.request.rid, slot=slot, cut=cut)
 
     def _release_parked(self, slot: int, reason: str = "pressure") -> None:
         """Free a parked slot entirely (pressure, expiry, stop, or a
@@ -2925,6 +3358,10 @@ class Engine:
             return
         if reason in ("pressure", "expired", "pool_pressure", "fault"):
             self._swap_out(slot, sl, reason=f"park_{reason}")
+        self.flight.record("park_release", rid=sl.request.rid, slot=slot, reason=reason)
+        # the timeline was retired when the park resolved the future: the
+        # release extends the finished timeline, leaving no live orphan
+        self.flight.discard(sl.request.rid)
         self._slots.pop(slot)
         self._parked_count -= 1
         self._release_slot(slot)
@@ -2984,6 +3421,7 @@ class Engine:
         self._slots.pop(slot)  # the new turn takes the slot over in place
         self._parked_count -= 1
         self.park_adoptions += 1
+        self.flight.record("adopt", rid=req.rid, slot=slot, cut=cut)
         REGISTRY.counter_add("acp_engine_park_adoptions_total", 1.0,
                              help="parked slots adopted by their conversation's next turn "
                              "(suffix-only prefill)")
@@ -3031,6 +3469,8 @@ class Engine:
             if self._host_pool is not None and self._host_pool.put(entry):
                 landed = True
                 self.kv_injects += 1
+                self.flight.record("kv_inject", rid=entry.rid, tokens=entry.cut,
+                                   bytes=entry.nbytes)
         if landed:
             self._publish_memory_state()
 
@@ -3095,6 +3535,16 @@ class Engine:
         restoring = sl.prefilling and sl.swap_entry is not None
         if cut < self._swap_min_rows() and not restoring:
             return False
+        t0 = time.monotonic()
+        if self._faults.enabled:
+            if self._faults.pop("engine.host_swap_error") is not None:
+                # the copy failed: no entry lands, the resume recomputes
+                self.flight.record("swap_out", rid=req.rid, slot=slot, reason=reason, error=True)
+                return False
+            spec = self._faults.pop("engine.host_swap_slow")
+            if spec is not None:
+                # inside the timed window: the injected delay is host_stall
+                time.sleep(float(spec.get("seconds", 0.05)))
         if restoring:
             entry = sl.swap_entry
             if entry.rid != req.rid:
@@ -3106,12 +3556,14 @@ class Engine:
                                 k_scale=out.get("ks"), v_scale=out.get("vs"))
         if not pool.put(entry):
             return False  # bigger than the whole budget: the resume recomputes
+        stall = time.monotonic() - t0
         self.kv_swap_outs += 1
         REGISTRY.counter_add("acp_engine_kv_swap_out_total", 1.0,
                              help="KV offloads to the host-RAM tier (preemption, park expiry, "
                              "and mid-prefill deadline drops that would otherwise discard "
                              "written KV)")
-        log.debug("swapped out rid %s (slot %d, %d rows, %s)", req.rid, slot, entry.cut, reason)
+        self.flight.record("swap_out", rid=req.rid, slot=slot, reason=reason, tokens=entry.cut,
+                           bytes=entry.nbytes, stall_s=round(stall, 6))
         self._publish_memory_state()
         return True
 
@@ -3129,9 +3581,13 @@ class Engine:
         cut = (cut // self.page_size) * self.page_size
         if cut < self._swap_min_rows():
             return None
+        t0 = time.monotonic()
         out = self._extract_pages(self._slot_pages[slot][: cut // self.page_size])
-        return HostKVEntry(rid=f"handoff-{req.rid}", tokens=tuple(row[:cut]), k=out["k"],
-                           v=out["v"], k_scale=out.get("ks"), v_scale=out.get("vs"))
+        entry = HostKVEntry(rid=f"handoff-{req.rid}", tokens=tuple(row[:cut]), k=out["k"],
+                            v=out["v"], k_scale=out.get("ks"), v_scale=out.get("vs"))
+        self.flight.record("handoff_export", rid=req.rid, slot=slot, tokens=cut,
+                           bytes=entry.nbytes, stall_s=round(time.monotonic() - t0, 6))
+        return entry
 
     def _extract_pages(self, pages: list[int]) -> dict[str, torch.Tensor]:
         """Gather whole pages to host tensors, token-major: ``{"k"/"v": [L,
@@ -3143,8 +3599,11 @@ class Engine:
         L, P = self.config.n_layers, self.page_size
         groups, i = [], 0
         for m in _pow2_sizes(len(pages)):
+            prof_t0 = self.profiler.start()
             ids = self._upload(np.asarray(pages[i: i + m], dtype=np.int64))
             groups.append({name: a.index_select(1, ids) for name, a in self.cache.items()})
+            self.profiler.record(f"swap_gather[{m}]", prof_t0, out=groups[-1]["k"],
+                                 real_tokens=m * P)
             i += m
         out: dict[str, torch.Tensor] = {}
         for name, a in self.cache.items():
@@ -3210,12 +3669,17 @@ class Engine:
         reused before its scatter has run."""
         cur = torch.cuda.current_stream(self.device) if self._pin else None
         for ids, blocks in groups:
+            prof_t0 = self.profiler.start()
             if cur is not None:
                 ids.record_stream(cur)
             for name, b in blocks.items():
                 if cur is not None:
                     b.record_stream(cur)
                 self.cache[name].index_copy_(1, ids, b)
+            # a sampled wait on the current stream covers the staged copies
+            # too: the stream waited on the side stream's event first
+            self.profiler.record(f"swap_scatter[{int(ids.shape[0])}]", prof_t0,
+                                 out=self.cache["k"], real_tokens=int(ids.shape[0]) * self.page_size)
 
     def _swap_in_rows(self, slot: int, entry: HostKVEntry, start: int, n: int) -> float:
         """The blocking restore of rows ``[start, start + n)`` (page-aligned)
@@ -3277,19 +3741,45 @@ class Engine:
         self._count_prefetch_commit()
         return time.monotonic() - t0
 
-    def _run_restores(self, restores: list, defer: bool = False) -> list:
+    def _run_restores(self, restores: list, defer: bool = False) -> tuple:
         """Land this round's restore chunks ``(slot, sl, start, n)``: a chunk
         staged last cycle commits its staged rows, any other runs the
         blocking copy. With ``defer`` (the cycle fuses) a staged chunk is
         returned instead, as ``(slot, sl, start, n, staged)``, for the
-        megastep's swaps phase."""
+        megastep's swaps phase. Returns ``(aborted slots, refunded tokens,
+        deferred)``: a restore ``engine.host_swap_error`` cancelled
+        dispatched nothing, so its budget refunds and its rows are
+        recomputed by model chunks; a stage ``engine.prefetch_error``
+        aborts takes the blocking copy, which lands the same rows."""
+        aborted: set[int] = set()
+        refund = 0
         deferred: list = []
         if not restores:
-            return deferred
+            return aborted, refund, deferred
         with self._hol_clock():
             for slot, sl, st, n in restores:
+                if self._faults.enabled and st == 0:
+                    spec = self._faults.pop("engine.host_swap_slow")
+                    if spec is not None:
+                        slow = float(spec.get("seconds", 0.05))
+                        time.sleep(slow)
+                        sl.swap_stall_s += slow  # attributed as host_stall
+                    if self._faults.pop("engine.host_swap_error") is not None:
+                        self.flight.record("swap_in", rid=sl.request.rid, slot=slot, error=True)
+                        # the preserved rows are recomputed after all
+                        self.profiler.reclassify("swap_recompute", self._swap_in_cut(sl))
+                        sl.swap_entry = None
+                        sl.swap_staged = None
+                        aborted.add(slot)
+                        refund += n
+                        continue
                 staged = self._staged_for(sl, st, n)
                 sl.swap_staged = None
+                if staged is not None and self._faults.enabled:
+                    if self._faults.pop("engine.prefetch_error") is not None:
+                        self.flight.record("prefetch_abort", rid=sl.request.rid, slot=slot,
+                                           start=st)
+                        staged = None
                 if staged is not None and defer:
                     deferred.append((slot, sl, st, n, staged))
                     continue
@@ -3298,7 +3788,7 @@ class Engine:
                 else:
                     sl.swap_stall_s += self._swap_in_rows(slot, sl.swap_entry, st, n)
                 self._advance_restore(slot, sl, st, n)
-        return deferred
+        return aborted, refund, deferred
 
     def _advance_restore(self, slot: int, sl: _Slot, st: int, n: int) -> None:
         """A restore chunk landed: the slot's rows advance; at the cut the
@@ -3317,7 +3807,7 @@ class Engine:
         REGISTRY.counter_add("acp_engine_kv_swap_in_total", 1.0,
                              help="host-tier KV restores completed (re-admissions that "
                              "swapped rows back in instead of re-running prefill)")
-        log.debug("restored rid %s (slot %d, %d rows, %.6f s stalled)", sl.request.rid, slot,
-                  sl.prefill_pos, sl.swap_stall_s)
+        self.flight.record("swap_in", rid=sl.request.rid, slot=slot, tokens=sl.prefill_pos,
+                           stall_s=round(sl.swap_stall_s, 6))
         sl.swap_entry = None
         self._publish_memory_state()

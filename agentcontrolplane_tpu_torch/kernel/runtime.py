@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 from typing import Awaitable, Callable, Optional, Protocol
 
 from ..api.meta import Resource
+from ..observability.metrics import REGISTRY
 from . import lease as leaselib
 from .events import EventRecorder
 from .queue import WorkQueue
@@ -254,12 +255,22 @@ class Manager:
             key = await ctl.queue.get()
             if key is None:
                 return
+            t0 = time.monotonic()
             try:
                 result = await ctl.reconciler.reconcile(key)
             except Exception:
                 log.exception("%s: reconcile %s failed", ctl.name, key)
+                REGISTRY.counter_add("acp_reconcile_total",
+                                     labels={"controller": ctl.name, "result": "error"},
+                                     help="reconcile outcomes per controller")
                 ctl.queue.add_rate_limited(key)
             else:
+                REGISTRY.counter_add("acp_reconcile_total",
+                                     labels={"controller": ctl.name, "result": "success"},
+                                     help="reconcile outcomes per controller")
+                REGISTRY.observe("acp_reconcile_duration_seconds", time.monotonic() - t0,
+                                 labels={"controller": ctl.name},
+                                 help="reconcile latency per controller")
                 ctl.queue.forget(key)
                 if result.requeue_after is not None:
                     ctl.queue.add_after(key, result.requeue_after)

@@ -10,8 +10,10 @@ chat route.
 
 Not ported yet, and refused with ``Invalid`` at construction: the served
 store (``store_address``, ``serve_store``, ``store_token``) and the fleet
-router (``fleet``), both ROADMAP A.12. The engine's flight-recorder tracer
-and the OTLP metrics push come with the observability layer (A.11).
+router (``fleet``), both ROADMAP A.12. The engine's flight recorder
+exports its finished requests' phase windows through the operator's
+tracer, and the metrics registry is pushed over OTLP when
+``OTEL_EXPORTER_OTLP_ENDPOINT`` is set (``observability/otel_metrics.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from .kernel import Invalid, Manager, SqliteBackend, Store
 from .kernel.runtime import map_owner
 from .llmclient.factory import DefaultLLMClientFactory, LLMClientFactory
 from .mcp import MCPManager
-from .observability import Tracer
+from .observability import MetricsExporter, Tracer
 
 
 @dataclass
@@ -104,6 +106,11 @@ class Operator:
         if isinstance(self.hl_factory, LocalHumanLayerClientFactory):
             self.human_backend = self.hl_factory.backend
         self.engine = self.options.engine
+        flight = getattr(self.engine, "flight", None)
+        if flight is not None:
+            # the recorder's phase windows export as child spans through
+            # the operator's tracer
+            flight.tracer = self.tracer
         self.llm_factory = llm_factory or DefaultLLMClientFactory(engine=self.engine)
 
         self.manager = Manager(
@@ -128,6 +135,9 @@ class Operator:
             tracer=self.tracer,
         )
         self._register_controllers()
+        # the OTLP metrics push beside the traces; a no-op unless
+        # OTEL_EXPORTER_OTLP_ENDPOINT is set
+        self.metrics_exporter = MetricsExporter()
         self.rest_server = None
         if self.options.enable_rest:
             from .server.operator_rest import RestServer
@@ -175,12 +185,14 @@ class Operator:
 
     async def start(self) -> None:
         await self.manager.start()
+        self.metrics_exporter.start()
 
     async def stop(self) -> None:
         """Stop the controllers and the REST server (a Task turn still in
         flight is cancelled: the engine frees its slot and the Task stays
         ReadyForLLM, to resume from the store), close the MCP subprocesses
         and the store."""
+        self.metrics_exporter.stop()
         await self.manager.stop()
         await self.mcp_manager.close()
         closer = getattr(self.llm_factory, "aclose", None)

@@ -290,17 +290,23 @@ class PageAllocator:
     Refcounts make prefix sharing zero-copy: a prefix-cache entry keeps a
     reference on its (whole, never rewritten) prompt pages, and every
     sequence whose block table borrows them takes another; a page returns
-    to the pool only when its last reference drops. The reference's
-    allocator, less the int8 scale-row bookkeeping of its invariant
-    checker."""
+    to the pool only when its last reference drops.
 
-    def __init__(self, num_pages: int):
+    With ``track_scales`` (int8 pools) it also keeps the set of pages that
+    own scale rows: an int8 page's f32 scales live in page-shaped twins
+    indexed by the same page id, so every allocated page owns exactly one
+    set and a page's last free gives them up. The invariant checker holds
+    the set against the refcounts (``engine/invariants.py``)."""
+
+    def __init__(self, num_pages: int, track_scales: bool = False):
         self.num_pages = num_pages
         self._free = list(range(num_pages - 1, 0, -1))  # pop() yields 1,2,...
         self._refs: dict[int, int] = {}
         # pages with refcount >= 2, kept incrementally so a reader gets an
         # int instead of scanning the refcounts
         self._shared = 0
+        # int8 pools: the pages that own scale rows (None: not tracked)
+        self._scale_pages: Optional[set[int]] = set() if track_scales else None
 
     @property
     def free_count(self) -> int:
@@ -321,12 +327,18 @@ class PageAllocator:
         ``audit()``: the two partition ``1..num_pages-1`` exactly."""
         return list(self._free), dict(self._refs)
 
+    def scale_audit(self) -> Optional[set[int]]:
+        """A copy of the pages that own scale rows (None when untracked)."""
+        return None if self._scale_pages is None else set(self._scale_pages)
+
     def alloc(self, n: int) -> list[int]:
         if n > len(self._free):
             raise MemoryError(f"out of KV pages: need {n}, have {len(self._free)}")
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
             self._refs[p] = 1
+        if self._scale_pages is not None:
+            self._scale_pages.update(pages)
         return pages
 
     def share(self, pages: list[int]) -> None:
@@ -351,6 +363,8 @@ class PageAllocator:
             if left <= 0:
                 del self._refs[p]
                 self._free.append(p)
+                if self._scale_pages is not None:
+                    self._scale_pages.discard(p)
             else:
                 self._refs[p] = left
 

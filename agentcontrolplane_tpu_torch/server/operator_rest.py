@@ -22,12 +22,16 @@ Routes (the reference's, with its request and error bodies):
   ``GET /v1/contacts``, ``POST /v1/contacts/{id}/respond``;
 - ``GET /v1/events``, ``GET /v1/models``, ``GET /v1/engine``,
   ``POST /v1/chat/completions``;
+- ``GET /v1/engine/perf`` (the dispatch profiler), ``GET
+  /v1/engine/flight?last=N&kind=&rid=`` (the flight recorder's window),
+  ``GET /v1/engine/trace`` (the anonymized workload trace) and ``GET
+  /v1/requests/{rid}/timeline`` (one request's events and phases); each
+  reads only the recorder's and the profiler's cross-thread methods;
 - ``GET /metrics`` (object counts by kind and phase, the engine's gauges),
   ``GET /healthz``, ``GET /readyz``.
 
-The engine's flight, perf, trace and timeline routes (ROADMAP A.11) and
-the fleet routes (A.12) are not served: they answer 404 like any unknown
-path.
+The fleet routes (ROADMAP A.12) are not served: they answer 404 like any
+unknown path.
 
 Threads: requests are handled on the server's worker threads; the store
 is thread-safe (an RLock; watch events reach the operator's loop with
@@ -81,6 +85,7 @@ from ..api.resources import (
 )
 from ..kernel.errors import AlreadyExists, Conflict, Invalid, NotFound
 from ..observability.metrics import REGISTRY
+from ..observability.trace_export import export_trace
 from ..utils.tokens import token_matches
 from ..validation import generate_k8s_random_string, validate_task_message_input
 from .rest import ChatStream, _Handler, chat_completion
@@ -279,6 +284,10 @@ class RestServer:
             ("POST", "/v1/chat/completions", self.chat_completions),
             ("GET", "/v1/models", self.list_models),
             ("GET", "/v1/engine", self.engine_status),
+            ("GET", "/v1/engine/perf", self.engine_perf),
+            ("GET", "/v1/engine/flight", self.engine_flight),
+            ("GET", "/v1/engine/trace", self.engine_trace),
+            ("GET", "/v1/requests/{rid}/timeline", self.request_timeline),
             ("GET", "/metrics", self.metrics),
             ("GET", "/healthz", self.healthz),
             ("GET", "/readyz", self.healthz),
@@ -751,6 +760,54 @@ class RestServer:
         if engine is None:
             return 200, {"configured": False}, {}
         return 200, {"configured": True, **engine.stats()}, {}
+
+    def engine_perf(self, req: Request) -> Reply:
+        """The dispatch profiler: per-program dispatch stats (host and
+        sampled device time, real and padded tokens), first dispatches and
+        the goodput/waste ledger."""
+        engine = self.operator.engine
+        if engine is None:
+            return _json_error(503, "no TPU engine configured")
+        return 200, {"configured": True, **engine.profiler.stats()}, {}
+
+    def engine_flight(self, req: Request) -> Reply:
+        """The flight recorder's window: the newest ``last`` events,
+        filterable by ``kind`` and ``rid``."""
+        engine = self.operator.engine
+        if engine is None:
+            return _json_error(503, "no TPU engine configured")
+        try:
+            last = int(req.query.get("last", "200"))
+        except ValueError:
+            return _json_error(400, "last must be an integer")
+        flight = engine.flight
+        return 200, {
+            **flight.stats(),
+            "request_ids": flight.request_ids(),
+            "events": flight.events(last=last, kind=req.query.get("kind") or None,
+                                    rid=req.query.get("rid") or None),
+        }, {}
+
+    def engine_trace(self, req: Request) -> Reply:
+        """The anonymized workload trace derived from the flight recorder
+        (``observability/trace_export.py``): arrival offsets, token lengths,
+        persona mix, tool-call offsets, deadlines and cancels, no content."""
+        engine = self.operator.engine
+        if engine is None:
+            return _json_error(503, "no TPU engine configured")
+        return 200, export_trace(engine.flight), {}
+
+    def request_timeline(self, req: Request) -> Reply:
+        """One request's recorded decisions in order, with the phase
+        attribution whose durations sum to its end-to-end wall."""
+        engine = self.operator.engine
+        if engine is None:
+            return _json_error(503, "no TPU engine configured")
+        doc = engine.flight.timeline_doc(req.match["rid"])
+        if doc is None:
+            return _json_error(404, "unknown request id (never recorded, or its timeline aged "
+                                    "out of the finished-request window)")
+        return 200, doc, {}
 
     # -- observability -----------------------------------------------------------
 

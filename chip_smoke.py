@@ -68,7 +68,7 @@ without printing a result:
    int8 KV against a whole-row pass reading the prefix as the int8 pool
    holds it), 4 conversations x 3 turns parked (8 adoptions, no miss, only
    suffixes prefilled), the same traffic hitting the prefix
-   cache (8 hits), and 8 x (512 + 192) tokens on a second engine of 256
+   cache (8 hits), and 8 x (512 + 128) tokens on a second engine of 256
    pages over the same weights (preemption, token counts equal to an
    uncontended run, the pool whole after), every part's decode steps
    through the walk; then, on each of the two engines, the host-KV phase
@@ -1252,6 +1252,9 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
         perf["spec"] = spec_phase(engine, card, label)
         perf["control_plane"] = control_plane_phase(engine, card, label)
         perf["operator"] = operator_phase(engine, card, label)
+        if label == "bf16":
+            perf["observability"] = observability_phase(engine, card, label,
+                                                        perf["operator"]["observability_rest"])
         return perf
     finally:
         server.shutdown()
@@ -1548,7 +1551,9 @@ KV_REPEATS = 1
 CONT_ROW, CONT_CUT = 1024, 960  # the continuation check's row and its cached prefix
 CONT_TOL = 2e-2  # relative L2 of the continuation's last-token logits vs the whole row's
 PREEMPT_PAGES = 257  # the preemption engine's pool: 256 usable pages of 16
-PREEMPT_REQUESTS, PREEMPT_PROMPT, PREEMPT_TOKENS = 8, 512, 192
+# the prompts alone fill the pool, so the group preempts at its first page
+# crossing; 128 sampled tokens keep the script's wall
+PREEMPT_REQUESTS, PREEMPT_PROMPT, PREEMPT_TOKENS = 8, 512, 128
 
 
 def _idle_parked(engine) -> None:
@@ -1752,7 +1757,8 @@ def conversations(engine, card: str, label: str, seed: int, park: bool) -> dict:
 def preemption_check(engine, card: str, label: str) -> dict:
     """A second engine over the SAME params dict (no second copy of the
     weights) with a 256-page pool: 8 requests of 512-token prompts and
-    max_tokens 192 need 44 pages each, 352 in all, so it must preempt.
+    max_tokens 128 need 40 pages each, 320 in all (the prompts alone fill
+    the pool), so it must preempt.
     Every request finishes with as many tokens as the same group run
     uncontended on the serving engine, and the pool is whole after. The
     second engine stays up for the host-tier phase, which reruns the group
@@ -2389,14 +2395,14 @@ def hol_run(engine, prompts: list, long_row: list, chunk: int, megastep: bool = 
             mine["cycles"] += 1
         real["_dispatch_once"]()
 
-    def project(sl, reason):
-        real["_project_quota"](sl, reason)
+    def project(slot, sl, reason):
+        real["_project_quota"](slot, sl, reason)
         if long_slot(sl):
             mine["quotas"].append(sl.chunk_quota)
 
-    def record(landed):
+    def record(landed, rnd):
         mine["sizes"] += [n for _slot, sl, _st, n in landed if long_slot(sl)]
-        real["_record_chunk_round"](landed)
+        real["_record_chunk_round"](landed, rnd)
 
     with engine.hold_admission():
         futs = [engine.submit(p, SamplingParams(max_tokens=HOL_DECODE_TOKENS),
@@ -3174,9 +3180,11 @@ def operator_phase(engine, card: str, label: str) -> dict:
         recording.submit = submit_recording
 
         async def run() -> dict:
+            # the REST server serves the engine's observability routes,
+            # read once the Tasks have run (_operator_rest_checks)
             op = Operator(OperatorOptions(db_path=str(Path(tmp) / "operator.db"), llm_probe=True,
                                           engine=recording, identity=f"chip-smoke-op-{label}",
-                                          enable_rest=False))
+                                          enable_rest=True, api_host="127.0.0.1", api_port=0))
             op.agent_reconciler.requeue_delay = AGENT_REQUEUE_S
             op.toolcall_reconciler.poll_interval = TOOLCALL_POLL_S
             store = op.store
@@ -3427,7 +3435,9 @@ def operator_phase(engine, card: str, label: str) -> dict:
                 if lens and lens[0] > max_bucket:
                     fail(f"operator {label}: {name}'s prompt, {lens[0]} tokens, is past the "
                          f"largest prefill bucket ({max_bucket})")
+            rest = await asyncio.to_thread(_operator_rest_checks, op, tasks, label)
             return {"agents_ready_ms": ready_ms, "probes": probes, "kinds": kinds,
+                    "observability_rest": rest,
                     "table_warmup_s": table_s,
                     "first_prompt_tokens": first_prompt,
                     "max_prompt_tokens": max(n for n, _, _ in prompts[n_prompts:]),
@@ -3507,6 +3517,304 @@ def operator_phase(engine, card: str, label: str) -> dict:
     return {**out, "card": card, "walk_launches": walk, "first_toolcall_ms": _ms_stats(all_first),
             "phase_s": phase_s, "toolcall_poll_s": TOOLCALL_POLL_S,
             "agent_requeue_s": AGENT_REQUEUE_S}
+
+
+def _operator_rest_checks(op, tasks: dict, label: str) -> dict:
+    """The engine's observability routes on the operator's REST server:
+    ``/v1/engine/perf`` and ``/v1/requests/{rid}/timeline`` of a Task's own
+    request, found through the Task's trace (the engine's phase spans under
+    it carry the request id)."""
+    deadline = time.monotonic() + 30
+    while not op.rest_server.bound_port and time.monotonic() < deadline:
+        time.sleep(0.01)
+    base = f"http://127.0.0.1:{op.rest_server.bound_port}"
+    task = tasks["t-plain-0"]
+    ctx = task.status.span_context
+    rids = [sp.attributes["request_id"] for sp in op.tracer.spans_for_trace(ctx.trace_id)
+            if sp.name.startswith("engine.")] if ctx is not None else []
+    if not rids:
+        fail(f"operator {label}: no engine phase span under {task.name}'s trace")
+    rid = rids[-1]
+    status, doc = _get(base, f"/v1/requests/{rid}/timeline")
+    kinds = [e["kind"] for e in doc["events"]] if status == 200 else []
+    if status != 200 or doc["request_id"] != rid or kinds[:1] != ["submit"] or \
+            kinds[-1:] != ["finish"] or not {"queue_wait", "prefill", "decode"} <= set(
+                doc["phases"]):
+        fail(f"operator {label}: GET /v1/requests/{rid}/timeline -> {status} {str(doc)[:300]}")
+    p_status, perf = _get(base, "/v1/engine/perf")
+    if p_status != 200 or not perf.get("configured") or not perf.get("programs"):
+        fail(f"operator {label}: GET /v1/engine/perf -> {p_status} {str(perf)[:300]}")
+    return {"task": task.name, "rid": rid, "timeline_status": status, "perf_status": p_status,
+            "events": kinds, "phases_ms": {k: v * 1e3 for k, v in doc["phases"].items()},
+            "total_ms": doc["total_s"] * 1e3, "trace_spans": len(rids),
+            "perf_programs": len(perf["programs"])}
+
+
+# -- observability phase ----------------------------------------------------
+
+
+def _obs_prompts(n: int, length: int, seed: int, vocab: int) -> list[list[int]]:
+    """``n`` distinct token rows of ``length`` from a seed (no shared page,
+    so no dedup or cache reuse between them)."""
+    import random
+
+    rng = random.Random(seed)
+    return [[rng.randrange(256, min(8192, vocab)) for _ in range(length)] for _ in range(n)]
+
+
+def observability_phase(engine, card: str, label: str, rest: dict, prompt_len: int = 512,
+                        max_tokens: int = 64, device: str = "cuda") -> dict:
+    """The flight recorder, the dispatch profiler and the audit on the
+    running llama3-8b engine (ROADMAP A.11), after the operator phase:
+    (a) 8 concurrent greedy requests of 512 prompt + 64 sampled tokens:
+    every timeline's phases sum to its submit -> finish wall within 1%, the
+    median queue_wait / prefill / decode printed; (b) the profiler's
+    per-program dispatches, host and sampled device ms and first
+    dispatches printed, its ledger conserved; (c) the exported trace
+    validates (written to the output directory), and the operator phase's REST
+    reads (``/v1/requests/{rid}/timeline`` of a Task's own request and
+    ``/v1/engine/perf``) answered 200; (d) the same requests with the
+    recorder and profiler off give the same streams, ms per decode step on
+    and off printed (median of 3 runs each, interleaved); (e) one burst
+    with the invariant checker armed audits clean (the audit's ms per
+    cycle printed), then on tiny f32 engines on the card
+    ``engine.invariant_break`` writes a crash dump holding the violation
+    and ``ensure_running`` serves the next request, and
+    ``engine.prefetch_error`` aborts staged copies of the side stream with
+    byte-identical streams. The walk's launches of (a) must equal n_layers
+    x decode steps."""
+    import os
+    import tempfile
+
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+    from agentcontrolplane_tpu_torch.engine.invariants import verify_engine
+    from agentcontrolplane_tpu_torch.observability.trace_export import (
+        export_trace,
+        validate_trace,
+    )
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    t_phase = time.monotonic()
+    cfg = engine.config
+    _idle_parked(engine)
+    _forget_prefixes(engine)
+    prompts = _obs_prompts(8, prompt_len, 11, cfg.vocab_size)
+    sp = SamplingParams(max_tokens=max_tokens)
+
+    def burst() -> tuple:
+        """The 8 requests admitted as one group: (results, futures,
+        decode steps, ms per decode step)."""
+        _forget_prefixes(engine)
+        with engine.hold_admission():
+            futs = [engine.submit(p, sp) for p in prompts]
+            s0 = engine.decode_steps
+        res = [f.result(timeout=600) for f in futs]
+        steps = engine.decode_steps - s0
+        decode_ms = max(r.latency_ms for r in res) - max(r.ttft_ms for r in res)
+        return res, futs, steps, decode_ms / max(1, steps)
+
+    # (a) the counted run: the walk's counts to 0 just before, read after
+    pa.LAUNCHES = 0
+    pa.INT8_LAUNCHES = 0
+    res_on, futs_on, steps_a, ms_on0 = burst()
+    launches = pa.LAUNCHES
+    if launches != cfg.n_layers * steps_a or steps_a == 0 or pa.INT8_LAUNCHES:
+        fail(f"observability {label}: {launches} walk launches for {steps_a} decode steps x "
+             f"{cfg.n_layers} layers (int8 walk {pa.INT8_LAUNCHES})")
+    phases: dict = {}
+    worst = 0.0
+    for f in futs_on:
+        doc = engine.flight.timeline_doc(f.rid)
+        if doc is None or doc["events"][-1]["kind"] != "finish":
+            fail(f"observability {label}: no finished timeline for {f.rid}")
+        summed = sum(v for k, v in doc["phases"].items()
+                     if k not in ("tool_overlap_hidden", "host_stall"))
+        off = abs(summed - doc["total_s"]) / doc["total_s"]
+        worst = max(worst, off)
+        if off > 0.01:
+            fail(f"observability {label}: {f.rid}'s phases sum to {summed:.6f} s against its "
+                 f"{doc['total_s']:.6f} s wall")
+        for k, v in doc["phases"].items():
+            phases.setdefault(k, []).append(v * 1e3)
+    split = {k: statistics.median(v) for k, v in phases.items()}
+    say(f"observability {label} (a): 8 x ({prompt_len} + {max_tokens}) greedy, {steps_a} decode steps, "
+        f"walk launches {launches} = {cfg.n_layers} x {steps_a}; phases sum to the wall within "
+        f"{worst * 100:.4f}%; median " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        + f"  [{card}]")
+
+    # (b) the profiler
+    perf = engine.profiler.stats()
+    led = engine.profiler.ledger()
+    if led["computed"] != led["goodput"] + sum(led["waste"].values()) or led["computed"] <= 0:
+        fail(f"observability {label}: the goodput ledger does not balance: {led}")
+    programs = perf["programs"]
+    top = sorted(programs.items(), key=lambda kv: -kv[1]["host_ms_total"])[:12]
+    for key, pr in top:
+        say(f"observability {label} (b): {key}: {pr['dispatches']} dispatches, host "
+            f"{pr['host_ms_mean']:.3f} ms mean, device {pr['device_ms_mean']} ms mean over "
+            f"{pr['device_samples']} samples, first dispatch {pr['first_wall_ms']:.1f} ms, "
+            f"padding {pr['padding_pct']:.1f}%  [{card}]")
+    g = perf["goodput"]
+    say(f"observability {label} (b): {len(programs)} program keys; ledger {g['goodput']} goodput "
+        f"of {g['computed']} computed ({g['ratio']:.4f}), waste "
+        f"{ {k: v for k, v in g['waste'].items() if v} }; conserved  [{card}]")
+
+    # (c) the trace and the REST reads
+    trace = export_trace(engine.flight)
+    problems = validate_trace(trace)
+    if problems or not trace["requests"]:
+        fail(f"observability {label}: the exported trace does not validate: {problems[:5]}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"observability_trace_{label}.json").write_text(json.dumps(trace, indent=1))
+    if rest["timeline_status"] != 200 or rest["perf_status"] != 200:
+        fail(f"observability {label}: REST reads {rest}")
+    say(f"observability {label} (c): trace of {len(trace['requests'])} requests validates "
+        f"(complete={trace['complete']}); operator REST: {rest['task']}'s request {rest['rid']} "
+        f"timeline 200 ({' '.join(rest['events'])}), /v1/engine/perf 200 "
+        f"({rest['perf_programs']} programs)  [{card}]")
+
+    # (d) recorder and profiler off: the same streams; ms per decode step
+    ms = {True: [ms_on0], False: []}
+    streams_on = [list(r.tokens) for r in res_on]
+    for rep_i in range(5):
+        on = rep_i % 2 == 1
+        engine.flight.enabled = engine.profiler.enabled = on
+        try:
+            res, _f, _s, ms_step = burst()
+        finally:
+            engine.flight.enabled = engine.profiler.enabled = True
+        if [list(r.tokens) for r in res] != streams_on:
+            fail(f"observability {label}: streams differ with the recorder and profiler "
+                 f"{'on' if on else 'off'}")
+        ms[on].append(ms_step)
+    med_on, med_off = statistics.median(ms[True]), statistics.median(ms[False])
+    say(f"observability {label} (d): streams byte-identical on and off; ms per decode step "
+        f"on {med_on:.2f} ({', '.join(f'{v:.2f}' for v in ms[True])}), off {med_off:.2f} "
+        f"({', '.join(f'{v:.2f}' for v in ms[False])}); on/off {med_on / med_off:.4f}  [{card}]")
+
+    # (e) the armed audit on this engine
+    checks0 = _registry_count("acp_engine_invariant_checks_total")
+    engine.check_invariants = True
+    try:
+        _res_a, _f, steps_e, ms_armed = burst()
+    finally:
+        engine.check_invariants = False
+    audits = int(_registry_count("acp_engine_invariant_checks_total") - checks0)
+    audit_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        found = verify_engine(engine)
+        audit_ms.append((time.perf_counter() - t0) * 1e3)
+    if found or audits <= 0:
+        fail(f"observability {label}: the armed burst audited {audits} cycles; idle audit {found}")
+    say(f"observability {label} (e): armed burst {audits} audits clean over {steps_e} decode "
+        f"steps, {ms_armed:.2f} ms per decode step armed; the audit alone "
+        f"{statistics.median(audit_ms):.3f} ms per cycle (median of 20, idle engine)  [{card}]")
+
+    # (e) the crash dump and the prefetch abort on tiny f32 engines
+    with tempfile.TemporaryDirectory(dir=out_dir) as dump_dir:
+        os.environ["ACP_FLIGHT_DUMP_DIR"] = dump_dir
+        try:
+            tiny = _tiny_fault_runs(card, dump_dir, device)
+        finally:
+            os.environ.pop("ACP_FLIGHT_DUMP_DIR", None)
+    phase_s = time.monotonic() - t_phase
+    say(f"observability {label}: phase {phase_s:.1f} s  [{card}]")
+    return {"card": card, "launches": launches, "decode_steps": steps_a,
+            "phase_split_ms_median": split, "phase_sum_worst_rel": worst,
+            "programs": programs, "goodput": g, "trace_requests": len(trace["requests"]),
+            "rest": rest, "ms_per_decode_step": {"on": ms[True], "off": ms[False],
+                                                 "median_on": med_on, "median_off": med_off},
+            "armed": {"audits": audits, "ms_per_decode_step": ms_armed,
+                      "audit_ms_median": statistics.median(audit_ms)},
+            "tiny": tiny, "phase_s": phase_s}
+
+
+def _registry_count(name: str) -> float:
+    from agentcontrolplane_tpu_torch.observability.metrics import REGISTRY
+
+    m = REGISTRY._metrics.get(name)
+    return 0.0 if m is None else m.values.get((), 0.0)
+
+
+def _tiny_fault_runs(card: str, dump_dir: str, device: str = "cuda") -> dict:
+    """Tiny f32 engines on the card: ``engine.invariant_break`` on an armed
+    engine crashes it with a dump holding the violation, and
+    ``ensure_running`` serves the next request; ``engine.prefetch_error``
+    aborts two staged restores (the side stream's copies) on a tight pool
+    with the host tier, and the streams equal the uncontended runs."""
+    import dataclasses
+    import glob
+
+    from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
+    from agentcontrolplane_tpu_torch.faults import FAULTS
+    from agentcontrolplane_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.PRESETS["tiny"], vocab_size=512, max_seq_len=256)
+    kw = dict(max_slots=4, max_ctx=64, prefill_buckets=(32, 64), decode_block_size=4,
+              page_size=8, kv_pages=33, seed=0)
+    out = {}
+    eng = Engine(cfg, device=device, check_invariants=True, **kw)
+    eng.start()
+    try:
+        sp = SamplingParams(max_tokens=8)
+        eng.generate("warm-up", sp)
+        FAULTS.arm("engine.invariant_break")
+        fut = eng.submit("boom", sp)
+        try:
+            fut.result(timeout=120)
+            fail("tiny: engine.invariant_break did not crash the armed engine")
+        except RuntimeError as e:
+            if "invariant" not in str(e):
+                fail(f"tiny: the crash is not the invariant violation: {e}")
+        dumps = sorted(glob.glob(f"{dump_dir}/flightdump-*.json"))
+        if not dumps:
+            fail("tiny: no flight dump written")
+        dump = json.loads(Path(dumps[-1]).read_text())
+        kinds = [e["kind"] for e in dump["events"]]
+        if dump["error"]["type"] != "InvariantViolation" or "invariant_violation" not in kinds \
+                or "crash" not in kinds:
+            fail(f"tiny: the dump holds {dump['error']} and {kinds[-6:]}")
+        if not eng.ensure_running():
+            fail("tiny: ensure_running did not restart the engine")
+        after = eng.generate("after the crash", sp)
+        if not after.tokens or not eng.flight.events(kind="restart"):
+            fail("tiny: no request served after the restart")
+        out["crash_dump"] = {"events": len(kinds), "last_kinds": kinds[-4:],
+                             "after_tokens": len(after.tokens)}
+    finally:
+        FAULTS.reset()
+        eng.stop()
+    eng = Engine(cfg, device=device, host_kv_bytes=1 << 22, prefill_chunk=16, **kw)
+    eng.start()
+    try:
+        sp = SamplingParams(max_tokens=12)
+        prompts = [ch * 20 for ch in "abcdef"]
+        # the reference's 10-page pool: the page-pressure site holds the rest
+        FAULTS.arm("engine.page_pressure", pages=eng._allocator.free_count - 9)
+        FAULTS.apply_page_pressure(eng._allocator)
+        solo = [eng.generate(p, sp).tokens for p in prompts]
+        FAULTS.arm("engine.prefetch_error", times=2)
+        with eng.hold_admission():
+            futs = [eng.submit(p, sp) for p in prompts]
+        burst = [f.result(timeout=120).tokens for f in futs]
+        aborts = len(eng.flight.events(kind="prefetch_abort", last=0))
+        if burst != solo or aborts < 1 or eng.kv_swap_ins < 1:
+            fail(f"tiny: prefetch_error: streams equal {burst == solo}, {aborts} aborts, "
+                 f"{eng.kv_swap_ins} restores")
+        out["prefetch_error"] = {"aborts": aborts, "restores": eng.kv_swap_ins,
+                                 "prefetch_commits": eng.kv_prefetch_commits}
+    finally:
+        FAULTS.reset()
+        eng.stop()
+    say(f"observability tiny: engine.invariant_break -> dump with {out['crash_dump']['events']} "
+        f"events ending {out['crash_dump']['last_kinds']}, restarted and served; "
+        f"engine.prefetch_error -> {out['prefetch_error']['aborts']} aborts, "
+        f"{out['prefetch_error']['restores']} restores, streams equal  [{card}]")
+    return out
 
 
 def _fmt(st: dict) -> str:
@@ -4335,9 +4643,11 @@ def main() -> int:
     walls["spec_bf16"] = perf["spec"]["phase_s"]
     walls["control_plane_bf16"] = perf["control_plane"]["phase_s"]
     walls["operator_bf16"] = perf["operator"]["phase_s"]
+    walls["observability_bf16"] = perf["observability"]["phase_s"]
     walls["serving_bf16"] -= (walls["constrained"] + walls["kv_reuse_bf16"]
                               + walls["host_kv_bf16"] + walls["chunked_bf16"] + walls["spec_bf16"]
-                              + walls["control_plane_bf16"] + walls["operator_bf16"])
+                              + walls["control_plane_bf16"] + walls["operator_bf16"]
+                              + walls["observability_bf16"])
     gc.collect()
     torch.cuda.empty_cache()
     perf_int8 = timed("serving_int8", serving_phase, card, "int8", quantize_weights=True,
@@ -4387,7 +4697,8 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": serving["launches"],
+            # the serving run's and, on bf16, the observability phase's
+            "launches": serving["launches"] + serving.get("observability", {}).get("launches", 0),
             "max_abs_err": max(c[f"{m}_max_abs_err"] for c in cases for m, _ in MODES),
             "ms": main_case["cache_plus_new_kernel_ms"],
             "kernel_ms": main_case["cache_plus_new_kernel_ms"],
@@ -4426,7 +4737,7 @@ def main() -> int:
         default=str))
     say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + " s (serving phases without the constrained, kv-reuse, host-kv, chunked, spec, "
-          "control-plane and operator phases)")
+          "control-plane, operator and observability phases)")
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

@@ -582,8 +582,9 @@ def test_engine_and_run_defaults_match_the_reference():
     for cls in (JaxEngine, Engine):
         params = inspect.signature(cls.__init__).parameters
         assert {k: params[k].default for k in want} == want
-    with pytest.raises(ValueError, match="A.11"):
-        Engine(TCFG, device="cpu", autopilot=True)
+    # the autopilot reads the flight recorder's phase summaries: on
+    assert Engine(TCFG, device="cpu", autopilot=True).stats()["scheduler"]["planner"][
+        "autopilot"] is True
 
     flags = ("tpu_prefill_chunk", "tpu_token_budget", "tpu_prefix_dedup", "tpu_megastep",
              "tpu_rate_planner")

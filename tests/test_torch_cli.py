@@ -6,8 +6,10 @@ The live-server flow of the reference's ``tests/server/test_manifests_cli.py``
 runs through each package's ``main([...])`` against that package's own
 operator (REST on an ephemeral port, ``MockLLMClient`` answering "Paris"),
 and so do the human steps (``approvals``, ``approve``/``reject``,
-``contacts``, ``contacts respond``), the bearer token (``--token``) and
-``chat`` over a tiny f32 engine pair. Exit codes and printed output must be
+``contacts``, ``contacts respond``), the bearer token (``--token``),
+``chat`` and the engine's ``perf``, ``timeline`` and ``trace export`` over
+a tiny f32 engine pair (clocks and rids in their output numbered or
+masked). Exit codes and printed output must be
 equal, with random Task names numbered in order of first appearance; the
 phase lines that ``--follow`` prints while it polls depend on timing, so
 only its last is compared, and ``-o yaml`` is compared as the documents it
@@ -172,6 +174,10 @@ def test_chat_matches_the_reference(capsys, monkeypatch):
     (["run", "--help"], 0),
     (["task", "create", "--help"], 0),
     (["get", "Agent", "-o", "json"], 2),
+    (["perf", "--help"], 0),
+    (["timeline", "--help"], 0),
+    (["trace", "export", "--help"], 0),
+    (["trace"], 2),
 ])
 def test_parser_matches_the_reference(argv, rc, capsys):
     """The flags the two CLIs share parse alike (both exit through
@@ -268,3 +274,107 @@ def test_run_host_kv_flags_parse_and_reach_the_engine(tmp_path, monkeypatch):
     port_cli.cmd_run(port_cli.build_parser().parse_args(
         base + ["--tpu-host-kv-bytes", str(1 << 30), "--tpu-host-prefetch", "0"]))
     assert (built["host_kv_bytes"], built["host_prefetch"]) == (1 << 30, False)
+
+
+_CLOCK = re.compile(r"\d+\.\d+(?:e-?\d+)?")
+_RID = re.compile(r"\b[0-9a-f]{8}\b")
+
+
+def _masked(text: str) -> str:
+    """Output with clock readings masked (and the padding their widths
+    change), rids numbered in order."""
+    seen: dict = {}
+    text = re.sub(r" +", " ", _CLOCK.sub("<t>", text))
+    return _RID.sub(lambda m: "<rid %d>" % seen.setdefault(m.group(0), len(seen)), text)
+
+
+def test_perf_timeline_trace_match_the_reference(capsys, tmp_path):
+    """After one chat request: ``perf`` (its ledger and program rows),
+    ``timeline`` (the window, then the request's events and phases) and
+    ``trace export -o`` print the reference's lines, clocks masked; an
+    unknown rid fails alike."""
+    import json as _json
+
+    from .test_torch_rest import _engine_pair
+
+    body = {"model": "tiny", "max_tokens": 8, "temperature": 0,
+            "messages": [{"role": "user", "content": "observe me"}]}
+    views = {}
+    engines = _engine_pair()
+    try:
+        for pkg, engine in engines.items():
+            engine.start()
+            with Live(pkg, engine=engine) as h:
+                assert h.call("POST", "/v1/chat/completions", body)[0] == 200
+                cli = Cli(pkg, h, capsys)
+                rid = h.call("GET", "/v1/engine/flight")[1]["request_ids"][-1]
+                perf = cli("perf")
+                perf_json = _json.loads(cli("perf", "--json")[1])
+                (tmp_path / pkg).mkdir()
+                out_file = tmp_path / pkg / "trace.json"
+                trace = cli("trace", "export", "-o", str(out_file))
+                doc = _json.loads(out_file.read_text())
+                views[pkg] = {
+                    # program rows are sorted by host time: compared as a set
+                    "perf": (perf[0], sorted(ln.split()[0] for ln in perf[1].splitlines()),
+                             perf[2]),
+                    "perf_json": ({k: v["dispatches"] for k, v in perf_json["programs"].items()},
+                                  perf_json["goodput"]),
+                    "window": [_masked(x) if isinstance(x, str) else x
+                               for x in cli("timeline", "--last", "5")],
+                    "timeline": [_masked(x) if isinstance(x, str) else x
+                                 for x in cli("timeline", rid)],
+                    "ghost": cli("timeline", "nope")[0],
+                    "trace": (trace[0], _masked(trace[1].replace(str(tmp_path / pkg), "<dir>")),
+                              [{k: v for k, v in r.items() if k != "offset_s"}
+                               for r in doc["requests"]]),
+                }
+    finally:
+        for engine in engines.values():
+            engine.stop()
+    assert views["port"] == views["ref"]
+    port = views["port"]
+    assert port["perf"][0] == 0 and "goodput:" in port["perf"][1]
+    assert port["timeline"][0] == 0 and "phases" in port["timeline"][1]
+    assert port["ghost"] == 1 and port["trace"][0] == 0 and port["trace"][2]
+
+
+def test_run_autopilot_flag_parses_and_reaches_the_engine(tmp_path, monkeypatch):
+    """``run --tpu-autopilot`` carries the reference's default and help and
+    reaches ``Engine(autopilot=)``."""
+    import argparse
+
+    import agentcontrolplane_tpu_torch.operator as port_operator
+    from agentcontrolplane_tpu.cli import build_parser as ref_parser
+    from agentcontrolplane_tpu_torch import cli as port_cli
+    from agentcontrolplane_tpu_torch.engine import engine as port_engine_mod
+
+    def run_flag(parser):
+        run = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction)).choices["run"]
+        return [(a.default, a.help) for a in run._actions if a.dest == "tpu_autopilot"]
+
+    assert run_flag(port_cli.build_parser()) == run_flag(ref_parser()) != []
+    built = {}
+
+    class FakeEngine:
+        def __init__(self, *args, **kw):
+            built.update(kw)
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+    async def no_serve():
+        return None
+
+    monkeypatch.setattr(port_engine_mod, "Engine", FakeEngine)
+    monkeypatch.setattr(port_operator, "serve_until_signalled", no_serve)
+    base = ["run", "--db", str(tmp_path / "acp.db"), "--tpu-preset", "tiny", "--device", "cpu",
+            "--port", "0"]
+    port_cli.cmd_run(port_cli.build_parser().parse_args(base))
+    assert built["autopilot"] is False
+    port_cli.cmd_run(port_cli.build_parser().parse_args(base + ["--tpu-autopilot", "1"]))
+    assert built["autopilot"] is True

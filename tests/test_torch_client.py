@@ -197,15 +197,16 @@ class _StubEngine:
 
     def __init__(self, outcome, calls=(), running=True):
         self.outcome, self.calls, self.running = outcome, calls, running
-        self.cancelled, self.samplings, self.parks = [], [], []
+        self.cancelled, self.samplings, self.parks, self.traces = [], [], [], []
 
     def ensure_running(self):
         return self.running
 
     def submit(self, prompt, sampling, on_tokens=None, timeout_s=None, on_tool_call=None,
-               park=False):
+               park=False, trace=None):
         self.samplings.append(sampling)
         self.parks.append(park)
+        self.traces.append(trace)
         fut = Future()
         fut.admitted = Future()
         if isinstance(self.outcome, BaseException):
@@ -289,6 +290,7 @@ async def test_overlapped_turns_park_their_slot():
     await TPUEngineClient(eng, BaseConfig(), overlap_tool_calls=False).send_request(
         MESSAGES, TOOLS)
     assert eng.parks == [True, False, False]
+    assert eng.traces == [None, None, None]  # no span context given, none passed
 
 
 async def test_crashed_engine_is_rebuilt_by_the_next_request():

@@ -15,9 +15,10 @@ port against the JAX package's paged engine.
   megastep keys (``s...`` included). The reference's tighter pools
   (``kv_pages=10``/``12``) are made by holding pages while the engines
   idle. Its ``engine.force_preempt`` and ``engine.preempt_mid_prefill``
-  fault sites are preemptions the test makes itself at the port's decode
-  site and chunk loop; its flight-recorder checks are replaced by
-  recording the entries the pools take and the rows each restore lands.
+  fault sites are armed alike on both engines, each on its own package's
+  ``FAULTS``; its flight-recorder checks are replaced here by recording the
+  entries the pools take and the rows each restore lands
+  (``tests/test_torch_faults.py`` replays them on both recorders).
 - On the port every cycle checks the host pool's audit (``used_bytes`` is
   the sum of its entries and within the budget), and every completed
   restore checks that the slot's pages hold the entry's rows bit for bit.
@@ -45,6 +46,7 @@ from agentcontrolplane_tpu.observability.metrics import REGISTRY as JAX_REGISTRY
 from agentcontrolplane_tpu.ops import paged as ref_paged
 from agentcontrolplane_tpu.parallel.mesh import make_mesh
 from agentcontrolplane_tpu.testing import FAULTS
+from agentcontrolplane_tpu_torch.faults import FAULTS as PORT_FAULTS
 from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
 from agentcontrolplane_tpu_torch.engine.tokenizer import ByteTokenizer
 from agentcontrolplane_tpu_torch.engine.weights import params_from_jax
@@ -255,6 +257,7 @@ def engines():
         yield SimpleNamespace(ref=ref, port=port, checks=checks, weights=weights, params=params)
     finally:
         FAULTS.reset()
+        PORT_FAULTS.reset()
         ref.stop()
         port.stop()
 
@@ -281,6 +284,7 @@ def pair(engines):
     n0 = len(engines.checks.violations)
     yield engines
     FAULTS.reset()
+    PORT_FAULTS.reset()
     for eng in (engines.ref, engines.port):
         _rest(eng)
         assert eng._allocator.free_count == eng.num_pages - 1
@@ -334,50 +338,24 @@ def _both(pair, case) -> tuple:
 
 
 class _Preempts:
-    """The reference's fault sites on both engines: ``engine.force_preempt``
-    (a policy victim at the decode site once ``decode_steps >= after``)
-    and ``engine.preempt_mid_prefill`` (the mid-prefill slot with the most
-    rows, at the chunk loop once ``prefill_chunks >= after``). On the port
-    the test makes the preemption itself at the same places."""
+    """The fault sites ``engine.force_preempt`` (a policy victim at the
+    decode site once ``decode_steps >= decode_after``) and
+    ``engine.preempt_mid_prefill`` (the mid-prefill slot with the most rows,
+    at the chunk loop once ``prefill_chunks >= chunk_after``), armed on
+    the injector of ``eng``'s package and reset on exit."""
 
     def __init__(self, eng, decode_after=None, chunk_after=None):
-        self.eng = eng
-        if not isinstance(eng, Engine):
-            if decode_after is not None:
-                FAULTS.arm("engine.force_preempt", after_steps=decode_after)
-            if chunk_after is not None:
-                FAULTS.arm("engine.preempt_mid_prefill", after_steps=chunk_after)
-            return
-        left = {"decode": decode_after, "chunk": chunk_after}
-        decode_once, prefill_chunks = eng._decode_once, eng._prefill_chunks
-
-        def decode():
-            if (left["decode"] is not None and eng._n_active()
-                    and eng.decode_steps >= left["decode"]):
-                left["decode"] = None
-                victim = eng._pick_victim()
-                if victim is not None:
-                    eng._preempt(victim, reason="fault")
-            decode_once()
-
-        def chunks(budget):
-            pre = [(s, sl) for s, sl in eng._slots.items() if sl.prefilling]
-            if left["chunk"] is not None and pre and eng.prefill_chunks >= left["chunk"]:
-                left["chunk"] = None
-                eng._preempt(max(pre, key=lambda t: (t[1].prefill_pos, t[0]))[0], reason="fault")
-            return prefill_chunks(budget)
-
-        eng._decode_once, eng._prefill_chunks = decode, chunks
+        self.faults = PORT_FAULTS if isinstance(eng, Engine) else FAULTS
+        if decode_after is not None:
+            self.faults.arm("engine.force_preempt", after_steps=decode_after)
+        if chunk_after is not None:
+            self.faults.arm("engine.preempt_mid_prefill", after_steps=chunk_after)
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
-        if isinstance(self.eng, Engine):
-            del self.eng._decode_once
-            del self.eng._prefill_chunks
-        else:
-            FAULTS.reset()
+        self.faults.reset()
 
 
 def _pressure(eng, sp, prompts=PROMPTS, pages=9, max_tokens=12) -> tuple:
@@ -614,6 +592,7 @@ def test_quantized_swap_roundtrip_bit_exact(pair):
                               eng.kv_swap_ins, eng.stats()["memory"]["host_kv"])
     finally:
         FAULTS.reset()
+        PORT_FAULTS.reset()
         ref.stop()
         port.stop()
     base, got, preempted, outs, ins, _mem = out[Engine]

@@ -63,6 +63,13 @@ def test_scan_covers_the_port_and_catches_offenders():
         "agentcontrolplane_tpu_torch/cli.py",
         "agentcontrolplane_tpu_torch/api/yamlsubset.py",
         "agentcontrolplane_tpu_torch/utils/tokens.py",
+        "agentcontrolplane_tpu_torch/faults.py",
+        "agentcontrolplane_tpu_torch/observability/flight.py",
+        "agentcontrolplane_tpu_torch/observability/profiler.py",
+        "agentcontrolplane_tpu_torch/observability/trace_export.py",
+        "agentcontrolplane_tpu_torch/observability/otel_metrics.py",
+        "agentcontrolplane_tpu_torch/engine/brownout.py",
+        "agentcontrolplane_tpu_torch/engine/invariants.py",
         "chip_smoke.py",
         "tests/torch_parallel_ranks.py",
     ):

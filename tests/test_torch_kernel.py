@@ -192,3 +192,54 @@ async def test_two_managers_give_exactly_one_winner(ns):
         for m in managers:
             await m.stop()
     assert ns.lease.holder(store, "acp-tpu-leader") is None  # released at stop
+
+
+class _FlakyReconciler:
+    """Fails its first reconcile of each key, then succeeds."""
+
+    def __init__(self, ns):
+        self.ns, self.seen = ns, set()
+
+    async def reconcile(self, key):
+        if key not in self.seen:
+            self.seen.add(key)
+            raise RuntimeError("first reconcile fails")
+        return self.ns.K.Result.done()
+
+
+async def test_manager_counts_reconciles_like_the_reference():
+    """``acp_reconcile_total{controller,result}`` and the
+    ``acp_reconcile_duration_seconds`` observations: the same counts on
+    both managers for the same reconciles."""
+    from agentcontrolplane_tpu.observability.metrics import REGISTRY as ref_registry
+    from agentcontrolplane_tpu_torch.observability.metrics import REGISTRY as port_registry
+
+    def counts(reg):
+        m = reg._metrics.get("acp_reconcile_total")
+        vals = {} if m is None else m.values
+        h = reg.series_window("acp_reconcile_duration_seconds", {"controller": "flaky"})[0]
+        return (vals.get((("controller", "flaky"), ("result", "error")), 0.0),
+                vals.get((("controller", "flaky"), ("result", "success")), 0.0), h)
+
+    deltas = []
+    for ns, reg in ((REF, ref_registry), (PORT, port_registry)):
+        store = ns.K.Store()
+        mgr = ns.K.Manager(store, identity="m")
+        rec = _FlakyReconciler(ns)
+        mgr.add_controller("flaky", "Task", rec)
+        c0 = counts(reg)
+        for n in ("t0", "t1"):
+            store.create(ns.R.Task.model_validate({
+                "metadata": {"name": n}, "spec": {"agentRef": {"name": "a"}, "userMessage": "m"}}))
+        await mgr.start()
+        try:
+            c1 = c0
+            deadline = time.monotonic() + 10
+            while c1[1] - c0[1] < 2:
+                assert time.monotonic() < deadline
+                await asyncio.sleep(0.02)
+                c1 = counts(reg)
+        finally:
+            await mgr.stop()
+        deltas.append(tuple(b - a for a, b in zip(c0, counts(reg))))
+    assert deltas[1] == deltas[0] == (2.0, 2.0, 2)

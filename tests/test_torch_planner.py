@@ -13,15 +13,15 @@ The port's quotas are read off its slots at each projection, the
 reference's from its flight recorder's ``quota`` events, and both
 engines' chunk sizes from the chunks recorded as dispatched.
 
-Not replayed, each for its reason:
+Not replayed here, each for its reason:
 
 - ``test_planner_meets_deadline_flat_cadence_would_miss``: it gates on
   wall-clock expiry against 20 ms stalls, and fails in loaded runs of the
   reference's own suite; the arithmetic it stands for is gated here by
   quotas, chunk sizes and cycle counts;
 - ``test_timeline_surfaces_rate_plan`` and
-  ``test_autopilot_engine_applies_and_flight_records``: the timeline and
-  the autopilot's engine loop read the flight recorder (ROADMAP A.11);
+  ``test_autopilot_engine_applies_and_flight_records``: they read the
+  flight recorder and are replayed with it in ``tests/test_torch_flight.py``;
   ``recommend`` and ``Autopilot`` themselves are compared below.
 """
 
@@ -146,14 +146,14 @@ def engines():
     real_project, real_record = port._project_quota, port._record_chunk_round
     chunks: list = []  # (rid, n) of each port chunk that dispatched
 
-    def project(sl, reason):
+    def project(slot, sl, reason):
         n0 = port.quota_projections
-        real_project(sl, reason)
+        real_project(slot, sl, reason)
         plans.append((sl.request.rid, sl.chunk_quota, reason, port.quota_projections > n0))
 
-    def record(landed):
+    def record(landed, rnd):
         chunks.extend((sl.request.rid, n) for _slot, sl, _st, n in landed)
-        real_record(landed)
+        real_record(landed, rnd)
 
     port._project_quota, port._record_chunk_round = project, record
     ref.start()

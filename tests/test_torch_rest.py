@@ -1,8 +1,8 @@
 """The port's operator REST API against the JAX package's, on the CPU.
 
 Each case of the reference's ``tests/server/test_rest.py`` and
-``tests/server/test_tls.py`` that this slice serves (the flight, perf,
-timeline and fleet routes are ROADMAP A.11/A.12) runs twice: on a
+``tests/server/test_tls.py`` that this slice serves (the fleet routes are
+ROADMAP A.12) runs twice: on a
 reference ``Operator`` (aiohttp, on its event loop in a thread) and on the
 port's (``ThreadingHTTPServer``), each with ``enable_rest=True`` on an
 ephemeral port and a ``MockLLMClient`` script. The same ``urllib``
@@ -17,7 +17,11 @@ certificate rotation run on both servers with the same clients.
 
 One case serves ``/v1/chat/completions`` through both operators over a
 tiny f32 engine pair (the port's from ``params_from_jax`` of the JAX
-engine's weights): the greedy reply must be byte-identical.
+engine's weights): the greedy reply must be byte-identical. Another serves
+a request there and then the engine's observability routes
+(``/v1/engine/perf``, ``/v1/engine/flight``, ``/v1/engine/trace``,
+``/v1/requests/{rid}/timeline``): equal statuses, keys, event kinds,
+programs and ledgers, and the reference's error bodies.
 
 Agents made Ready by the helpers are frozen on both operators (their
 controller would otherwise revalidate them in a loop on the reference,
@@ -626,8 +630,7 @@ def test_cert_rotation_without_restart(tmp_path, monkeypatch):
 
 def test_routes_left_out_answer_404_on_the_port():
     with Live("port") as h:
-        for path in ("/v1/engine/perf", "/v1/engine/flight", "/v1/engine/trace", "/v1/fleet",
-                     "/v1/fleet/trace", "/v1/requests/r1/timeline"):
+        for path in ("/v1/fleet", "/v1/fleet/trace"):
             assert h.call("GET", path) == (404, {"error": "not found"}), path
 
 
@@ -661,7 +664,8 @@ def test_engine_gauges_and_stats_with_an_engine_stub():
 # -- chat over a tiny engine pair -------------------------------------------------
 
 
-def test_chat_completion_is_byte_identical_to_the_reference():
+def _engine_pair() -> dict:
+    """The tiny f32 engines of both packages, with the same weights."""
     import jax
 
     from agentcontrolplane_tpu.engine.engine import Engine as JaxEngine
@@ -677,13 +681,68 @@ def test_chat_completion_is_byte_identical_to_the_reference():
     kw = dict(max_slots=2, max_ctx=256, prefill_buckets=(128, 256), decode_block_size=4,
               page_size=8)
     p = jax.tree_util.tree_map(np.array, jl.init_params(jcfg, jax.random.key(0)))
-    engines = {
+    return {
         "ref": JaxEngine(config=jcfg, params=jax.tree_util.tree_map(jax.numpy.asarray, p),
                          tokenizer=JaxByteTokenizer(),
                          mesh=make_mesh({"tp": 1}, devices=jax.devices()[:1]),
                          kv_layout="paged", prefix_cache_entries=0, **kw),
-        "port": Engine(tcfg, params_from_jax(p, tcfg, device="cpu"), device="cpu", **kw),
+        "port": Engine(tcfg, params_from_jax(p, tcfg, device="cpu"), device="cpu",
+                       prefix_cache_entries=0, **kw),
     }
+
+
+def test_engine_observability_routes_match_the_reference():
+    """One chat request, then the perf, flight, trace and timeline routes:
+    equal statuses and shapes, the same program keys with the same counts,
+    the same ledger, the request's event kinds and phases; and the
+    reference's errors (an unknown rid, a bad ``last``, no engine)."""
+    body = {"model": "tiny", "max_tokens": 8, "temperature": 0,
+            "messages": [{"role": "user", "content": "observe me"}]}
+    got = {}
+    engines = _engine_pair()
+    try:
+        for pkg, engine in engines.items():
+            engine.start()
+            with Live(pkg, engine=engine) as h:
+                assert h.call("POST", "/v1/chat/completions", body)[0] == 200
+                status, flight = h.call("GET", "/v1/engine/flight?last=5")
+                rid = flight["request_ids"][-1]
+                tl_status, tl = h.call("GET", f"/v1/requests/{rid}/timeline")
+                perf_status, perf = h.call("GET", "/v1/engine/perf")
+                tr_status, trace = h.call("GET", "/v1/engine/trace")
+                got[pkg] = {
+                    "statuses": [status, tl_status, perf_status, tr_status],
+                    "flight": (sorted(flight), len(flight["events"]),
+                               [e["kind"] for e in flight["events"]]),
+                    "timeline": (sorted(tl), [e["kind"] for e in tl["events"]], sorted(tl["phases"]),
+                                 sum(tl["phases"].get(k, 0.0) for k in
+                                     ("queue_wait", "prefill", "decode"))
+                                 == pytest.approx(tl["total_s"], abs=1e-5)),
+                    "perf": (sorted(perf), {k: v["dispatches"] for k, v in perf["programs"].items()},
+                             perf["goodput"]),
+                    "trace": ({k: v for k, v in trace.items() if k != "span_s"},),
+                    "errors": [h.call("GET", "/v1/requests/nope/timeline"),
+                               h.call("GET", "/v1/engine/flight?last=x")],
+                }
+            with Live(pkg) as h:
+                got[pkg]["no_engine"] = [h.call("GET", path) for path in (
+                    "/v1/engine/perf", "/v1/engine/flight", "/v1/engine/trace",
+                    "/v1/requests/r1/timeline")]
+    finally:
+        for engine in engines.values():
+            engine.stop()
+    assert got["port"] == got["ref"]
+    port = got["port"]
+    assert port["statuses"] == [200, 200, 200, 200]
+    assert port["timeline"][1][0] == "submit" and port["timeline"][1][-1] == "finish"
+    assert port["timeline"][3] is True
+    assert port["errors"][0][0] == 404 and port["errors"][1] == (400, {"error": "last must be "
+                                                                                "an integer"})
+    assert all(r == (503, {"error": "no TPU engine configured"}) for r in port["no_engine"])
+
+
+def test_chat_completion_is_byte_identical_to_the_reference():
+    engines = _engine_pair()
     body = {"model": "tiny", "max_tokens": 12, "temperature": 0,
             "messages": [{"role": "system", "content": "s"}, {"role": "user", "content": "hello"}]}
     replies = {}

@@ -19,9 +19,9 @@
   ``spec_len=0``. Each case gives byte-identical streams and equal
   ``spec_proposed``, ``spec_accepted``, ``spec_dispatches`` and
   ``decode_steps`` on the two spec engines, and the port's spec-on streams
-  equal its spec-off ones. The reference's ``engine.spec_mismatch`` fault
-  is the port's ``_spec_force_reject`` seam, its ``engine.force_preempt``
-  a preemption made by the test before the port's decode site. Every model
+  equal its spec-off ones. The ``engine.spec_mismatch`` and
+  ``engine.force_preempt`` fault sites are armed alike on both engines,
+  each on its own package's ``FAULTS``. Every model
   call of the port is held to the shared-page rule (a verify commit never
   writes a page referenced more than once).
 
@@ -54,6 +54,7 @@ from agentcontrolplane_tpu.ops import paged as ref_paged
 from agentcontrolplane_tpu.ops import sampling as ref_sampling
 from agentcontrolplane_tpu.parallel.mesh import make_mesh
 from agentcontrolplane_tpu.testing import FAULTS
+from agentcontrolplane_tpu_torch.faults import FAULTS as PORT_FAULTS
 from agentcontrolplane_tpu_torch.cli import build_parser as port_parser
 from agentcontrolplane_tpu_torch.engine import constrain
 from agentcontrolplane_tpu_torch.engine import engine as port_engine_mod
@@ -382,6 +383,7 @@ def engines(tables):
         for name, fn in real.items():
             setattr(port_engine_mod, name, fn)
         FAULTS.reset()
+        PORT_FAULTS.reset()
         for eng in (ref, on, off):
             eng.stop()
 
@@ -395,8 +397,7 @@ def _rest(eng) -> None:
     eng._prefix_enabled = True
     if eng.spec_len:
         eng.spec_len = SPEC
-    if isinstance(eng, Engine):
-        eng._spec_force_reject = 0
+    _faults(eng).reset()
 
 
 @pytest.fixture
@@ -409,6 +410,7 @@ def trio(engines):
     n0 = {t: len(c.violations) for t, c in engines.checks.items()}
     yield engines
     FAULTS.reset()
+    PORT_FAULTS.reset()
     for eng in (engines.ref, engines.on, engines.off):
         _rest(eng)
         assert eng._allocator.free_count == eng.num_pages - 1
@@ -450,20 +452,19 @@ def _replay(trio, case, streams=lambda out: out) -> tuple:
     return on, on_d
 
 
+def _faults(eng):
+    """The fault injector of ``eng``'s package."""
+    return PORT_FAULTS if isinstance(eng, Engine) else FAULTS
+
+
 def _reject(eng, times: int) -> None:
     """Force the next ``times`` verify passes to reject every draft: the
-    reference's fault site, the port's seam."""
-    if isinstance(eng, Engine):
-        eng._spec_force_reject = times
-    else:
-        FAULTS.arm("engine.spec_mismatch", times=times)
+    ``engine.spec_mismatch`` fault site of either package."""
+    _faults(eng).arm("engine.spec_mismatch", times=times)
 
 
 def _unreject(eng) -> None:
-    if isinstance(eng, Engine):
-        eng._spec_force_reject = 0
-    else:
-        FAULTS.disarm("engine.spec_mismatch")
+    _faults(eng).disarm("engine.spec_mismatch")
 
 
 def _counter(eng, name: str) -> float:
@@ -588,30 +589,14 @@ def test_stress_oversubscribed_spec_preempt_mismatch(trio):
         _idle(eng)
         holds.append(_Hold([eng], pages=9))
         _reject(eng, 3)
-        forced = {"left": 1}
-        if isinstance(eng, Engine):
-            real = eng._decode_once
-
-            def decode_once():
-                # the reference's engine.force_preempt site (after_steps=4)
-                if forced["left"] and eng._n_active() and eng.decode_steps >= 4:
-                    forced["left"] = 0
-                    victim = eng._pick_victim()
-                    if victim is not None:
-                        eng._preempt(victim, reason="fault")
-                real()
-
-            eng._decode_once = decode_once
-        else:
-            FAULTS.arm("engine.force_preempt", after_steps=4)
+        _faults(eng).arm("engine.force_preempt", after_steps=4)
         streams = {p: [] for p in prompts}
         try:
             with eng.hold_admission():
                 futs = [eng.submit(p, s, on_tokens=streams[p].extend) for p in prompts]
             res = [f.result(timeout=240) for f in futs]
         finally:
-            if isinstance(eng, Engine):
-                del eng._decode_once
+            _faults(eng).disarm("engine.force_preempt")
             holds.pop().release()
         for p, r in zip(prompts, res):
             assert streams[p] == list(r.tokens)
