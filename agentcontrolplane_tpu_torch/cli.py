@@ -3,7 +3,8 @@ operator and kubectl-style resource management, as the reference's
 ``acp-tpu`` (``agentcontrolplane_tpu/cli.py``), plus the engine's own
 front door (``serve``):
 
-  run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--tpu-park-max-s 30]
+  run [--db state.db] [--port 8082] [--tpu-preset llama3-8b] [--tpu-kv-layout slot]
+      [--tpu-park-max-s 30]
       [--tpu-prefill-chunk 0] [--tpu-token-budget 0] [--tpu-prefix-dedup 1]
       [--tpu-megastep 1] [--tpu-rate-planner 1] [--tpu-autopilot 0] [--tpu-spec-len 0]
       [--tpu-spec-ngram 3] [--tpu-host-kv-bytes 0] [--tpu-host-prefetch 1] [--device cpu]
@@ -27,10 +28,14 @@ REST API at ``--server`` (``$ACP_TPU_SERVER``, default
 ``http://127.0.0.1:8082``) with ``--token`` (``$ACP_API_TOKEN``) as the
 bearer token, over the standard library (the card's machine has no httpx).
 ``run`` builds its engine on the card unless ``--device cpu`` is given and
-raises without CUDA. Not served yet: checkpoints and LoRA (ROADMAP A.9,
-A.15), the served store (A.12), prewarm (A.3), multi-host serving
-(A.14), ``trace export --fleet`` and the ``fleet``, ``replay``, ``chaos``
-(A.12), ``engine-follower`` (A.14) and ``train`` (A.15) commands.
+raises without CUDA. ``--tpu-kv-layout`` has the reference's default,
+``slot`` (the plain-torch slot rows); ``paged`` serves the page pool the
+hand-written CUDA walk reads. Not served yet: checkpoints and LoRA
+(``--tpu-checkpoint``, ``--tpu-lora``; ROADMAP A.9, A.15), the served store
+(A.12), prewarm (``--tpu-prewarm``; A.3), tp/sp/ep and multi-host serving
+(``--tpu-tp/--tpu-sp/--tpu-ep``; A.14), ``trace export --fleet`` and the
+``fleet``, ``replay``, ``chaos`` (A.12), ``engine-follower`` (A.14) and
+``train`` (A.15) commands.
 """
 
 from __future__ import annotations
@@ -114,6 +119,7 @@ def cmd_run(args) -> int:
         from .engine.engine import Engine
 
         engine = Engine(args.tpu_preset, device=args.device, seed=args.seed,
+                        kv_layout=args.tpu_kv_layout,
                         max_slots=args.tpu_slots, max_ctx=args.tpu_ctx,
                         max_queue=args.tpu_max_queue,
                         quantize_weights=args.tpu_quantize_weights,
@@ -604,6 +610,7 @@ def build_parser() -> argparse.ArgumentParser:
                      help="require client certificates signed by this CA (mTLS)")
     run.add_argument("--tpu-preset", default=None,
                      help="serve a model preset (random weights from --seed) for provider: tpu")
+    run.add_argument("--tpu-kv-layout", choices=["slot", "paged"], default="slot")
     run.add_argument("--tpu-slots", type=int, default=64)
     run.add_argument("--tpu-ctx", type=int, default=2048)
     run.add_argument("--tpu-max-queue", type=int, default=0,

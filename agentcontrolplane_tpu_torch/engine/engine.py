@@ -1,5 +1,23 @@
-"""The serving engine of the port: continuous batching over the paged KV
-cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
+"""The serving engine of the port: continuous batching over the paged or
+the slot KV cache, trimmed from ``agentcontrolplane_tpu/engine/engine.py``.
+
+- **Two KV layouts** (``kv_layout``). ``paged`` (the port's default): a
+  page pool with per-slot block tables, decoded by the hand-written CUDA
+  walk; everything below is written for it. ``slot`` (the reference CLI's
+  default, and ``run``'s): one contiguous row of ``max_ctx`` positions per
+  slot, ``[L, S, C, H_kv, d]``, read whole and masked at seq_len by plain
+  torch attention (the reference leaves it to XLA). It reserves no pages,
+  so it never preempts under pressure (only the ``engine.force_preempt``
+  fault does); chunks need no page alignment (the autopilot's and the host
+  tier's minimum is 8 rows); a prefix-cache entry is a device copy of its
+  rows (``prefix_extract[cut]``, copied into the next hit's slot as
+  ``prefix_copy[cut]``); a parked slot lends its whole prompt; host-tier
+  copies are pow2 row slices (``swap_extract[n]``, ``swap_restore[m]``,
+  blocking, without prefetch); dedup is off; a padding lane starts at
+  ``max_ctx`` so its writes clamp to the never-read row C-1; and the fused
+  cycle dispatches plain finals ahead of it (a padded plain lane would
+  write rows of slot 0). Under a serving group the slot layout raises
+  (ROADMAP A.14).
 
 - One **engine thread** owns the device state (params, page pools, the
   decode carry). Requests arrive on a thread-safe queue and resolve
@@ -212,11 +230,17 @@ from ..models.llama import (
     PRESETS,
     LlamaConfig,
     check_supported,
+    decode_step,
     decode_step_paged,
+    init_kv_cache,
     init_paged_cache,
+    prefill_batch,
+    prefill_continue,
+    prefill_continue_kv,
     prefill_paged_batch,
     prefill_paged_continue,
     prefill_paged_continue_kv,
+    verify_continue,
     verify_paged_continue,
 )
 from ..faults import FAULTS
@@ -408,6 +432,13 @@ def _pow2_chunks(items: list, max_chunk: int) -> list[list]:
     return out
 
 
+def _live_start(lengths: np.ndarray, starts: np.ndarray) -> int:
+    """The largest start among lanes with tokens (a padding lane starts at
+    max_ctx): the slot rows a continuation reads, taken from the host lane
+    arrays so the dispatch reads nothing back from the device."""
+    return int(np.where(lengths > 0, starts, 0).max(initial=0))
+
+
 def _pow2_sizes(n: int) -> list[int]:
     """Greedy power-of-two decomposition (7 -> [4, 2, 1]): the host tier's
     page groups, so no group pads past real rows."""
@@ -551,7 +582,17 @@ class Engine:
         # params, if given, are already this rank's slices
         # (params_from_jax(..., group=) or parallel.mesh.shard_params)
         group: Optional[ServingGroup] = None,
+        # "paged" (the page pool the CUDA walk reads) or "slot" (one
+        # contiguous row of max_ctx per slot, plain torch attention, the
+        # reference CLI's default). The port's default is paged: its
+        # decode runs the hand-written walk
+        kv_layout: str = "paged",
     ):
+        if kv_layout not in ("slot", "paged"):
+            raise ValueError(f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
+        if kv_layout == "slot" and group is not None:
+            raise ValueError("kv_layout='slot' under a serving group is not ported yet: the "
+                             "slot cache shards over tp heads and the sp ctx dim (ROADMAP A.14)")
         if spec_len > 0 and group is not None:
             raise ValueError("spec_len > 0 under a serving group is not ported yet: the verify "
                              "pass's per-token commit on sp ranks (ROADMAP A.14)")
@@ -567,23 +608,28 @@ class Engine:
         self.tokenizer = tokenizer or ByteTokenizer()
         self.max_slots = max_slots
         self.max_ctx = min(max_ctx, config.max_seq_len)
+        self.kv_layout = kv_layout
+        self._paged = kv_layout == "paged"
         self.page_size = page_size
         check_serving_config(config, group, page_size, self.max_ctx)
-        if self.max_ctx % page_size:
-            raise ValueError(f"page_size {page_size} must divide max_ctx {self.max_ctx}")
         # the reference's rule: a row longer than the largest bucket spills
         # through continuations of that bucket (_spill_long_chunks)
         buckets = sorted({b for b in prefill_buckets if b <= self.max_ctx}) or [self.max_ctx]
-        bad = [b for b in buckets if b % page_size]
-        if bad:
-            raise ValueError(f"prefill buckets {bad} are not multiples of page_size {page_size}")
+        if self._paged:
+            if self.max_ctx % page_size:
+                raise ValueError(f"page_size {page_size} must divide max_ctx {self.max_ctx}")
+            bad = [b for b in buckets if b % page_size]
+            if bad:
+                raise ValueError(
+                    f"prefill buckets {bad} are not multiples of page_size {page_size}")
         self.prefill_buckets = buckets
         self.prefill_batch_max = max(1, prefill_batch_max)
         self.width_buckets = sorted({w for w in width_buckets if 0 < w < max_slots} | {max_slots})
         self.decode_block_size = max(1, decode_block_size)
         self.max_queue = max(0, max_queue)
-        self.max_pages_per_seq = self.max_ctx // page_size
-        self.num_pages = kv_pages or (max_slots * self.max_pages_per_seq + 1)
+        if self._paged:
+            self.max_pages_per_seq = self.max_ctx // page_size
+            self.num_pages = kv_pages or (max_slots * self.max_pages_per_seq + 1)
         self.page_lookahead_blocks = max(1, page_lookahead_blocks)
         self.group = group
         # the prefix cache and preemption read no clock, so every rank of a
@@ -650,7 +696,7 @@ class Engine:
         self.autopilot_enabled = bool(autopilot) and group is None
         self._autopilot = Autopilot(
             AutopilotLimits(
-                chunk_min=page_size,
+                chunk_min=page_size if self._paged else 8,
                 chunk_max=self.prefill_buckets[-1],
                 budget_max=4 * max_slots * self.decode_block_size + 4 * self.prefill_buckets[-1],
                 spec_len_max=16,
@@ -713,6 +759,10 @@ class Engine:
             for t in [*self.params["layers"].values(),
                       *(v for k, v in self.params.items() if k != "layers")]
         )
+        REGISTRY.gauge_set("acp_engine_weight_bytes", float(self.weight_bytes),
+                           help="per-device bytes held by model weights as served, max "
+                           "across local devices (int8 values + scales under "
+                           "quantize_weights, bf16 otherwise)")
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._stop_tokens = torch.tensor(
@@ -754,6 +804,7 @@ class Engine:
         self.table_uploads = 0
         self.sheds = 0
         self.tool_calls_early = 0
+        self.tool_overlap_saved_s = 0.0
         self.preemptions = 0  # pool-pressure preempt-and-resume events
         self.parks = 0  # slots parked at generation end
         self.park_adoptions = 0  # parked slots adopted by a follow-up turn
@@ -770,22 +821,28 @@ class Engine:
         self._budget_total = 0
 
     def _init_kv_state(self) -> None:
-        """(Re)build the page pools and the host bookkeeping — shared by
-        __init__ and crash recovery."""
-        self.cache = init_paged_cache(
-            self.config, self.num_pages, self.page_size, device=self.device,
-            quantize_kv=self.quantize_kv, group=self.group,
-        )
+        """(Re)build the KV cache (the page pools, or the slot rows) and the
+        host bookkeeping — shared by __init__ and crash recovery. The slot
+        layout has no allocator, page lists or block tables."""
+        if self._paged:
+            self.cache = init_paged_cache(
+                self.config, self.num_pages, self.page_size, device=self.device,
+                quantize_kv=self.quantize_kv, group=self.group,
+            )
+            self._allocator = PageAllocator(self.num_pages, track_scales=self.quantize_kv)
+            self._slot_pages: dict[int, list[int]] = {}
+            self._block_tables = np.full(
+                (self.max_slots, self.max_pages_per_seq), TRASH_PAGE, dtype=np.int32
+            )
+        else:
+            self.cache = init_kv_cache(self.config, self.max_slots, self.max_ctx,
+                                       device=self.device, quantize_kv=self.quantize_kv)
         self.pool_bytes = sum(t.numel() * t.element_size() for t in self.cache.values())
-        self._allocator = PageAllocator(self.num_pages, track_scales=self.quantize_kv)
-        # prompt-prefix tokens -> {"cut", "pages"}, LRU order; each entry
-        # holds one reference on its pages
+        # prompt-prefix tokens -> an entry, LRU order: {"cut", "pages"}
+        # holding one reference on its pages (paged), or {"cut", "k", "v",
+        # ...} holding a device copy of the rows (slot)
         with self._prefix_lock:
             self._prefix_cache: OrderedDict[tuple, dict] = OrderedDict()
-        self._slot_pages: dict[int, list[int]] = {}
-        self._block_tables = np.full(
-            (self.max_slots, self.max_pages_per_seq), TRASH_PAGE, dtype=np.int32
-        )
         self._slots: dict[int, _Slot] = {}
         self._parked_count = 0  # slots in _slots with parked=True
         self._prefilling_count = 0  # slots in _slots with prefilling=True
@@ -862,6 +919,7 @@ class Engine:
                         return False
                 log.warning("engine crashed; rebuilding serving state and restarting")
                 self._init_kv_state()
+                self._publish_park_gauge()
                 self._waiting.clear()
                 self._cancelled.clear()
                 self._crashed = False
@@ -1030,7 +1088,7 @@ class Engine:
                 "weight_bytes": self.weight_bytes,
                 "pool_bytes": self.pool_bytes,
             },
-            "kv_layout": "paged",
+            "kv_layout": self.kv_layout,
             "max_slots": self.max_slots,
             "max_ctx": self.max_ctx,
             "active_slots": self._n_active(),
@@ -1071,12 +1129,6 @@ class Engine:
                     if self.spec_proposed else 0.0
                 ),
                 "verify_dispatches": self.spec_dispatches,
-            },
-            "kv_pages": {
-                "total": self.num_pages - 1,
-                "free": self._allocator.free_count,
-                "page_size": self.page_size,
-                "table_uploads": self.table_uploads,
             },
             # the JSON constraint's token table on the device (0 until the
             # first constrained request builds it) and its host build time
@@ -1119,6 +1171,9 @@ class Engine:
             },
             "tool_overlap": {
                 "early_calls": self.tool_calls_early,
+                # per early call, seconds between its dispatch becoming
+                # possible and its turn's generation finishing
+                "overlap_saved_s": round(self.tool_overlap_saved_s, 4),
                 "parks": self.parks,
                 "park_adoptions": self.park_adoptions,
                 "park_releases": self.park_releases,
@@ -1144,16 +1199,18 @@ class Engine:
                     "injects": self.kv_injects,
                 },
                 "prefix_dedup": {
-                    "enabled": self.prefix_dedup,
+                    # dedup shares pages: it is paged-only
+                    "enabled": self.prefix_dedup and self._paged,
                     "shares": self.prefix_shares,
                     # pages with more than one owner (dedup and the cache)
-                    "shared_pages": self._allocator.shared_count,
+                    "shared_pages": self._allocator.shared_count if self._paged else 0,
                 },
                 # int8 KV cache: at a fixed byte budget the pool holds ~1.94x
                 # the tokens (head_dim 128)
                 "quantized_kv": {
                     "enabled": self.quantize_kv,
-                    "pages": self._allocator.allocated_count if self.quantize_kv else 0,
+                    "pages": (self._allocator.allocated_count
+                              if self.quantize_kv and self._paged else 0),
                 },
             },
             # the recorder's occupancy and the profiler's per-program stats
@@ -1161,6 +1218,13 @@ class Engine:
             "flight": self.flight.stats(),
             "perf": self.profiler.stats(),
         }
+        if self._paged:
+            out["kv_pages"] = {
+                "total": self.num_pages - 1,
+                "free": self._allocator.free_count,
+                "page_size": self.page_size,
+                "table_uploads": self.table_uploads,
+            }
         if self._prefix_enabled:
             with self._prefix_lock:
                 out["prefix_cache"] = {
@@ -1248,6 +1312,7 @@ class Engine:
             self._slots.clear()
             self._parked_count = 0
             self._prefilling_count = 0
+            self._publish_park_gauge()
             self._stopping = True
             self._crashed = True
             REGISTRY.counter_add("acp_engine_crashes_total", 1.0,
@@ -1483,14 +1548,24 @@ class Engine:
             return best_key, best
 
     def _save_prefix(self, full: list[int], prompt_len: int, slot: int) -> None:
-        """After a prefill, an entry takes a reference on the slot's leading
-        whole pages (zero copy). The cut never reaches past the PROMPT into
-        the forced prefix (the next turn re-renders the assistant message,
-        not the raw forced tokens, so such a key could never match again)
-        nor to the row's last token, so no entry's page is written again."""
+        """After a prefill, snapshot the slot's leading rows as an entry.
+        Paged: a reference on the slot's leading whole pages (zero copy).
+        Slot: a device copy of rows ``[0, cut)``, the cut at the largest
+        bucket or largest-bucket multiple (so a long conversation stays
+        reusable past one bucket). The cut never reaches past the PROMPT
+        into the forced prefix (the next turn re-renders the assistant
+        message, not the raw forced tokens, so such a key could never match
+        again) nor to the row's last token, so no entry's page is written
+        again."""
         if not self._prefix_enabled:
             return
-        cut = (min(prompt_len, len(full) - 1) // self.page_size) * self.page_size
+        cap = min(prompt_len, len(full) - 1)
+        if self._paged:
+            cut = (cap // self.page_size) * self.page_size
+        else:
+            cut = max([0] + [b for b in self.prefill_buckets if b <= cap])
+            CH = self.prefill_buckets[-1]
+            cut = max(cut, (cap // CH) * CH)
         if cut < min(self.prefill_buckets[0], 4 * self.page_size):
             return  # too short to be worth caching
         key = tuple(full[:cut])
@@ -1498,27 +1573,51 @@ class Engine:
             if key in self._prefix_cache:
                 self._prefix_cache.move_to_end(key)
                 return
-        pages = self._slot_pages[slot][: cut // self.page_size]
-        self._allocator.share(pages)
+        if self._paged:
+            pages = self._slot_pages[slot][: cut // self.page_size]
+            self._allocator.share(pages)
+            entry = {"cut": cut, "pages": list(pages)}
+        else:
+            prof_t0 = self.profiler.start()
+            rows = {name: a[:, slot, :cut].clone() for name, a in self.cache.items()}
+            self.profiler.record(f"prefix_extract[{cut}]", prof_t0, out=rows["k"],
+                                 real_tokens=cut, real_slots=1)
+            entry = {"cut": cut, **rows}
         evicted: list[int] = []
         with self._prefix_lock:
-            self._prefix_cache[key] = {"cut": cut, "pages": list(pages)}
+            self._prefix_cache[key] = entry
             while len(self._prefix_cache) > self._prefix_cache_entries or (
                 len(self._prefix_cache) > 1
                 and self._cached_tokens_locked() > self._prefix_cache_max_tokens
             ):
                 _, old = self._prefix_cache.popitem(last=False)  # the LRU entry
-                evicted.extend(old["pages"])
-        self._allocator.free(evicted)
+                evicted.extend(old.get("pages", ()))
+        if evicted:
+            self._allocator.free(evicted)
+
+    def _copy_prefix_into_slot(self, slot: int, entry: dict) -> None:
+        """A slot-layout cache hit: the entry's rows ``[0, cut)`` copied into
+        the slot on the device, so its continuation starts at the cut."""
+        cut = entry["cut"]
+        prof_t0 = self.profiler.start()
+        for name, a in self.cache.items():
+            a[:, slot, :cut] = entry[name]
+        self.profiler.record(f"prefix_copy[{cut}]", prof_t0, out=self.cache["k"],
+                             real_tokens=cut, real_slots=1)
 
     def _cached_tokens_locked(self) -> int:
-        """Tokens pinned by the cache, by distinct pages (hold _prefix_lock):
-        entries of one growing conversation share pages, and counting each
-        entry's cut would evict too early."""
+        """Tokens pinned by the cache (hold _prefix_lock): a slot entry's
+        cut, and paged entries by distinct pages (entries of one growing
+        conversation share pages, and counting each entry's cut would
+        evict too early)."""
+        toks = 0
         pages: set[int] = set()
         for e in self._prefix_cache.values():
-            pages.update(e["pages"])
-        return len(pages) * self.page_size
+            if "pages" in e:
+                pages.update(e["pages"])
+            else:
+                toks += e["cut"]
+        return toks + len(pages) * self.page_size
 
     def _evict_one_prefix_entry(self) -> bool:
         """Evict the LRU entry (allocation pressure). True if one went."""
@@ -1526,7 +1625,8 @@ class Engine:
             if not self._prefix_cache:
                 return False
             _, old = self._prefix_cache.popitem(last=False)
-        self._allocator.free(old["pages"])
+        if "pages" in old:
+            self._allocator.free(old["pages"])
         return True
 
     # -- shared-prefix dedup ---------------------------------------------
@@ -1542,8 +1642,8 @@ class Engine:
         (their rows below the cut are not theirs to vouch for); ties keep
         the first candidate, so a burst chains every follower to one
         writer."""
-        if not self.prefix_dedup:
-            return None
+        if not self._paged or not self.prefix_dedup:
+            return None  # dedup shares pages
         best: Optional[tuple] = None
         for s, sl in self._slots.items():
             if sl.share_of is not None:
@@ -1630,13 +1730,15 @@ class Engine:
                     # fresh pages, prefill_pos advancing from 0 as they do
                     swap = match[1]["swap"]
                 elif match is not None:
-                    # a hit borrows the entry's pages, a follower its
-                    # leader's; an adopted slot kept its own: either way the
-                    # prefix is in the table already
+                    # a hit borrows the entry's pages (paged) or copies its
+                    # rows into the slot (slot), a follower borrows its
+                    # leader's pages; an adopted slot kept its own rows
                     start = match[1]["cut"]
                     if match[1].get("share_of") is not None:
                         share = (*match[1]["share_of"], start)
                     elif not match[1].get("in_slot"):
+                        if not self._paged:
+                            self._copy_prefix_into_slot(slot, match[1])
                         self._prefix_hits += 1
                         REGISTRY.counter_add("acp_engine_prefix_cache_hit_requests", 1.0,
                                              help="admissions that hit the prefix cache")
@@ -1647,16 +1749,17 @@ class Engine:
                 # the reservation decision: slot and pages taken, the reuse
                 # start resolved (no model compute has run yet)
                 self.flight.record(
-                    "admit", rid=req.rid, slot=slot, start=start, pages=len(pages),
-                    resumed=req.preempt_count > 0,
+                    "admit", rid=req.rid, slot=slot, start=start,
+                    pages=len(pages) if pages else 0, resumed=req.preempt_count > 0,
                     adopted=bool(match is not None and match[1].get("in_slot")),
                     chunked=bool(self.prefill_chunk), swapped=swap is not None,
                     shared=share is not None,
                 )
-                self._slot_pages[slot] = pages
-                self._block_tables[slot, :] = TRASH_PAGE
-                self._block_tables[slot, : len(pages)] = pages
-                self._tables_dirty = True
+                if self._paged:
+                    self._slot_pages[slot] = pages
+                    self._block_tables[slot, :] = TRASH_PAGE
+                    self._block_tables[slot, : len(pages)] = pages
+                    self._tables_dirty = True
                 if self.prefill_chunk or share is not None or swap is not None:
                     # the re-admission edges reproject the rate plan (a
                     # follower or a restore admitted with chunking off plans
@@ -1682,9 +1785,9 @@ class Engine:
                                         starts=np.asarray([e[1] for e in chunk], dtype=np.int64))
         return admitted
 
-    def _collect_group(self) -> list[tuple[_Request, int, list[int], Optional[tuple]]]:
+    def _collect_group(self) -> list[tuple[_Request, int, Optional[list[int]], Optional[tuple]]]:
         """Pop up to prefill_batch_max head requests, reserving a slot and
-        the pages of each one's row, and resolving its KV reuse: adopting
+        (paged) the pages of each one's row, and resolving its KV reuse: adopting
         the parked slot of its conversation's previous turn, borrowing a
         prefix-cache entry's pages, or sharing a dedup leader's (a live
         slot or an earlier member of this group), or restoring a host-tier
@@ -1737,27 +1840,31 @@ class Engine:
                     exclude=dedup[0] if dedup is not None else None):
                 if not self._release_lru_parked():
                     break
-            total_pages = -(-len(full) // self.page_size)
-            if self._reject_oversize_head(req, total_pages):
-                continue
+            pages: Optional[list[int]] = None  # the slot layout reserves no pages
             shared: list[int] = []
-            if kind == "cache":
-                shared = list(match[1]["pages"])
-            elif kind == "dedup":
-                leader_pages = self._slot_pages.get(dedup[0])
-                if leader_pages is None:  # a leader reserved in this group
-                    leader_pages = next((it[2] for it in group if it[1] == dedup[0]), None)
-                if leader_pages is None:
-                    kind = None  # the leader was released for its slot id
-                else:
-                    shared = list(leader_pages[: best_cut // self.page_size])
-            # share FIRST: if pressure evicts the matched entry (or releases
-            # the parked leader) below, this reference keeps its pages alive
-            self._allocator.share(shared)
-            fresh = self._alloc_yielding(total_pages - len(shared))
-            if fresh is None:
-                self._allocator.free(shared)  # undo; the head waits
-                break
+            if self._paged:
+                total_pages = -(-len(full) // self.page_size)
+                if self._reject_oversize_head(req, total_pages):
+                    continue
+                if kind == "cache":
+                    shared = list(match[1]["pages"])
+                elif kind == "dedup":
+                    leader_pages = self._slot_pages.get(dedup[0])
+                    if leader_pages is None:  # a leader reserved in this group
+                        leader_pages = next((it[2] for it in group if it[1] == dedup[0]), None)
+                    if leader_pages is None:
+                        kind = None  # the leader was released for its slot id
+                    else:
+                        shared = list(leader_pages[: best_cut // self.page_size])
+                # share FIRST: if pressure evicts the matched entry (or
+                # releases the parked leader) below, this reference keeps
+                # its pages alive
+                self._allocator.share(shared)
+                fresh = self._alloc_yielding(total_pages - len(shared))
+                if fresh is None:
+                    self._allocator.free(shared)  # undo; the head waits
+                    break
+                pages = shared + fresh
             if kind == "dedup":
                 match = (None, {"cut": best_cut, "share_of": dedup[:2]})
                 self.prefix_shares += 1
@@ -1772,7 +1879,7 @@ class Engine:
                 match = None
             self._waiting.popleft()
             # lowest slot first keeps occupancy compact (narrow decode widths)
-            group.append((req, heapq.heappop(self._free), shared + fresh, match))
+            group.append((req, heapq.heappop(self._free), pages, match))
         return group
 
     def _alloc_yielding(self, n: int, exclude: Optional[int] = None) -> Optional[list[int]]:
@@ -1859,7 +1966,7 @@ class Engine:
             B, bucket = len(chunk), ln["tokens"].shape[1]
             real = int(ln["lengths"][:B].sum())
             kind = "prefill_cont" if ln["cont"] else "prefill"
-            self.profiler.record(f"{kind}[paged,{bucket}x{B}{self._tbl()}]", prof_t0,
+            self.profiler.record(f"{kind}[{self.kv_layout},{bucket}x{B}{self._tbl()}]", prof_t0,
                                  out=out[0], real_tokens=real, padded_tokens=B * bucket - real,
                                  real_slots=B)
             self.profiler.account(goodput=real, pad_bucket=B * bucket - real)
@@ -1875,10 +1982,12 @@ class Engine:
                        width: int = 0) -> dict:
         """Host lane arrays of a sampled prefill for B reserved requests,
         shared by the split dispatch and the megastep's plain and final
-        phases: tokens (the suffix past each start), pages, sampling knobs
-        and, with a json_only lane, each lane's automaton state and budget.
-        ``width`` > B pads the batch: a pad lane has no tokens, writes only
-        the trash page, samples greedily and is never committed."""
+        phases: tokens (the suffix past each start), pages (paged) or slots
+        (slot), sampling knobs and, with a json_only lane, each lane's
+        automaton state and budget. ``width`` > B pads the batch: a pad
+        lane has no tokens, samples greedily and is never committed; its
+        writes go to the trash page (paged) or, at start ``max_ctx``, to the
+        never-read row C-1 of slot 0 (slot)."""
         B, P = len(chunk), self.page_size
         W = max(B, width)
         cont = starts is not None
@@ -1891,24 +2000,30 @@ class Engine:
         ln = {"cont": cont, "rows": rows,
               "tokens": np.zeros((W, bucket), dtype=np.int64),
               "lengths": np.zeros(W, dtype=np.int64),
-              "starts": np.zeros(W, dtype=np.int64),
-              "page_ids": np.full((W, bucket // P), TRASH_PAGE, dtype=np.int64),
+              "starts": np.full(W, 0 if self._paged else self.max_ctx, dtype=np.int64),
               "temps": np.zeros(W, dtype=np.float32),
               "top_ks": np.zeros(W, dtype=np.int64),
               "top_ps": np.ones(W, dtype=np.float32),
               "json": any(r.sampling.json_only for r, _, _ in chunk)}
-        for i, (req, _slot, pages) in enumerate(chunk):
+        if self._paged:
+            ln["page_ids"] = np.full((W, bucket // P), TRASH_PAGE, dtype=np.int64)
+        else:
+            ln["slots"] = np.zeros(W, dtype=np.int64)
+        for i, (req, slot, pages) in enumerate(chunk):
             st = int(starts[i])
             suffix = rows[i][st:]
             ln["tokens"][i, : len(suffix)] = suffix
             ln["lengths"][i], ln["starts"][i] = len(suffix), st
-            # the row's pages from its start on (a page-aligned cut, so only
-            # fresh pages); the rest of the bucket is trash
-            fresh = pages[st // P:]
-            ln["page_ids"][i, : len(fresh)] = fresh
+            if self._paged:
+                # the row's pages from its start on (a page-aligned cut, so
+                # only fresh pages); the rest of the bucket is trash
+                fresh = pages[st // P:]
+                ln["page_ids"][i, : len(fresh)] = fresh
+            else:
+                ln["slots"][i] = slot
             s = req.sampling
             ln["temps"][i], ln["top_ks"][i], ln["top_ps"][i] = s.temperature, s.top_k, s.top_p
-        if cont:  # the continuation reads each row's prefix through its table
+        if cont and self._paged:  # the continuation reads each row's prefix through its table
             ln["tables"] = np.full((W, self.max_pages_per_seq), TRASH_PAGE, dtype=np.int32)
             ln["tables"][:B] = self._block_tables[[slot for _, slot, _ in chunk]]
         if ln["json"]:
@@ -1933,7 +2048,19 @@ class Engine:
         of each, masked and advanced for json_only lanes. Returns (first
         tokens, automaton states or None) on the device."""
         up = self._upload
-        if ln["cont"]:
+        if not self._paged:
+            if ln["cont"]:
+                self.cache, logits = prefill_continue(
+                    self.params, self.cache, up(ln["tokens"]), up(ln["lengths"]),
+                    up(ln["starts"]), up(ln["slots"]), self.config,
+                    prefix_rows=_live_start(ln["lengths"], ln["starts"]),
+                )
+            else:
+                self.cache, logits = prefill_batch(
+                    self.params, self.cache, up(ln["tokens"]), up(ln["lengths"]),
+                    up(ln["slots"]), self.config,
+                )
+        elif ln["cont"]:
             self.cache, logits = prefill_paged_continue(
                 self.params, self.cache, up(ln["tokens"]), up(ln["lengths"]), up(ln["starts"]),
                 up(ln["page_ids"]), up(ln["tables"]), self.config, group=self.group,
@@ -1995,6 +2122,8 @@ class Engine:
             is_first = req.first_token_at == 0.0
             if is_first:  # once per request, not per resume
                 req.first_token_at = now
+                REGISTRY.observe("acp_engine_ttft_seconds", now - req.enqueued,
+                                 help="time to first token")
             # the prompt's KV is resident and the first token sampled; for a
             # resumed request this ends its preempt_stall window
             self.flight.record("prefill_done", rid=req.rid, slot=slot, seq=len(rows[i]),
@@ -2011,7 +2140,7 @@ class Engine:
             sl = _Slot(request=req, prompt_len=len(req.prompt),
                        prefix_len=len(s.forced_prefix), first_token_at=req.first_token_at,
                        admit_seq=admit_seq)
-            if self.prefix_dedup:
+            if self.prefix_dedup and self._paged:
                 sl.prefill_row = rows[i]  # the dedup leader scan compares it
             if self.spec_len:
                 sl.spec = SpecState(limit=self.spec_len)
@@ -2050,22 +2179,30 @@ class Engine:
                 B = len(batch)
                 toks = np.zeros((B, CH), dtype=np.int64)
                 starts = np.zeros(B, dtype=np.int64)
-                page_ids = np.zeros((B, CH // P), dtype=np.int64)
-                for i, ((req, _slot, pages), st) in enumerate(batch):
+                for i, ((req, _slot, _pages), st) in enumerate(batch):
                     toks[i] = self._full_row(req)[st: st + CH]
                     starts[i] = st
-                    page_ids[i] = pages[st // P: (st + CH) // P]
+                lens = self._upload(np.full(B, CH, dtype=np.int64))
                 prof_t0 = self.profiler.start()
-                self.cache = prefill_paged_continue_kv(
-                    self.params, self.cache, self._upload(toks),
-                    self._upload(np.full(B, CH, dtype=np.int64)), self._upload(starts),
-                    self._upload(page_ids),
-                    self._upload(self._block_tables[[e[0][1] for e in batch]]),
-                    self.config, group=self.group,
-                )
+                if self._paged:
+                    page_ids = np.zeros((B, CH // P), dtype=np.int64)
+                    for i, ((_req, _slot, pages), st) in enumerate(batch):
+                        page_ids[i] = pages[st // P: (st + CH) // P]
+                    self.cache = prefill_paged_continue_kv(
+                        self.params, self.cache, self._upload(toks), lens, self._upload(starts),
+                        self._upload(page_ids),
+                        self._upload(self._block_tables[[e[0][1] for e in batch]]),
+                        self.config, group=self.group,
+                    )
+                else:
+                    slots = np.asarray([e[0][1] for e in batch], dtype=np.int64)
+                    self.cache = prefill_continue_kv(
+                        self.params, self.cache, self._upload(toks), lens, self._upload(starts),
+                        self._upload(slots), self.config, prefix_rows=int(starts.max()),
+                    )
                 if self.profiler.enabled:
                     # spill rounds run whole CH-token rows: no bucket padding
-                    self.profiler.record(f"spill[paged,{CH}x{B}]", prof_t0,
+                    self.profiler.record(f"spill[{self.kv_layout},{CH}x{B}]", prof_t0,
                                          out=self.cache["k"], real_tokens=B * CH, real_slots=B)
                     self.profiler.account(goodput=B * CH)
                 self.prefill_tokens += B * CH
@@ -2091,13 +2228,16 @@ class Engine:
                                      "prefill dispatches (head-of-line blocking)")
 
     def _chunk_tokens(self) -> int:
-        """The chunk: clamped to the largest prefill bucket and rounded up
-        to a page, since a mid chunk commits whole pages and every boundary
-        must be page-aligned. ``prefill_chunk == 0`` here means the knob was
-        turned off while slots were mid-prefill: they drain at the largest
-        bucket (smaller chunks would break the alignment)."""
+        """The chunk: clamped to the largest prefill bucket and, paged,
+        rounded up to a page, since a mid chunk commits whole pages and
+        every boundary must be page-aligned. ``prefill_chunk == 0`` here
+        means the knob was turned off while slots were mid-prefill: they
+        drain at the largest bucket (smaller chunks would break the
+        alignment)."""
         ch = min(self.prefill_chunk or self.prefill_buckets[-1], self.prefill_buckets[-1])
-        return -(-ch // self.page_size) * self.page_size
+        if self._paged:
+            ch = -(-ch // self.page_size) * self.page_size
+        return max(1, ch)
 
     def _begin_chunked_prefill(self, req: _Request, slot: int, start: int,
                                share_of: Optional[tuple] = None,
@@ -2291,21 +2431,32 @@ class Engine:
         plain = [c for c in finals if c[2] == 0]
         conts = [c for c in finals if c[2] > 0]
         staged_ready = any(self._staged_for(sl, st, n) is not None for _, sl, st, n in restores)
-        fused = self.megastep and bool(mids or conts or plain or staged_ready)
-        aborted, refund, deferred = self._run_restores(restores, defer=fused)
+        paged = self._paged
+        fused = self.megastep and bool(mids or conts or (paged and plain) or staged_ready)
+        aborted, refund, deferred = self._run_restores(restores, defer=fused and paged)
         spent -= refund  # an aborted restore dispatched nothing
-        landed = [c for c in restores
-                  if c[0] not in aborted and not any(c[0] == s[0] for s in deferred)]
+        deferred_slots = {c[0] for c in deferred}
         rnd = {"spent": spent, "budget": chunk_budget, "restores": restore_slots}
         if fused:
             # a fused plain or continuation final samples its first token
             # inside the fused cycle, so it joins the NEXT cycle's decode
             # lanes (the split path's joins this one's): a shift in the
             # schedule, not in any greedy token. Staged restores ride it as
-            # its swaps phase
-            self._fuse_pending = {"mids": mids, "finals": conts, "plains": plain,
-                                  "swaps": deferred, "landed": landed, "round": rnd}
+            # its swaps phase. On the slot layout plain finals dispatch now
+            # and join this cycle's lanes, as in the reference: a padded
+            # plain lane would write rows [0, T) of slot 0
+            if not paged:
+                with self._hol_clock():
+                    for batch in _pow2_chunks(plain, self.prefill_batch_max):
+                        self._prefill_group(self._chunk_items(batch))
+            landed = [c for c in sched if c[0] not in aborted and (
+                (c in plain and not paged)
+                or (c[0] in restore_slots and c[0] not in deferred_slots))]
+            self._fuse_pending = {"mids": mids, "finals": conts,
+                                  "plains": plain if paged else [], "swaps": deferred,
+                                  "landed": landed, "round": rnd}
         else:
+            landed = [c for c in restores if c[0] not in aborted]
             self._dispatch_split(mids, plain, conts, rnd, landed=landed)
         return spent
 
@@ -2355,33 +2506,48 @@ class Engine:
 
     def _chunk_items(self, batch: list) -> list:
         """(slot, sl, start, n) chunks -> ``_prefill_group`` items."""
-        return [(sl.request, slot, self._slot_pages[slot]) for slot, sl, _st, _n in batch]
+        return [(sl.request, slot, self._slot_pages[slot] if self._paged else None)
+                for slot, sl, _st, _n in batch]
 
     def _mid_lanes(self, batch: list[tuple[int, _Slot, int, int]], width: int = 0) -> dict:
         """Host lane arrays of a mid-chunk dispatch: tokens [start, start +
-        n) of each slot's row. Chunk boundaries are page-aligned, so the
-        commit writes exactly the chunk's pages. ``width`` > B pads the
-        batch: a pad lane has no tokens and every page of it is the trash
-        page."""
+        n) of each slot's row. Paged chunk boundaries are page-aligned, so
+        the commit writes exactly the chunk's pages. ``width`` > B pads the
+        batch: a pad lane has no tokens; every page of it is the trash page
+        (paged), or it starts at ``max_ctx`` in slot 0, so its writes clamp
+        to the never-read row C-1 (slot)."""
         B, P = len(batch), self.page_size
         W = max(B, width)
         bucket = _next_bucket(max(n for _, _, _, n in batch), self.prefill_buckets)
         ln = {"tokens": np.zeros((W, bucket), dtype=np.int64),
               "lengths": np.zeros(W, dtype=np.int64),
-              "starts": np.zeros(W, dtype=np.int64),
-              "page_ids": np.full((W, bucket // P), TRASH_PAGE, dtype=np.int64),
-              "tables": np.full((W, self.max_pages_per_seq), TRASH_PAGE, dtype=np.int32)}
+              "starts": np.full(W, 0 if self._paged else self.max_ctx, dtype=np.int64)}
+        if self._paged:
+            ln["page_ids"] = np.full((W, bucket // P), TRASH_PAGE, dtype=np.int64)
+            ln["tables"] = np.full((W, self.max_pages_per_seq), TRASH_PAGE, dtype=np.int32)
+        else:
+            ln["slots"] = np.zeros(W, dtype=np.int64)
         for i, (slot, sl, st, n) in enumerate(batch):
             ln["tokens"][i, :n] = sl.prefill_row[st: st + n]
             ln["lengths"][i], ln["starts"][i] = n, st
-            sub = self._slot_pages[slot][st // P: -(-(st + n) // P)]
-            ln["page_ids"][i, : len(sub)] = sub
-            ln["tables"][i] = self._block_tables[slot]
+            if self._paged:
+                sub = self._slot_pages[slot][st // P: -(-(st + n) // P)]
+                ln["page_ids"][i, : len(sub)] = sub
+                ln["tables"][i] = self._block_tables[slot]
+            else:
+                ln["slots"][i] = slot
         return ln
 
     def _mid_device(self, ln: dict) -> None:
         """The KV-only continuation of a mid-chunk lane batch."""
         up = self._upload
+        if not self._paged:
+            self.cache = prefill_continue_kv(
+                self.params, self.cache, up(ln["tokens"]), up(ln["lengths"]), up(ln["starts"]),
+                up(ln["slots"]), self.config,
+                prefix_rows=_live_start(ln["lengths"], ln["starts"]),
+            )
+            return
         self.cache = prefill_paged_continue_kv(
             self.params, self.cache, up(ln["tokens"]), up(ln["lengths"]), up(ln["starts"]),
             up(ln["page_ids"]), up(ln["tables"]), self.config, group=self.group,
@@ -2395,7 +2561,8 @@ class Engine:
         real = int(ln["lengths"].sum())
         if self.profiler.enabled:
             B, bucket = len(batch), ln["tokens"].shape[1]
-            self.profiler.record(f"chunk[paged,{bucket}x{B}]", prof_t0, out=self.cache["k"],
+            self.profiler.record(f"chunk[{self.kv_layout},{bucket}x{B}]", prof_t0,
+                                 out=self.cache["k"],
                                  real_tokens=real, padded_tokens=B * bucket - real, real_slots=B)
             self.profiler.account(goodput=real, pad_bucket=B * bucket - real)
         self.prefill_tokens += real
@@ -2446,7 +2613,7 @@ class Engine:
             self._state_dirty = False
             self._tables_dirty = True
         d = self._dev
-        if self._tables_dirty:
+        if self._paged and self._tables_dirty:
             d["block_tables"] = self._upload(self._block_tables[: d["W"]])
             self._tables_dirty = False
             self.table_uploads += 1
@@ -2471,7 +2638,7 @@ class Engine:
                     self._preempt(victim, reason="fault")
         if self._n_active() and self.spec_len and self._decode_spec(pending):
             return
-        if self._n_active():
+        if self._n_active() and self._paged:
             self._ensure_pages_for_block()
         if not self._n_active():
             self._megastep_flush(pending)
@@ -2483,8 +2650,10 @@ class Engine:
             self._dispatch_pending_split(pending)
             # finals that just joined decode this block too: grow them, as
             # the split path does after its chunks
-            self._ensure_pages_for_block()
+            if self._paged:
+                self._ensure_pages_for_block()
             if not self._n_active():
+                self._publish_decode_gauges()
                 return
             d = self._ensure_dev_state()
         self._decode_dispatch(d)
@@ -2493,7 +2662,7 @@ class Engine:
         """The split decode block: its body, its one host read, its
         commit."""
         W, K, n_act = d["W"], self.decode_block_size, self._n_active()
-        key = f"decode[paged,{W}x{K}{self._tbl()}]"
+        key = f"decode[{self.kv_layout},{W}x{K}{self._tbl()}]"
         prof_t0 = self.profiler.start()
         out = self._decode_block(d)
         if self.profiler.enabled:
@@ -2516,10 +2685,15 @@ class Engine:
         con_states = d.get("con_states")
         steps = []
         for _ in range(self.decode_block_size):
-            self.cache, logits = decode_step_paged(
-                self.params, self.cache, tokens, seq_lens, d["block_tables"], active, self.config,
-                group=self.group,
-            )
+            if self._paged:
+                self.cache, logits = decode_step_paged(
+                    self.params, self.cache, tokens, seq_lens, d["block_tables"], active,
+                    self.config, group=self.group,
+                )
+            else:
+                self.cache, logits = decode_step(
+                    self.params, self.cache, tokens, seq_lens, self.config, active=active,
+                )
             if constrained:
                 logits = constrain_logits(logits, d["table"], con_states, d["constrained"],
                                           self._min_close, budgets)
@@ -2565,6 +2739,21 @@ class Engine:
                 self._consume_tokens(slot, sl, block[:, slot])
                 emitted += len(sl.generated) - n0
         self.profiler.account(goodput=emitted, pad_width=W * K - emitted)
+        self._publish_decode_gauges()
+
+    def _publish_decode_gauges(self) -> None:
+        """The decode site's gauges, set where the reference sets them:
+        after a decode block's or a verify pass's commit."""
+        REGISTRY.gauge_set("acp_engine_active_slots", self._n_active(),
+                           help="occupied decode slots (parked slots excluded — see "
+                           "acp_engine_parked_slots)")
+        REGISTRY.gauge_set("acp_engine_waiting_requests", len(self._waiting),
+                           help="admission queue depth")
+        REGISTRY.gauge_set("acp_engine_preempted_waiting", self._preempted_waiting(),
+                           help="preempted requests requeued and awaiting resume")
+        REGISTRY.gauge_set("acp_engine_prefilling_slots", float(self._prefilling_count),
+                           help="slots admitted but still mid-prefill under the chunked "
+                           "token-budget scheduler")
 
     # -- speculative decoding --------------------------------------------
 
@@ -2614,13 +2803,14 @@ class Engine:
             drafts[slot] = ngram_propose(self._slot_ctx(sl), self.spec_ngram, cap) if cap > 0 else []
         if not any(drafts.values()):
             return False
-        self._ensure_pages_for_block({slot: 1 + len(d) for slot, d in drafts.items()})
-        if not self._n_active():
-            self._megastep_flush(pending)
-            return True
-        drafts = {s: d for s, d in drafts.items() if s in self._slots}
-        if not any(drafts.values()):
-            return False  # the drafting slots were preempted: the plain block
+        if self._paged:
+            self._ensure_pages_for_block({slot: 1 + len(d) for slot, d in drafts.items()})
+            if not self._n_active():
+                self._megastep_flush(pending)
+                return True
+            drafts = {s: d for s, d in drafts.items() if s in self._slots}
+            if not any(drafts.values()):
+                return False  # the drafting slots were preempted: the plain block
         force_reject = bool(self._faults.enabled
                             and self._faults.pop("engine.spec_mismatch") is not None)
         ver = self._verify_lanes(drafts, budgets, force_reject)
@@ -2632,7 +2822,7 @@ class Engine:
             # nothing in it)
             self._dispatch_pending_split(pending)
         W, T = ver["W"], ver["T"]
-        key = f"spec_verify[paged,{W}x{T}{self._tbl()}]"
+        key = f"spec_verify[{self.kv_layout},{W}x{T}{self._tbl()}]"
         prof_t0 = self.profiler.start()
         out = self._verify_device(ver)
         if self.profiler.enabled:
@@ -2678,10 +2868,16 @@ class Engine:
         device."""
         up, W = self._upload, ver["W"]
         inputs, n_input = up(ver["inputs"]), up(ver["n_input"])
-        self.cache, logits = verify_paged_continue(
-            self.params, self.cache, inputs, n_input, up(ver["starts"]),
-            up(self._block_tables[:W]), self.config,
-        )
+        if self._paged:
+            self.cache, logits = verify_paged_continue(
+                self.params, self.cache, inputs, n_input, up(ver["starts"]),
+                up(self._block_tables[:W]), self.config,
+            )
+        else:  # lane b is slot b
+            self.cache, logits = verify_continue(
+                self.params, self.cache, inputs, n_input, up(ver["starts"]), self.config,
+                prefix_rows=_live_start(ver["n_input"], ver["starts"]),
+            )
         kw: dict = {}
         constrained = bool(self._constrained[:W].any())
         if constrained:
@@ -2756,6 +2952,7 @@ class Engine:
                 emitted=sum(int(n_emit[s]) for s in drafts),
                 forced_reject=ver["force_reject"], program=key,
             )
+        self._publish_decode_gauges()
 
     # -- the fused megastep ----------------------------------------------
 
@@ -2795,7 +2992,7 @@ class Engine:
     def _megastep_key(self, mids: list, plains: list, finals: list,
                       d: Optional[dict], ver: Optional[dict] = None, swaps: list = ()) -> str:
         """The fused shape, as the reference keys it:
-        ``megastep[paged,s<m>-<m>+m<bucket>x<B>+p<bucket>x<B>+f<bucket>x<B>+d<W>x<K>]``
+        ``megastep[<layout>,s<m>-<m>+m<bucket>x<B>+p<bucket>x<B>+f<bucket>x<B>+d<W>x<K>]``
         (present phases only: ``s`` lists the staged scatters' pow2 page
         groups in order, ``v<W>x<T>`` stands for a verify pass in place of
         the decode block; ``+tbl`` once the JSON table exists), each lane
@@ -2820,7 +3017,7 @@ class Engine:
         elif ver is not None:
             parts.append(f"v{ver['W']}x{ver['T']}")
         tbl = "+tbl" if self._token_table is not None else ""
-        return f"megastep[paged,{'+'.join(parts)}{tbl}]"
+        return f"megastep[{self.kv_layout},{'+'.join(parts)}{tbl}]"
 
     def _megastep_dispatch(self, pending: dict, d: Optional[dict] = None,
                            ver: Optional[dict] = None) -> Optional[bool]:
@@ -3010,6 +3207,9 @@ class Engine:
             self.tool_calls_early += 1
             # the emit edge of this call's tool_overlap_hidden window
             self.flight.record("tool_call", rid=req.rid, index=idx, name=tc.function.name)
+            REGISTRY.counter_add("acp_engine_tool_calls_early_total", 1.0,
+                                 help="tool calls emitted from the decode stream before "
+                                 "generation finished")
             if req.on_tool_call is not None:
                 try:
                     req.on_tool_call(idx, tc)
@@ -3052,6 +3252,15 @@ class Engine:
         if reason in ("stop", "length"):
             # a cancelled or drained request fires no late tool calls
             self._stream_flush(req)
+        if req.early_calls:
+            # the overlap this turn made available: from each call becoming
+            # dispatchable to the generation's end
+            now = time.monotonic()
+            saved = sum(now - t for t, _ in req.early_calls)
+            self.tool_overlap_saved_s += saved
+            REGISTRY.counter_add("acp_engine_tool_overlap_saved_seconds", saved,
+                                 help="per early tool call, seconds between its dispatch "
+                                 "becoming possible and its turn's generation finishing")
         if (req.park and reason in ("stop", "length") and not self._stopping
                 and self._park_cut_for(sl) > 0):
             self._park(slot, sl)
@@ -3067,16 +3276,18 @@ class Engine:
         self._resolve_result(sl, reason, slot, kv_entry)
 
     def _release_slot(self, slot: int) -> None:
-        """A vacated slot: its mirrors zeroed, its id and pages returned."""
+        """A vacated slot: its mirrors zeroed, its id and (paged) pages
+        returned."""
         self._state_dirty = True  # the lane must be re-uploaded inactive
         self._seq_lens[slot] = 0
         self._last_tokens[slot] = 0
         self._con_states[slot] = 0
         self._constrained[slot] = False
         heapq.heappush(self._free, slot)
-        self._allocator.free(self._slot_pages.pop(slot, []))
-        self._block_tables[slot, :] = TRASH_PAGE
-        self._tables_dirty = True
+        if self._paged:
+            self._allocator.free(self._slot_pages.pop(slot, []))
+            self._block_tables[slot, :] = TRASH_PAGE
+            self._tables_dirty = True
 
     def _resolve_result(self, sl: _Slot, reason: str, slot: int = -1,
                         kv_entry: Optional[HostKVEntry] = None) -> None:
@@ -3105,6 +3316,13 @@ class Engine:
                            preempts=req.preempt_count)
         if not req.future.done():
             req.future.set_result(result)
+        self._count_result(gen)
+
+    @staticmethod
+    def _count_result(gen: list[int]) -> None:
+        """A resolved generation in the request and token counters."""
+        REGISTRY.counter_add("acp_engine_requests_total", 1.0)
+        REGISTRY.counter_add("acp_engine_tokens_total", float(len(gen)))
 
     # -- lazy page growth and preempt-and-resume -------------------------
 
@@ -3268,14 +3486,17 @@ class Engine:
                            sampled=len(req.resume_tokens), count=req.preempt_count,
                            mid_prefill=sl.prefilling)
         # a request that can't fit the WHOLE pool can never resume: finish
-        # it at its current length (real exhaustion, not contention)
-        ever = min(-(-(len(self._full_row(req)) + self.decode_block_size) // self.page_size),
-                   self.max_pages_per_seq)
-        if ever > self._allocator.num_pages - 1:
-            log.warning("rid %s needs %d pages to resume but the pool has %d; finishing at "
-                        "its current length", req.rid, ever, self._allocator.num_pages - 1)
-            self._resolve_preempted_as_length(req)
-            return
+        # it at its current length (real exhaustion, not contention). A slot
+        # always holds max_ctx rows
+        if self._paged:
+            ever = min(-(-(len(self._full_row(req)) + self.decode_block_size) // self.page_size),
+                       self.max_pages_per_seq)
+            if ever > self._allocator.num_pages - 1:
+                log.warning("rid %s needs %d pages to resume but the pool has %d; finishing "
+                            "at its current length", req.rid, ever,
+                            self._allocator.num_pages - 1)
+                self._resolve_preempted_as_length(req)
+                return
         self._waiting.appendleft(req)
         log.info("preempted rid %s (slot %d, %d tokens sampled, preempt #%d); requeued at "
                  "the front", req.rid, slot, len(req.resume_tokens), req.preempt_count)
@@ -3301,6 +3522,7 @@ class Engine:
                            preempts=req.preempt_count)
         if not req.future.done():
             req.future.set_result(result)
+        self._count_result(gen)
 
     def _append_pages(self, slot: int, new_pages: list[int]) -> None:
         table = self._slot_pages[slot]
@@ -3314,8 +3536,11 @@ class Engine:
     def _park_cut_for(self, sl: _Slot) -> int:
         """The rows a parked slot lends the next turn: its PROMPT rows only
         (the next turn re-renders the assistant message, so generated KV
-        never matches), page-aligned (a continuation starts on a page)."""
-        return (sl.prompt_len // self.page_size) * self.page_size
+        never matches), page-aligned on the paged layout (a continuation
+        starts on a page)."""
+        if self._paged:
+            return (sl.prompt_len // self.page_size) * self.page_size
+        return sl.prompt_len
 
     def _park(self, slot: int, sl: _Slot) -> None:
         """Park a finished slot: it keeps its id and its prompt's pages
@@ -3334,19 +3559,21 @@ class Engine:
         self._con_states[slot] = 0
         self._constrained[slot] = False
         self._budgets[slot] = 0
-        keep = cut // self.page_size
-        table = self._slot_pages.get(slot, [])
-        if len(table) > keep:
-            excess = table[keep:]
-            del table[keep:]
-            self._block_tables[slot, keep: keep + len(excess)] = TRASH_PAGE
-            self._allocator.free(excess)
-            self._tables_dirty = True
+        if self._paged:
+            keep = cut // self.page_size
+            table = self._slot_pages.get(slot, [])
+            if len(table) > keep:
+                excess = table[keep:]
+                del table[keep:]
+                self._block_tables[slot, keep: keep + len(excess)] = TRASH_PAGE
+                self._allocator.free(excess)
+                self._tables_dirty = True
         self.parks += 1
         REGISTRY.counter_add("acp_engine_parks_total", 1.0,
                              help="slots parked at generation end awaiting the "
                              "conversation's next turn")
         self.flight.record("park", rid=sl.request.rid, slot=slot, cut=cut)
+        self._publish_park_gauge()
 
     def _release_parked(self, slot: int, reason: str = "pressure") -> None:
         """Free a parked slot entirely (pressure, expiry, stop, or a
@@ -3366,7 +3593,13 @@ class Engine:
         self._parked_count -= 1
         self._release_slot(slot)
         self.park_releases += 1
+        self._publish_park_gauge()
         log.debug("released parked slot %d (%s)", slot, reason)
+
+    def _publish_park_gauge(self) -> None:
+        REGISTRY.gauge_set("acp_engine_parked_slots", float(self._parked_count),
+                           help="slots parked at generation end, prompt KV resident, "
+                           "awaiting the conversation's next turn")
 
     def _release_lru_parked(self, exclude: Optional[int] = None) -> bool:
         """Release the longest-parked slot but ``exclude``. True if one
@@ -3406,18 +3639,22 @@ class Engine:
         """Hand a parked slot to the head request, its conversation's next
         turn: ``[group item]``, ``[]`` when the head was refused (bigger
         than the pool), or None when pages ran short even after other
-        parked slots and cache entries yielded (the slot stays parked)."""
+        parked slots and cache entries yielded (the slot stays parked). A
+        slot-layout slot already holds max_ctx rows: nothing to reserve."""
         cut = self._slots[slot].park_cut
-        total_pages = -(-len(self._full_row(req)) // self.page_size)
-        if self._reject_oversize_head(req, total_pages):
-            return []
-        kept = list(self._slot_pages.get(slot, []))
-        fresh = self._alloc_yielding(total_pages - len(kept), exclude=slot)
-        if fresh is None:
-            return None
-        # the whole list now: a dedup follower later in this group may pick
-        # the adopter as its leader and must share past the park cut
-        self._slot_pages[slot] = kept + fresh
+        pages: Optional[list[int]] = None
+        if self._paged:
+            total_pages = -(-len(self._full_row(req)) // self.page_size)
+            if self._reject_oversize_head(req, total_pages):
+                return []
+            kept = list(self._slot_pages.get(slot, []))
+            fresh = self._alloc_yielding(total_pages - len(kept), exclude=slot)
+            if fresh is None:
+                return None
+            # the whole list now: a dedup follower later in this group may
+            # pick the adopter as its leader and must share past the park cut
+            pages = kept + fresh
+            self._slot_pages[slot] = pages
         self._slots.pop(slot)  # the new turn takes the slot over in place
         self._parked_count -= 1
         self.park_adoptions += 1
@@ -3425,8 +3662,9 @@ class Engine:
         REGISTRY.counter_add("acp_engine_park_adoptions_total", 1.0,
                              help="parked slots adopted by their conversation's next turn "
                              "(suffix-only prefill)")
+        self._publish_park_gauge()
         self._waiting.popleft()
-        return [(req, slot, kept + fresh, (None, {"cut": cut, "in_slot": True}))]
+        return [(req, slot, pages, (None, {"cut": cut, "in_slot": True}))]
 
     # -- the host KV tier ------------------------------------------------
 
@@ -3475,7 +3713,9 @@ class Engine:
             self._publish_memory_state()
 
     def _publish_memory_state(self) -> None:
-        """The mirrors stats() reads, and the host tier's gauge."""
+        """The mirrors stats() reads, and the memory gauges: the host tier's
+        bytes, the int8 pages (0 with int8 KV off and on the slot layout:
+        the series is always present) and, paged, the shared pages."""
         pool = self._host_pool
         self._host_kv_used = pool.used_bytes if pool is not None else 0
         self._host_kv_entries = len(pool) if pool is not None else 0
@@ -3483,10 +3723,26 @@ class Engine:
             REGISTRY.gauge_set("acp_engine_host_kv_bytes", float(self._host_kv_used),
                                help="bytes of swapped-out KV resident in the host-RAM "
                                "offload tier (bounded by --tpu-host-kv-bytes)")
+        REGISTRY.gauge_set(
+            "acp_engine_quantized_kv_pages",
+            float(self._allocator.allocated_count if self._paged and self.quantize_kv else 0),
+            help="allocated KV pages currently holding int8-quantized KV (with per-row scale "
+            "storage); 0 unless quantize_kv is on")
+        if self._paged:
+            REGISTRY.gauge_set(
+                "acp_engine_prefix_shared_pages", float(self._allocator.shared_count),
+                help="HBM KV pages currently refcount-shared by more than one owner "
+                "(cross-request shared-prefix dedup + prefix cache)")
 
     def _swap_min_rows(self) -> int:
-        """Rows below one page are not worth a host round trip."""
-        return self.page_size
+        """Rows below this are not worth a host round trip: one page
+        (paged), 8 rows (slot)."""
+        return self.page_size if self._paged else 8
+
+    def _row_cut(self, rows: int) -> int:
+        """A host-tier cut: page-aligned on the paged layout (restores land
+        whole pages), any row on the slot layout."""
+        return (rows // self.page_size) * self.page_size if self._paged else rows
 
     def _match_host(self, req: _Request, full: list[int]) -> tuple:
         """Admission's host-tier candidate: the entry swapped out under this
@@ -3504,7 +3760,7 @@ class Engine:
             e = pool.match_prefix(full)
         if e is None:
             return None, 0
-        cut = (min(e.cut, len(full) - 1) // self.page_size) * self.page_size
+        cut = self._row_cut(min(e.cut, len(full) - 1))
         if cut < self._swap_min_rows():
             return None, 0
         return e, cut
@@ -3531,7 +3787,7 @@ class Engine:
         else:
             rows = int(self._seq_lens[slot])
         row = self._full_row(req)
-        cut = (min(rows, len(row) - 1) // self.page_size) * self.page_size
+        cut = self._row_cut(min(rows, len(row) - 1))
         restoring = sl.prefilling and sl.swap_entry is not None
         if cut < self._swap_min_rows() and not restoring:
             return False
@@ -3551,7 +3807,7 @@ class Engine:
                 entry = HostKVEntry(rid=req.rid, tokens=entry.tokens, k=entry.k, v=entry.v,
                                     k_scale=entry.k_scale, v_scale=entry.v_scale)
         else:
-            out = self._extract_pages(self._slot_pages[slot][: cut // self.page_size])
+            out = self._extract(slot, cut)
             entry = HostKVEntry(rid=req.rid, tokens=tuple(row[:cut]), k=out["k"], v=out["v"],
                                 k_scale=out.get("ks"), v_scale=out.get("vs"))
         if not pool.put(entry):
@@ -3577,17 +3833,53 @@ class Engine:
         if req.truncated or sl.share_of is not None:
             return None
         row = self._full_row(req)
-        cut = min(int(self._seq_lens[slot]), len(row) - 1)
-        cut = (cut // self.page_size) * self.page_size
+        cut = self._row_cut(min(int(self._seq_lens[slot]), len(row) - 1))
         if cut < self._swap_min_rows():
             return None
         t0 = time.monotonic()
-        out = self._extract_pages(self._slot_pages[slot][: cut // self.page_size])
+        out = self._extract(slot, cut)
         entry = HostKVEntry(rid=f"handoff-{req.rid}", tokens=tuple(row[:cut]), k=out["k"],
                             v=out["v"], k_scale=out.get("ks"), v_scale=out.get("vs"))
         self.flight.record("handoff_export", rid=req.rid, slot=slot, tokens=cut,
                            bytes=entry.nbytes, stall_s=round(time.monotonic() - t0, 6))
         return entry
+
+    def _extract(self, slot: int, cut: int) -> dict[str, torch.Tensor]:
+        """Rows ``[0, cut)`` of a slot to host tensors, token-major."""
+        if self._paged:
+            return self._extract_pages(self._slot_pages[slot][: cut // self.page_size])
+        return self._extract_rows(slot, cut)
+
+    def _extract_rows(self, slot: int, cut: int) -> dict[str, torch.Tensor]:
+        """The slot layout's ``_extract_pages``: rows ``[0, cut)`` of
+        ``slot`` to host tensors ``{"k"/"v": [L, cut, H_kv, d]}`` (plus the
+        int8 cache's ``{"ks"/"vs": [L, cut, H_kv]}``), sliced in pow2 row
+        groups; on the card each cache tensor goes device -> host in ONE
+        copy into pinned memory, and one event joins them all."""
+        groups, start = [], 0
+        for n in _pow2_sizes(cut):
+            prof_t0 = self.profiler.start()
+            groups.append({name: a[:, slot, start: start + n] for name, a in self.cache.items()})
+            self.profiler.record(f"swap_extract[{n}]", prof_t0, out=groups[-1]["k"],
+                                 real_tokens=n)
+            start += n
+        return self._to_host({name: torch.cat([g[name] for g in groups], dim=1)
+                              for name in self.cache})
+
+    def _to_host(self, rows: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Device rows to host tensors: on the card one copy per tensor into
+        pinned memory, joined on one event before the entry may be read."""
+        if not self._pin:
+            return rows  # fresh tensors already (a gather or a cat)
+        out = {}
+        for name, a in rows.items():
+            host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            host.copy_(a, non_blocking=True)
+            out[name] = host
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return out
 
     def _extract_pages(self, pages: list[int]) -> dict[str, torch.Tensor]:
         """Gather whole pages to host tensors, token-major: ``{"k"/"v": [L,
@@ -3605,27 +3897,28 @@ class Engine:
             self.profiler.record(f"swap_gather[{m}]", prof_t0, out=groups[-1]["k"],
                                  real_tokens=m * P)
             i += m
-        out: dict[str, torch.Tensor] = {}
+        rows = {}
         for name, a in self.cache.items():
             parts = [g[name] for g in groups]
-            rows = (torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]).reshape(
+            rows[name] = (torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]).reshape(
                 L, len(pages) * P, *a.shape[3:])
-            if self._pin:
-                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-                host.copy_(rows, non_blocking=True)
-                rows = host
-            out[name] = rows
-        if self._pin:
-            done = torch.cuda.Event()
-            done.record()
-            done.synchronize()
-        return out
+        return self._to_host(rows)
 
     def _swap_in_cut(self, sl: _Slot) -> int:
         """Rows a mid-restore slot takes from its entry: the entry's cut,
-        page-aligned and never past the strict-prefix edge of the row."""
-        cut = min(sl.swap_entry.cut, len(sl.prefill_row) - 1)
-        return (cut // self.page_size) * self.page_size
+        page-aligned on the paged layout and never past the strict-prefix
+        edge of the row."""
+        return self._row_cut(min(sl.swap_entry.cut, len(sl.prefill_row) - 1))
+
+    def _entry_rows(self, entry: HostKVEntry) -> dict[str, torch.Tensor]:
+        """An entry's host tensors by cache name; an int8 cache needs the
+        entry's scale rows."""
+        rows = {"k": entry.k, "v": entry.v}
+        if "ks" in self.cache:
+            if entry.k_scale is None:
+                raise RuntimeError("an entry without scale rows cannot restore into an int8 pool")
+            rows.update(ks=entry.k_scale, vs=entry.v_scale)
+        return rows
 
     def _swap_groups(self, slot: int, entry: HostKVEntry, start: int, n: int) -> list:
         """Rows ``[start, start + n)`` of ``entry`` on the device, as the
@@ -3637,11 +3930,7 @@ class Engine:
         pages = self._slot_pages[slot][start // P: (start + n) // P]
         if TRASH_PAGE in pages:
             raise RuntimeError(f"slot {slot}: a restore would write the trash page")
-        rows = {"k": entry.k, "v": entry.v}
-        if "ks" in self.cache:
-            if entry.k_scale is None:
-                raise RuntimeError("an entry without scale rows cannot restore into an int8 pool")
-            rows.update(ks=entry.k_scale, vs=entry.v_scale)
+        rows = self._entry_rows(entry)
         groups, i = [], 0
         for m in _pow2_sizes(len(pages)):
             lo, hi = start + i * P, start + (i + m) * P
@@ -3682,10 +3971,22 @@ class Engine:
                                  out=self.cache["k"], real_tokens=int(ids.shape[0]) * self.page_size)
 
     def _swap_in_rows(self, slot: int, entry: HostKVEntry, start: int, n: int) -> float:
-        """The blocking restore of rows ``[start, start + n)`` (page-aligned)
-        into the slot's pages: the host -> device copies, a wait until they
-        land, the scatter. Returns the engine-thread seconds it blocked."""
+        """The blocking restore of rows ``[start, start + n)`` into the
+        slot: paged, into its pages (page-aligned; the host -> device
+        copies, a wait until they land, the scatter); slot, into its rows
+        in pow2 row groups. Returns the engine-thread seconds it blocked."""
         t0 = time.monotonic()
+        if not self._paged:
+            rows, pos = self._entry_rows(entry), start
+            while pos < start + n:
+                m = _pow2_sizes(start + n - pos)[0]
+                prof_t0 = self.profiler.start()
+                for name, a in rows.items():
+                    self.cache[name][:, slot, pos: pos + m].copy_(a[:, pos: pos + m])
+                self.profiler.record(f"swap_restore[{m}]", prof_t0, out=self.cache["k"],
+                                     real_tokens=m)
+                pos += m
+            return time.monotonic() - t0
         groups = self._swap_groups(slot, entry, start, n)
         if self._pin:
             torch.cuda.current_stream(self.device).synchronize()
@@ -3797,7 +4098,7 @@ class Engine:
         self._seq_lens[slot] = sl.prefill_pos
         if sl.prefill_pos >= self._swap_in_cut(sl):
             self._finish_swap_in(slot, sl)
-        elif self.host_prefetch:
+        elif self.host_prefetch and self._paged:  # the slot layout's copy is blocking
             self._stage_swap_in(slot, sl)
 
     def _finish_swap_in(self, slot: int, sl: _Slot) -> None:

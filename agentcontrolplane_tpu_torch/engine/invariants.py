@@ -18,7 +18,8 @@ after every busy cycle when armed (``ACP_INVARIANTS=1`` or
 - **budget agreement**: an active slot's sampled-token count and sequence
   length agree with its request (``seq == prompt + generated - 1``,
   ``sampled <= max_tokens``, below the context edge).
-- **page-accounting conservation**: free + referenced + trash == total
+- **page-accounting conservation** (the paged layout; the slot layout
+  has no pages): free + referenced + trash == total
   pages; refcounts positive; every reference held by exactly refcount
   owners across slot tables, prefix-cache entries and fault-held pages;
   parked slots hold exactly their prompt-covering pages, prefilling slots
@@ -176,7 +177,8 @@ def verify_engine(engine) -> list[str]:
     problems.extend(_verify_host_pool(engine))
     problems.extend(_verify_profiler(engine))
     problems.extend(_verify_quantized_cache(engine))
-    problems.extend(_verify_pages(engine, slots))
+    if engine.kv_layout == "paged":  # the slot layout has no pages to conserve
+        problems.extend(_verify_pages(engine, slots))
     return problems
 
 

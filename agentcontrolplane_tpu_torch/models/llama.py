@@ -1,11 +1,13 @@
 """Llama model family in PyTorch — the port of
-``agentcontrolplane_tpu/models/llama.py`` for the paged serving path.
+``agentcontrolplane_tpu/models/llama.py`` for the paged and the slot serving
+paths.
 
 Layout fidelity with the reference, so the tests compare like with like:
 params are a plain dict with **stacked layer weights** (leading dim =
 n_layers) in the ``x @ W`` orientation, the paged pools are
-``[L, num_pages, P, H_kv, d]``, and the public programs keep the reference's
-names and argument order. Differences that are PyTorch idiom:
+``[L, num_pages, P, H_kv, d]``, the slot cache is ``[L, S, C, H_kv, d]``,
+and the public programs keep the reference's names and argument order.
+Differences that are PyTorch idiom:
 
 - the layer ``lax.scan`` is a Python loop over views of the stacked weights;
 - JAX's functional ``.at[].set`` page commits become in-place
@@ -24,6 +26,13 @@ the layer loop, the new token attends through a self term, one commit
 follows the loop, and inactive lanes write to ``TRASH_PAGE``. Decode
 attention goes through ``ops.cuda.paged_attention`` — the hand-written
 kernel on CUDA tensors, its plain version on CPU tensors.
+
+The slot layout (the reference CLI's default) keeps one contiguous row of
+``C = max_ctx`` positions per slot. Its attention is plain torch on every
+device, as the reference leaves it to XLA: decode reads each slot's whole
+row masked at ``seq_len`` (``ops.attention.decode_attention_cache_plus_new``),
+and a write that must go nowhere lands on row ``C - 1``, which attention
+never reads (a lane stops before its ``seq_len`` reaches ``C - 1``).
 
 Parallel serving (the reference's mesh-aware programs): every program takes
 an optional ``group`` (``parallel.mesh.ServingGroup``) and then runs on the
@@ -52,6 +61,7 @@ from ..ops.attention import (
     blocked_causal_attention,
     causal_attention,
     continue_state,
+    decode_attention_cache_plus_new,
     online_softmax_finalize,
 )
 from ..ops.cuda.paged_attention import (
@@ -412,6 +422,270 @@ def _kv_commit(pages: dict, new_k: torch.Tensor, new_v: torch.Tensor, setter) ->
     return pages
 
 
+def _kv_rows(pool: torch.Tensor, scales: Optional[torch.Tensor], idx,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Gather one layer's rows by ``idx`` (a block table of pages, a slot
+    index or a slice of slots) and dequantize int8 rows with their scale
+    twins AFTER the gather, so only the gathered rows ever exist in
+    float."""
+    if scales is not None:
+        return kv_dequantize(pool[idx], scales[idx], dtype)
+    return pool[idx].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Serving: slot KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(
+    config: LlamaConfig, max_slots: int, max_ctx: int, device="cuda", quantize_kv: bool = False,
+) -> dict:
+    """``[L, S, C, H_kv, d]`` per k/v in the model dtype — or int8 plus
+    ``[L, S, C, H_kv]`` f32 scale rows with ``quantize_kv``."""
+    return init_kv_pages(
+        config.n_layers, max_slots, max_ctx, config.n_kv_heads, config.head_dim,
+        config.dtype, device=device, quantize=quantize_kv,
+    )
+
+
+def prefill_batch(
+    params: dict,
+    cache: dict,  # {"k": [L, S, C, H_kv, d], "v": ...} — updated in place
+    tokens: torch.Tensor,  # [B, T] int (each row padded)
+    lengths: torch.Tensor,  # [B] int — true prompt lengths
+    slots: torch.Tensor,  # [B] int — distinct target slots
+    config: LlamaConfig,
+) -> tuple[dict, torch.Tensor]:
+    """B prompts through the model in one pass; one commit writes every
+    layer's K/V at rows ``[0, T)`` of each row's slot (the padded tail is
+    garbage that decode never reads: it masks by seq_len). Returns (cache,
+    last-token logits [B, V])."""
+    c = config
+    check_supported(c)
+    B, T = tokens.shape
+    ar = torch.arange(T, device=tokens.device)
+    lengths = lengths.long()
+    positions = torch.where(ar[None, :] < lengths[:, None], ar[None, :], -1)
+    x = _embed(params, tokens, c)
+    new_k, new_v = [], []
+    for i in range(c.n_layers):
+        x, k, v = _attn_mlp(
+            x, _layer(params, i), c, positions,
+            lambda q, k, v: blocked_causal_attention(q, k, v, positions),
+        )
+        new_k.append(k)
+        new_v.append(v)
+    idx = slots.long()
+
+    def setter(arr, val):
+        arr[:, idx, :T] = val
+
+    _kv_commit(cache, torch.stack(new_k), torch.stack(new_v), setter)
+    x = rms_norm(x, _final_norm_w(params, c), c.norm_eps)
+    last = x[torch.arange(B, device=x.device), lengths - 1]
+    return cache, _head_logits(last, params, c)
+
+
+def prefill(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,  # [T] int (padded)
+    length: torch.Tensor,  # scalar int — true prompt length
+    slot: torch.Tensor,  # scalar int
+    config: LlamaConfig,
+) -> tuple[dict, torch.Tensor]:
+    """Single-prompt prefill (the B=1 view of :func:`prefill_batch`)."""
+    cache, logits = prefill_batch(params, cache, tokens[None], length.reshape(1),
+                                  slot.reshape(1), config)
+    return cache, logits[0]
+
+
+def _continue_forward(
+    params: dict,
+    cache: dict,  # read only here; the callers commit
+    tokens: torch.Tensor,  # [B, T] int — SUFFIX tokens (rows padded)
+    lengths: torch.Tensor,  # [B] int — true suffix lengths (0 = a padding lane)
+    starts: torch.Tensor,  # [B] int — absolute position of each suffix start
+    slots: torch.Tensor,  # [B] int
+    config: LlamaConfig,
+    prefix_rows: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The slot continuation's body: rows ``[0, start)`` of each slot are
+    written; only the suffix runs through the model, attending over those
+    rows and then causally over itself, one online softmax over both.
+    Returns ``(new_k [L, B, T, H_kv, d], new_v, x_normed [B, T, D],
+    write_pos [B, T])``, uncommitted. ``write_pos`` is clamped to row
+    ``C - 1``, so bucket padding and a padding lane (start ``max_ctx``)
+    never write past the row: their garbage lands where attention never
+    reads.
+
+    The keys walked are the slot rows below the live lanes' largest start
+    (the rest are masked for every query, so leaving them out changes no
+    value), read in the model dtype as the reference reads them. A caller
+    holding the lanes on the host passes that start as ``prefix_rows``;
+    without it the start is read back from the device."""
+    c = config
+    B, T = tokens.shape
+    dev = tokens.device
+    ar = torch.arange(T, device=dev)
+    lengths, starts = lengths.long(), starts.long()
+    positions = torch.where(ar[None, :] < lengths[:, None], starts[:, None] + ar[None, :], -1)
+    x = _embed(params, tokens, c)
+    C = cache["k"].shape[2]
+    write_pos = torch.clamp_max(starts[:, None] + ar[None, :], C - 1)
+    if prefix_rows is None:
+        prefix_rows = int(torch.where(lengths > 0, starts, 0).max())
+    rows = min(C, prefix_rows)
+    row_pos = torch.arange(rows, device=dev)
+    cache_pos = torch.where(row_pos[None, :] < starts[:, None], row_pos[None, :], -1)
+    idx = slots.long()
+    quantized = "ks" in cache
+    new_k, new_v = [], []
+    for i in range(c.n_layers):
+        k_rows, v_rows = cache["k"][i, :, :rows], cache["v"][i, :, :rows]
+        k_sc, v_sc = ((cache["ks"][i, :, :rows], cache["vs"][i, :, :rows]) if quantized
+                      else (None, None))
+
+        def attn(q, k, v):
+            state = continue_state(q, _kv_rows(k_rows, k_sc, idx, k.dtype),
+                                   _kv_rows(v_rows, v_sc, idx, v.dtype), positions, cache_pos)
+            _m, l, acc = continue_state(q, k, v, positions, positions, state=state)
+            return online_softmax_finalize(l, acc, q.dtype)
+
+        x, k, v = _attn_mlp(x, _layer(params, i), c, positions, attn)
+        new_k.append(k)
+        new_v.append(v)
+    x = rms_norm(x, _final_norm_w(params, c), c.norm_eps)
+    return torch.stack(new_k), torch.stack(new_v), x, write_pos
+
+
+def _commit_slot_rows(cache: dict, new_k: torch.Tensor, new_v: torch.Tensor,
+                      slots: torch.Tensor, write_pos: torch.Tensor) -> dict:
+    """One commit of a continuation's K/V ``[L, B, T, ...]`` at rows
+    ``write_pos [B, T]`` of each row's slot, every layer at once."""
+    idx = slots.long()[:, None]
+
+    def setter(arr, val):
+        arr[:, idx, write_pos] = val
+
+    return _kv_commit(cache, new_k, new_v, setter)
+
+
+def prefill_continue(
+    params: dict,
+    cache: dict,  # updated in place (each slot's suffix rows)
+    tokens: torch.Tensor,  # [B, T] int — SUFFIX tokens (rows padded)
+    lengths: torch.Tensor,  # [B] int — true suffix lengths
+    starts: torch.Tensor,  # [B] int — absolute position of each suffix start
+    slots: torch.Tensor,  # [B] int
+    config: LlamaConfig,
+    prefix_rows: Optional[int] = None,  # the live lanes' largest start, if known on the host
+) -> tuple[dict, torch.Tensor]:
+    """The slot continuation (a prefix-cache hit copied into the slot, an
+    adopted parked slot, a resumed preemption, a chunk): the first
+    ``starts[b]`` rows of each slot are already written; only the suffix
+    runs, at O(suffix) cost. Returns (cache, last-token logits [B, V])."""
+    check_supported(config)
+    B = tokens.shape[0]
+    new_k, new_v, x, write_pos = _continue_forward(params, cache, tokens, lengths, starts,
+                                                   slots, config, prefix_rows)
+    _commit_slot_rows(cache, new_k, new_v, slots, write_pos)
+    last = x[torch.arange(B, device=x.device), lengths.long() - 1]
+    return cache, _head_logits(last, params, config)
+
+
+def prefill_continue_kv(
+    params: dict,
+    cache: dict,  # updated in place (each slot's chunk rows)
+    tokens: torch.Tensor,  # [B, T] int — chunk tokens (rows padded)
+    lengths: torch.Tensor,  # [B] int — true chunk lengths (0 = a padding lane)
+    starts: torch.Tensor,  # [B] int — absolute chunk start (max_ctx for a padding lane)
+    slots: torch.Tensor,  # [B] int
+    config: LlamaConfig,
+    prefix_rows: Optional[int] = None,  # the live lanes' largest start, if known on the host
+) -> dict:
+    """A mid chunk's KV-only continuation: :func:`prefill_continue`'s
+    writes without the lm_head, so nothing is sampled."""
+    check_supported(config)
+    new_k, new_v, _x, write_pos = _continue_forward(params, cache, tokens, lengths, starts,
+                                                    slots, config, prefix_rows)
+    return _commit_slot_rows(cache, new_k, new_v, slots, write_pos)
+
+
+def verify_continue(
+    params: dict,
+    cache: dict,  # updated in place (rows [start, start + length) of each lane)
+    tokens: torch.Tensor,  # [B, T] int — last sampled token + draft (rows padded)
+    lengths: torch.Tensor,  # [B] int — 1 + draft length (0 = an idle lane)
+    starts: torch.Tensor,  # [B] int — each lane's seq_len (max_ctx for an idle lane)
+    config: LlamaConfig,
+    prefix_rows: Optional[int] = None,  # the live lanes' largest start, if known on the host
+) -> tuple[dict, torch.Tensor]:
+    """The speculative verify pass on the slot layout: every draft position
+    scored in one dispatch. Row ``b`` is lane and slot ``b`` (the pass runs
+    at the compacted width), so there is no slot indirection. The whole
+    row's KV is written optimistically; a rejected tail needs no rollback,
+    since the engine advances seq_len over the accepted prefix only.
+    Returns (cache, logits [B, T, V])."""
+    check_supported(config)
+    slots = torch.arange(tokens.shape[0], device=tokens.device)
+    new_k, new_v, x, write_pos = _continue_forward(params, cache, tokens, lengths, starts,
+                                                   slots, config, prefix_rows)
+    _commit_slot_rows(cache, new_k, new_v, slots, write_pos)
+    return cache, _head_logits(x, params, config)
+
+
+def decode_step(
+    params: dict,
+    cache: dict,  # updated in place
+    tokens: torch.Tensor,  # [W] int — last sampled token per slot, W <= max_slots
+    seq_lens: torch.Tensor,  # [W] int — length per slot before this token
+    config: LlamaConfig,
+    active: Optional[torch.Tensor] = None,  # [W] bool; inactive lanes write row C-1
+) -> tuple[dict, torch.Tensor]:
+    """One decode step for slots ``0..W-1`` of the slot cache (the width
+    may be narrower than the cache's slot count; rows past W are
+    untouched). Each layer reads the slots' rows read-only and attends the
+    new token through a self term; one commit after the loop writes every
+    layer's new K/V at row ``seq_len`` of each lane. ``active`` sends an
+    inactive lane's write to row ``C - 1``: without it a mid-prefill slot
+    below the width would have its prompt rows overwritten at its stale
+    seq_len. Returns (cache, logits [W, V])."""
+    c = config
+    check_supported(c)
+    W = tokens.shape[0]
+    positions = seq_lens.long()[:, None]
+    x = _embed(params, tokens[:, None], c)
+    quantized = "ks" in cache
+    new_k, new_v = [], []
+    for i in range(c.n_layers):
+        k_rows, v_rows = cache["k"][i, :W], cache["v"][i, :W]
+        k_sc, v_sc = (cache["ks"][i, :W], cache["vs"][i, :W]) if quantized else (None, None)
+
+        def attn(q, k, v):
+            out = decode_attention_cache_plus_new(
+                q[:, 0], _kv_rows(k_rows, k_sc, slice(None), k.dtype),
+                _kv_rows(v_rows, v_sc, slice(None), v.dtype), k[:, 0], v[:, 0], seq_lens,
+            )
+            return out[:, None]
+
+        x, k, v = _attn_mlp(x, _layer(params, i), c, positions, attn)
+        new_k.append(k[:, 0])
+        new_v.append(v[:, 0])
+    C = cache["k"].shape[2]
+    lens = seq_lens.long()
+    rows = torch.where(active, lens, C - 1) if active is not None else lens
+    lanes = torch.arange(W, device=lens.device)
+
+    def setter(arr, val):
+        arr[:, lanes, rows] = val
+
+    _kv_commit(cache, torch.stack(new_k), torch.stack(new_v), setter)
+    x = rms_norm(x[:, 0], _final_norm_w(params, c), c.norm_eps)
+    return cache, _head_logits(x, params, c)
+
+
 # ---------------------------------------------------------------------------
 # Serving: paged KV cache
 # ---------------------------------------------------------------------------
@@ -493,16 +767,6 @@ def _commit_whole_pages(
         arr[:, flat_ids] = blocks[:, :, lo : lo + P_local]
 
     return _kv_commit(pages, new_k, new_v, setter)
-
-
-def _kv_rows(pool: torch.Tensor, scales: Optional[torch.Tensor], idx: torch.Tensor,
-             dtype: torch.dtype) -> torch.Tensor:
-    """Gather one layer's pages by ``idx`` (a block table) and dequantize
-    int8 pages with their scale twins AFTER the gather, so only the
-    gathered rows ever exist in float."""
-    if scales is not None:
-        return kv_dequantize(pool[idx], scales[idx], dtype)
-    return pool[idx].to(dtype)
 
 
 def _merge_sp_prefix(group: ServingGroup, state: tuple) -> tuple:

@@ -3,6 +3,8 @@
 
 In the reference this was left to XLA, so it stays plain tensor code here;
 only the paged decode attention has a hand-written kernel (``ops.cuda``).
+The slot layout's decode attention (:func:`decode_attention_cache_plus_new`)
+is XLA's in the reference too, so it is plain torch here.
 Softmax math is float32; logits are masked with the finite ``NEG_INF`` so a
 fully-masked row never produces NaN.
 """
@@ -49,6 +51,38 @@ def causal_attention(
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def decode_attention_cache_plus_new(
+    q: torch.Tensor,  # [S, H, d] — one new token per slot
+    k_cache: torch.Tensor,  # [S, C, H_kv, d] — WITHOUT the new token
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [S, H_kv, d] — the new token's K/V (not yet written)
+    v_new: torch.Tensor,
+    seq_lens: torch.Tensor,  # [S] int — rows valid in the CACHE (excl. new)
+) -> torch.Tensor:
+    """Decode attention over read-only slot rows plus an explicit self term
+    for the not-yet-written token (the slot layout's decode step): every
+    slot's ``C`` rows are read in f32 and masked at ``seq_len``, and the
+    new token's K/V fold in as one more key. GQA goes through a q-reshape,
+    so no repeated KV is materialized."""
+    S, C, H_kv, d = k_cache.shape
+    H = q.shape[1]
+    r = H // H_kv
+    q4 = q.reshape(S, H_kv, r, d).float()
+    scale = 1.0 / (d**0.5)
+    logits = torch.einsum("skrd,sckd->sckr", q4, k_cache.float()) * scale  # [S, C, H_kv, r]
+    mask = torch.arange(C, device=q.device)[None, :, None, None] < seq_lens[:, None, None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    self_logit = (q4 * k_new.float()[:, :, None, :]).sum(dim=-1) * scale  # [S, H_kv, r]
+    m = torch.maximum(logits.amax(dim=1), self_logit)
+    p = torch.exp(logits - m[:, None])
+    p_self = torch.exp(self_logit - m)
+    denom = p.sum(dim=1) + p_self
+    out = torch.einsum("sckr,sckd->skrd", p, v_cache.float())
+    out = out + p_self[..., None] * v_new.float()[:, :, None, :]
+    out = out / denom[..., None]
+    return out.reshape(S, H, d).to(q.dtype)
 
 
 def online_softmax_step(qf, kf, vf, mask, m, l, acc, scale):

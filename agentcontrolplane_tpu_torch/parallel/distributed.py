@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import multiprocessing
 import os
+import pickle
 import queue
 import shutil
 import tempfile
@@ -100,10 +101,14 @@ def runtime_info() -> dict:
 
 
 def _rank_main(fn, rank, world_size, init_method, backend, device, args, results) -> None:
-    """A child: join the group, run ``fn(*args)``, report to the parent."""
+    """A child: join the group, run ``fn(*args)``, report to the parent.
+    The result is pickled here, whole: put on the queue as it is, a tensor
+    in it would travel as a shared-memory handle that this process must
+    stay alive to serve, and a rank that exits first resets the parent's
+    connection."""
     try:
         init_distributed(rank, world_size, init_method, backend, device)
-        results.put((rank, True, fn(*args)))
+        results.put((rank, True, pickle.dumps(fn(*args))))
     except BaseException:  # reported to the parent, which raises
         results.put((rank, False, traceback.format_exc()))
     finally:
@@ -165,7 +170,7 @@ def run_ranks(
                     failure = f"ranks exited without a report (exit codes {codes})"
                     break
             if ok:
-                done[rank] = out
+                done[rank] = pickle.loads(out)
             else:
                 failure = f"rank {rank} failed:\n{out}"
     finally:

@@ -132,7 +132,14 @@ without printing a result:
    pages shared at once, the fused dispatches and the rate plans made,
    every decode step through the walk;
    new turns are stopped by holding the Tasks' ``task-llm`` leases before
-   the operator stops;
+   the operator stops; then on the bf16 engine the observability phase;
+   last, over each engine's params, the slot phase: an
+   ``Engine(kv_layout="slot")`` of 8 x 2048 rows whose prefill and decode
+   logits are held against an f32 pass (bf16), which serves 8 x (512 + 64)
+   greedy requests (int8: 8 x 32 tokens) with no walk launch, adopts a
+   parked slot, hits the prefix cache and restores swapped-out rows
+   bit-equal, and (bf16) one decode step at 8 and 64 lanes timed on both
+   layouts;
 6. parallel serving — llama3-8b over ``torch.distributed`` ranks (one
    process each, rank 0 behind HTTP, gloo when the ranks share one card):
    tp=2 in bf16 (with one more request, forcing a tool call), then sp=2 x
@@ -146,7 +153,9 @@ without printing a result:
 7. quick start — the README's quick start through the port's own entry
    points, after every earlier engine is freed: ``python -m
    agentcontrolplane_tpu_torch run --tpu-preset llama3-8b`` as a subprocess
-   (its own bf16 engine, a sqlite store, a bearer token), then the CLI in
+   (its own bf16 engine on ``run``'s default slot layout, a sqlite store, a
+   bearer token), and beside it the same with ``--tpu-kv-layout paged``;
+   then the CLI in
    this process: ``apply -f`` of ``examples/gpu-quickstart.yaml`` and of a
    YAML manifest of the smoke's (forced echo and human-contact LLMs), ``get``
    until every Agent is Ready, ``task create --follow`` to FinalAnswer on
@@ -154,8 +163,10 @@ without printing a result:
    approve`` and a human contact answered by ``contacts respond`` (the forced
    Tasks then deleted), ``events``, ``chat``, ``/v1/models``, ``/metrics``
    (the Task phase and engine gauges), a request without the token (401),
-   and SIGTERM with exit code 0; the subprocess's decode steps and walk
-   launches (read from its ``/v1/engine``) must match.
+   and SIGTERM with exit code 0, with no walk launch; then on the paged
+   subprocess the same manifests, both Tasks to FinalAnswer, ``chat`` and
+   SIGTERM, its walk launches (read from its ``/v1/engine``) equal to
+   n_layers x decode steps.
 
 ``--kernels-only`` stops after the kernel phase (a first check of a new
 kernel; it prints no result line). ``--host-kv-only`` runs the model phase
@@ -1116,12 +1127,16 @@ def weight_product_ms(params: dict, cfg, slots: int = 8) -> float:
         return graph_ms(step, 1, replays=5)
 
 
-def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw) -> dict:
+def serving_phase(card: str, label: str, constrained: bool = False, slot_ref=None,
+                  **engine_kw) -> dict:
     """llama3-8b at full width behind the HTTP server. ``engine_kw`` picks
     the int8 knobs; with ``quantize_kv`` the int8 walk must serve every
     decode layer, otherwise the f32/bf16 walk. ``constrained`` runs the
     constrained phase on the same engine after the timed window; the
-    control-plane phase and then the operator phase run on it last."""
+    control-plane phase and then the operator phase run on it last, then
+    (bf16) the observability phase and, over the same params, the slot
+    phase (``slot_ref``: the bf16 slot phase's first-step logits, for the
+    int8 one)."""
     import torch
 
     from agentcontrolplane_tpu_torch.engine.engine import Engine, SamplingParams
@@ -1255,6 +1270,9 @@ def serving_phase(card: str, label: str, constrained: bool = False, **engine_kw)
         if label == "bf16":
             perf["observability"] = observability_phase(engine, card, label,
                                                         perf["operator"]["observability_rest"])
+            perf["slot"] = slot_phase(engine, card, label, paged=perf["observability"])
+        else:
+            perf["slot"] = slot_phase(engine, card, label, ref=slot_ref)
         return perf
     finally:
         server.shutdown()
@@ -3562,6 +3580,19 @@ def _obs_prompts(n: int, length: int, seed: int, vocab: int) -> list[list[int]]:
     return [[rng.randrange(256, min(8192, vocab)) for _ in range(length)] for _ in range(n)]
 
 
+def _group_burst(engine, prompts, sp) -> tuple:
+    """The requests admitted as one group on an empty prefix cache:
+    (results, futures, decode steps, ms per decode step)."""
+    _forget_prefixes(engine)
+    with engine.hold_admission():
+        futs = [engine.submit(p, sp) for p in prompts]
+        s0 = engine.decode_steps
+    res = [f.result(timeout=600) for f in futs]
+    steps = engine.decode_steps - s0
+    decode_ms = max(r.latency_ms for r in res) - max(r.ttft_ms for r in res)
+    return res, futs, steps, decode_ms / max(1, steps)
+
+
 def observability_phase(engine, card: str, label: str, rest: dict, prompt_len: int = 512,
                         max_tokens: int = 64, device: str = "cuda") -> dict:
     """The flight recorder, the dispatch profiler and the audit on the
@@ -3604,16 +3635,7 @@ def observability_phase(engine, card: str, label: str, rest: dict, prompt_len: i
     sp = SamplingParams(max_tokens=max_tokens)
 
     def burst() -> tuple:
-        """The 8 requests admitted as one group: (results, futures,
-        decode steps, ms per decode step)."""
-        _forget_prefixes(engine)
-        with engine.hold_admission():
-            futs = [engine.submit(p, sp) for p in prompts]
-            s0 = engine.decode_steps
-        res = [f.result(timeout=600) for f in futs]
-        steps = engine.decode_steps - s0
-        decode_ms = max(r.latency_ms for r in res) - max(r.ttft_ms for r in res)
-        return res, futs, steps, decode_ms / max(1, steps)
+        return _group_burst(engine, prompts, sp)
 
     # (a) the counted run: the walk's counts to 0 just before, read after
     pa.LAUNCHES = 0
@@ -3726,7 +3748,8 @@ def observability_phase(engine, card: str, label: str, rest: dict, prompt_len: i
     return {"card": card, "launches": launches, "decode_steps": steps_a,
             "phase_split_ms_median": split, "phase_sum_worst_rel": worst,
             "programs": programs, "goodput": g, "trace_requests": len(trace["requests"]),
-            "rest": rest, "ms_per_decode_step": {"on": ms[True], "off": ms[False],
+            "rest": rest, "streams": streams_on,
+            "ms_per_decode_step": {"on": ms[True], "off": ms[False],
                                                  "median_on": med_on, "median_off": med_off},
             "armed": {"audits": audits, "ms_per_decode_step": ms_armed,
                       "audit_ms_median": statistics.median(audit_ms)},
@@ -3738,6 +3761,334 @@ def _registry_count(name: str) -> float:
 
     m = REGISTRY._metrics.get(name)
     return 0.0 if m is None else m.values.get((), 0.0)
+
+
+SLOT_ROWS, SLOT_PROMPT, SLOT_TOKENS = 8, 512, 64  # (a) and (b) of the slot phase
+SLOT_INT8_TOKENS = 32  # the int8 slot engine's served tokens a request
+SLOT_TOL = 2e-2  # (a): relative L2 from an f32 pass (ROADMAP C, the bf16 gates)
+SLOT_REPEATS = 3  # (b): bursts timed on the slot engine (median)
+SLOT_PREEMPT_TOKENS = 32  # (c): the preempted request's tokens (the fault at its 16th step)
+SLOT_WIDTHS = (8, 64)  # (d): decode widths timed on both layouts (run's --tpu-slots is 64)
+SLOT_WIDTH_ROWS = 576  # (d): each lane's rows before the step (the burst's 512 + 64)
+SLOT_WIDTH_STEPS = 5  # (d): timed steps a width and layout (median), after one warm step
+
+
+def _slot_engine(params, **kw):
+    """The slot layout on llama3-8b at the serving phase's widths, over an
+    engine's params (no second weight init)."""
+    from agentcontrolplane_tpu_torch.engine.engine import Engine
+
+    return Engine("llama3-8b", params=params, device="cuda", seed=0, kv_layout="slot",
+                  max_slots=SLOT_ROWS, max_ctx=2048, decode_block_size=8, **kw)
+
+
+def _slot_first_logits(engine, rows):
+    """``prefill_batch``'s last-token logits over ``rows`` [B, T] into slots
+    0..B-1 of the (not yet started) engine's cache, then those of one
+    ``decode_step`` on each row's argmax; both [B, V] f32, and the argmaxes."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.models import llama
+
+    cfg = engine.config
+    B, T = rows.shape
+    with torch.inference_mode():
+        engine.cache, lg0 = llama.prefill_batch(
+            engine.params, engine.cache, rows, torch.full((B,), T, device="cuda"),
+            torch.arange(B, device="cuda"), cfg)
+        nxt = lg0.argmax(-1)
+        engine.cache, lg1 = llama.decode_step(
+            engine.params, engine.cache, nxt, torch.full((B,), T, dtype=torch.int32,
+                                                         device="cuda"),
+            cfg, active=torch.ones(B, dtype=torch.bool, device="cuda"))
+    return lg0.float(), lg1.float(), nxt
+
+
+def _paged_first_logits(engine, rows, nxt):
+    """The paged layout's prefill and decode logits on the same rows and
+    next tokens, on a scratch pool (the walk runs in the decode step)."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.models import llama
+
+    cfg = engine.config
+    B, T = rows.shape
+    P = 16
+    n = T // P + 1  # the decode row lands on a fresh page
+    ids = torch.arange(1, 1 + B * n, device="cuda").reshape(B, n)
+    with torch.inference_mode():
+        pages = llama.init_paged_cache(cfg, 1 + B * n, P, device="cuda",
+                                       quantize_kv=engine.quantize_kv)
+        pages, lg0 = llama.prefill_paged_batch(engine.params, pages, rows,
+                                               torch.full((B,), T, device="cuda"),
+                                               ids[:, : T // P], cfg)
+        tables = torch.zeros(B, 2048 // P, dtype=torch.int32, device="cuda")
+        tables[:, :n] = ids
+        pages, lg1 = llama.decode_step_paged(
+            engine.params, pages, nxt, torch.full((B,), T, dtype=torch.int32, device="cuda"),
+            tables, torch.ones(B, dtype=torch.bool, device="cuda"), cfg)
+        del pages
+    return lg0.float(), lg1.float()
+
+
+
+
+def _slot_decode_widths(engine, card: str) -> dict:
+    """(d) One decode step of the model functions on the serving engine's
+    params at each of SLOT_WIDTHS lanes, every lane at SLOT_WIDTH_ROWS rows
+    of a 2048-row context: ``decode_step`` over a slot cache of
+    ``max(SLOT_WIDTHS)`` x 2048 rows against ``decode_step_paged`` (the
+    walk) over pages holding the same rows. ms by CUDA events around each
+    call, median of SLOT_WIDTH_STEPS, the layouts interleaved. Reported,
+    not gated; the walk's launches here fall outside every counted run."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.models import llama
+
+    cfg = engine.config
+    S, C, P = max(SLOT_WIDTHS), 2048, 16
+    n = SLOT_WIDTH_ROWS // P + 1  # the step's row lands on the last page
+    doc: dict = {"card": card, "rows": SLOT_WIDTH_ROWS, "max_ctx": C}
+    with torch.inference_mode():
+        cache = llama.init_kv_cache(cfg, S, C, device="cuda", quantize_kv=engine.quantize_kv)
+        pages = llama.init_paged_cache(cfg, 1 + S * n, P, device="cuda",
+                                       quantize_kv=engine.quantize_kv)
+        tables = torch.zeros(S, C // P, dtype=torch.int32, device="cuda")
+        tables[:, :n] = torch.arange(1, 1 + S * n, dtype=torch.int32,
+                                     device="cuda").reshape(S, n)
+        g = torch.Generator().manual_seed(37)
+
+        def ms(fn) -> float:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        for W in SLOT_WIDTHS:
+            toks = torch.randint(256, 8192, (W,), generator=g).to("cuda")
+            lens = torch.full((W,), SLOT_WIDTH_ROWS, dtype=torch.int32, device="cuda")
+            active = torch.ones(W, dtype=torch.bool, device="cuda")
+            runs = {
+                "slot": lambda: llama.decode_step(engine.params, cache, toks, lens, cfg,
+                                                  active=active),
+                "paged": lambda: llama.decode_step_paged(engine.params, pages, toks, lens,
+                                                         tables[:W], active, cfg),
+            }
+            times: dict = {k: [] for k in runs}
+            for k, fn in runs.items():
+                ms(fn)  # warm
+            for _ in range(SLOT_WIDTH_STEPS):
+                for k, fn in runs.items():
+                    times[k].append(ms(fn))
+            med = {k: statistics.median(v) for k, v in times.items()}
+            doc[W] = {"ms": times, "median_ms": med, "ratio": med["slot"] / med["paged"],
+                      "slot_rows_read": W * C, "paged_rows_read": W * SLOT_WIDTH_ROWS}
+            say(f"slot bf16 (d): one decode step at {W} lanes of {SLOT_WIDTH_ROWS} rows: slot "
+                f"(every lane's {C} rows in f32) {med['slot']:.2f} ms, paged (the walk) "
+                f"{med['paged']:.2f} ms, {med['slot'] / med['paged']:.2f}x (medians of "
+                f"{SLOT_WIDTH_STEPS}; slot {', '.join(f'{t:.2f}' for t in times['slot'])}; "
+                f"paged {', '.join(f'{t:.2f}' for t in times['paged'])})  [{card}]")
+        del cache, pages
+    gc.collect()
+    torch.cuda.empty_cache()
+    return doc
+
+
+def _walk_counts() -> tuple:
+    from agentcontrolplane_tpu_torch.ops.cuda import paged_attention as pa
+
+    return pa.LAUNCHES, pa.INT8_LAUNCHES, pa.STATE_LAUNCHES
+
+
+def _slot_reuse(engine, prompts, card: str, label: str) -> dict:
+    """(c) KV reuse on the slot layout: a 2-turn parked conversation adopts
+    its slot; a repeated prompt hits the prefix cache (a ``prefix_copy``);
+    under a 1 GiB host tier one ``engine.force_preempt`` swaps the slot's
+    rows out and the resume restores rows bit-equal to the rows taken
+    before the swap."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+    from agentcontrolplane_tpu_torch.faults import FAULTS
+
+    sp = SamplingParams(max_tokens=8)
+    what = f"slot {label} (c)"
+    a0 = engine.park_adoptions
+    turn1 = prompts[0][:300]
+    engine.submit(turn1, sp, park=True).result(timeout=600)
+    engine.generate(turn1 + prompts[1][:40], sp)
+    adoptions = engine.park_adoptions - a0
+    _idle_parked(engine)
+    _forget_prefixes(engine)
+    h0 = engine._prefix_hits
+    engine.generate(prompts[2], sp)
+    engine.generate(prompts[2], sp)
+    hits = engine._prefix_hits - h0
+    copies = [k for k in engine.profiler.stats()["programs"] if k.startswith("prefix_copy[")]
+    _forget_prefixes(engine)
+    # the host tier: the rows at the swap-out, held on the card, against the
+    # rows the restore lands
+    engine.set_host_kv_bytes(HOST_KV_BYTES)
+    taken, landed = [], []
+    extract, finish = engine._extract_rows, engine._finish_swap_in
+
+    def on_extract(slot, cut):
+        taken.append({n: a[:, slot, :cut].clone() for n, a in engine.cache.items()})
+        return extract(slot, cut)
+
+    def on_finish(slot, sl):
+        n = sl.prefill_pos
+        landed.append((n, all(torch.equal(engine.cache[name][:, slot, :n], taken[-1][name][:, :n])
+                              for name in engine.cache)))
+        finish(slot, sl)
+
+    engine._extract_rows, engine._finish_swap_in = on_extract, on_finish
+    o0, i0 = engine.kv_swap_outs, engine.kv_swap_ins
+    try:
+        FAULTS.arm("engine.force_preempt", after_steps=engine.decode_steps + 16)
+        r = engine.generate(prompts[3], SamplingParams(max_tokens=SLOT_PREEMPT_TOKENS))
+    finally:
+        FAULTS.reset()
+        del engine._extract_rows, engine._finish_swap_in
+        engine.set_host_kv_bytes(0)
+    outs, ins = engine.kv_swap_outs - o0, engine.kv_swap_ins - i0
+    if adoptions != 1 or hits != 1 or not copies:
+        fail(f"{what}: {adoptions} adoptions, {hits} prefix-cache hits, copies {copies}")
+    if r.preempt_count != 1 or outs != 1 or ins != 1 or len(landed) != 1 or not landed[0][1]:
+        fail(f"{what}: preempted {r.preempt_count}, {outs} swap-outs, {ins} swap-ins, "
+             f"restores {landed}")
+    say(f"{what}: a parked turn adopted by its next ({adoptions}); a repeated prompt hit the "
+        f"prefix cache ({hits}, {copies}); one forced preemption under a "
+        f"{HOST_KV_BYTES >> 20} MiB host tier swapped out {landed[0][0]} rows and restored them "
+        f"bit-equal; the resumed request returned {len(r.tokens)} tokens  [{card}]")
+    return {"adoptions": adoptions, "prefix_hits": hits, "prefix_copies": copies,
+            "swap_outs": outs, "swap_ins": ins, "rows_restored": landed[0][0]}
+
+
+def slot_phase(engine, card: str, label: str, paged: dict = None, ref=None) -> dict:
+    """The slot KV layout (ROADMAP A.10) on the serving phase's llama3-8b
+    params, one ``Engine(kv_layout="slot", max_slots=8, max_ctx=2048)``,
+    freed at the end. bf16 (``ref`` None): (a) SLOT_ROWS random rows of
+    SLOT_PROMPT tokens: ``prefill_batch``'s last-token logits and one
+    ``decode_step``'s, each gated against an f32 pass over the same rows
+    at SLOT_TOL relative L2, the paged functions' distance on the same rows
+    printed; (b) the observability phase's SLOT_ROWS x (SLOT_PROMPT +
+    SLOT_TOKENS) greedy requests served SLOT_REPEATS times: every request
+    returns SLOT_TOKENS tokens and the walk's counters do not move; the
+    program keys, the streams' agreement with the paged engine's and the
+    ms per decode step on both layouts printed; (c) ``_slot_reuse``; (d)
+    after the slot engine is freed, ``_slot_decode_widths``. int8
+    (``ref`` the bf16 phase's first-step logits): (a)'s logits against the
+    bf16 slot engine's, printed; SLOT_ROWS x SLOT_INT8_TOKENS served on the
+    walk-free path. The doc's ``first`` holds (a)'s logits for the int8
+    phase."""
+    import torch
+
+    from agentcontrolplane_tpu_torch.engine.engine import SamplingParams
+
+    t_phase = time.monotonic()
+    cfg = engine.config
+    what = f"slot {label}"
+    quant = dict(quantize_weights=engine.quantize == "int8", quantize_kv=engine.quantize_kv)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    slot = _slot_engine(engine.params, **quant)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    cache_bytes = _pool_bytes(slot.cache)
+    doc: dict = {"card": card, "init_s": init_s, "cache_bytes": cache_bytes}
+    try:
+        g = torch.Generator().manual_seed(29)
+        rows = torch.randint(256, 8192, (SLOT_ROWS, SLOT_PROMPT), generator=g).to("cuda")
+        lg0, lg1, nxt = _slot_first_logits(slot, rows)
+        finite = bool(torch.isfinite(lg0).all() and torch.isfinite(lg1).all())
+        if ref is None:
+            f0 = _f32_logits(engine, rows)[:, -1]
+            f1 = _f32_logits(engine, torch.cat([rows, nxt[:, None]], dim=1))[:, -1]
+            p0, p1 = _paged_first_logits(engine, rows, nxt)
+            d = {"prefill_vs_f32": [_rel_l2(lg0[i], f0[i]) for i in range(SLOT_ROWS)],
+                 "decode_vs_f32": [_rel_l2(lg1[i], f1[i]) for i in range(SLOT_ROWS)],
+                 "paged_prefill_vs_f32": [_rel_l2(p0[i], f0[i]) for i in range(SLOT_ROWS)],
+                 "paged_decode_vs_f32": [_rel_l2(p1[i], f1[i]) for i in range(SLOT_ROWS)],
+                 "prefill_vs_paged": [_rel_l2(lg0[i], p0[i]) for i in range(SLOT_ROWS)],
+                 "decode_vs_paged": [_rel_l2(lg1[i], p1[i]) for i in range(SLOT_ROWS)]}
+            worst = max(max(d["prefill_vs_f32"]), max(d["decode_vs_f32"]))
+            if not finite or worst > SLOT_TOL:
+                fail(f"{what} (a): prefill / decode logits {max(d['prefill_vs_f32']):.3e} / "
+                     f"{max(d['decode_vs_f32']):.3e} relative L2 from an f32 pass (tol "
+                     f"{SLOT_TOL}), finite {finite}")
+            say(f"{what} (a): {SLOT_ROWS} rows of {SLOT_PROMPT}: prefill_batch's last-token logits "
+                f"max {max(d['prefill_vs_f32']):.3e} and one decode_step's max "
+                f"{max(d['decode_vs_f32']):.3e} relative L2 from an f32 pass (tol {SLOT_TOL}); "
+                f"the paged functions' {max(d['paged_prefill_vs_f32']):.3e} / "
+                f"{max(d['paged_decode_vs_f32']):.3e}; slot against paged "
+                f"{max(d['prefill_vs_paged']):.3e} / {max(d['decode_vs_paged']):.3e} (not gated)"
+                f"  [{card}]")
+            doc["logits"] = d
+            doc["first"] = (lg0.cpu(), lg1.cpu())
+        else:
+            b0, b1 = ref
+            d = {"prefill_vs_bf16_slot": [_rel_l2(lg0[i].cpu(), b0[i]) for i in range(SLOT_ROWS)],
+                 "decode_vs_bf16_slot": [_rel_l2(lg1[i].cpu(), b1[i]) for i in range(SLOT_ROWS)]}
+            if not finite:
+                fail(f"{what} (a): the int8 slot engine's first-step logits are not finite")
+            say(f"{what} (a): the int8 slot engine's prefill / decode logits on the same rows "
+                f"max {max(d['prefill_vs_bf16_slot']):.3e} / {max(d['decode_vs_bf16_slot']):.3e} "
+                f"relative L2 from the bf16 slot engine's (reported)  [{card}]")
+            doc["logits"] = d
+        del lg0, lg1
+
+        prompts = _obs_prompts(SLOT_ROWS, SLOT_PROMPT, 11, cfg.vocab_size)
+        tokens = SLOT_TOKENS if ref is None else SLOT_INT8_TOKENS
+        slot.start()
+        counts0 = _walk_counts()
+        runs = [_group_burst(slot, prompts, SamplingParams(max_tokens=tokens))
+                for _ in range(SLOT_REPEATS if ref is None else 1)]
+        counts1 = _walk_counts()
+        res, _futs, steps, _ms = runs[0]
+        ms = [m for _r, _f, _s, m in runs]
+        n_tokens = [len(r.tokens) for r in res]
+        if counts1 != counts0 or n_tokens != [tokens] * SLOT_ROWS or steps <= 0:
+            fail(f"{what} (b): tokens {n_tokens} (want {tokens} each), walk counts "
+                 f"{counts0} -> {counts1}, {steps} decode steps")
+        keys = sorted(k for k in slot.profiler.stats()["programs"]
+                      if k.startswith(("decode[", "megastep[", "prefill[")))
+        doc.update(decode_steps=steps, ms_per_decode_step=ms,
+                   ms_per_decode_step_median=statistics.median(ms), programs=keys,
+                   walk_counts=counts1)
+        line = (f"{what} (b): {SLOT_ROWS} x ({SLOT_PROMPT} + {tokens}) greedy served, every "
+                f"request {tokens} tokens, {steps} decode steps, walk counts unchanged "
+                f"{counts1}; programs {keys}; ms per decode step "
+                f"{statistics.median(ms):.2f} ({', '.join(f'{m:.2f}' for m in ms)})")
+        if ref is None:
+            streams = paged["streams"]
+            same = sum(list(r.tokens) == s for r, s in zip(res, streams))
+            agree = sum(a == b for r, s in zip(res, streams) for a, b in zip(r.tokens, s))
+            doc.update(identical_streams=same, agreeing_tokens=agree,
+                       paged_ms_per_decode_step=paged["ms_per_decode_step"]["median_on"])
+            line += (f"; paged (observability phase, this process) "
+                     f"{paged['ms_per_decode_step']['median_on']:.2f}; streams identical to the "
+                     f"paged engine's {same} of {SLOT_ROWS}, tokens agreeing position by "
+                     f"position {agree} of {SLOT_ROWS * tokens} (bf16 orders differ; not gated)")
+            say(line + f"  [{card}]")
+            doc["reuse"] = _slot_reuse(slot, prompts, card, label)
+        else:
+            say(line + f"  [{card}]")
+    finally:
+        slot.stop()
+        del slot
+        gc.collect()
+        torch.cuda.empty_cache()
+    if ref is None:
+        doc["widths"] = _slot_decode_widths(engine, card)
+    doc["phase_s"] = time.monotonic() - t_phase
+    say(f"{what}: init {init_s:.2f} s, {cache_bytes / 1e9:.3f} GB of slot cache; phase "
+        f"{doc['phase_s']:.1f} s  [{card}]")
+    return doc
 
 
 def _tiny_fault_runs(card: str, dump_dir: str, device: str = "cuda") -> dict:
@@ -4240,283 +4591,368 @@ def _get(base: str, path: str, token: str = "") -> tuple[int, object]:
     return status, json.loads(raw) if ctype == "application/json" else raw
 
 
+class _Operator:
+    """One ``run --tpu-preset llama3-8b --tpu-slots 8`` operator subprocess
+    of the quick start (its own bf16 engine, a sqlite store, a bearer
+    token; its log under the output directory) and the port's CLI driving
+    it from this process (``main([...])`` with ``--server`` and
+    ``--token``)."""
+
+    def __init__(self, layout: str, extra: list, tmp: Path, token: str, port: int):
+        import os
+
+        self.layout, self.token = layout, token
+        self.base = f"http://127.0.0.1:{port}"
+        self.log_path = ROOT / "chiprun_out" / f"quickstart_run_{layout}.log"
+        self.log = open(self.log_path, "w")
+        env = dict(os.environ, ACP_TPU_LOG_LEVEL="WARNING", PYTHONUNBUFFERED="1")
+        env.pop("ACP_API_TOKEN", None)
+        self.t_start = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "agentcontrolplane_tpu_torch", "run",
+             "--tpu-preset", "llama3-8b", "--tpu-slots", "8", "--tpu-ctx", "2048", *extra,
+             "--db", str(tmp / f"acp-{layout}.db"), "--port", str(port), "--api-token", token],
+            cwd=str(ROOT), env=env, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self.log.close()
+
+    def failed(self, msg: str) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self.log.flush()
+        tail = self.log_path.read_text()[-3000:]
+        fail(f"quick start ({self.layout}): {msg}; the operator's log ends:\n{tail}")
+
+    def cli(self, *argv, stdin: str | None = None) -> tuple[int, str, str]:
+        import contextlib
+        import io
+
+        from agentcontrolplane_tpu_torch.cli import main as cli_main
+
+        out, err = io.StringIO(), io.StringIO()
+        saved = sys.stdin
+        if stdin is not None:
+            sys.stdin = io.StringIO(stdin)
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli_main(["--server", self.base, "--token", self.token, *argv])
+        except SystemExit as e:
+            rc = e.code
+        finally:
+            sys.stdin = saved
+        return rc, out.getvalue(), err.getvalue()
+
+    def api(self, path: str):
+        return _get(self.base, path, self.token)
+
+    def wait(self, pred, what: str, timeout: float = 120.0, poll: float = 0.02):
+        deadline = time.monotonic() + timeout
+        while True:
+            got = pred()
+            if got:
+                return got
+            if self.proc.poll() is not None:
+                self.failed(f"the operator exited with {self.proc.returncode} waiting for {what}")
+            if time.monotonic() > deadline:
+                self.failed(f"timed out waiting for {what}")
+            time.sleep(poll)
+
+    def wait_ready(self) -> tuple[float, dict]:
+        """Seconds from the start to /readyz, and /v1/engine then."""
+        def ready():
+            try:
+                return _get(self.base, "/readyz")[0] == 200
+            except OSError:
+                return False
+        self.wait(ready, "/readyz", timeout=600, poll=0.2)
+        ready_s = time.monotonic() - self.t_start
+        st, eng = self.api("/v1/engine")
+        if st != 200 or not eng.get("configured"):
+            self.failed(f"/v1/engine before the drive: {st} {eng}")
+        return ready_s, eng
+
+    def apply(self, manifest: Path) -> float:
+        """``apply -f`` of the README's example and the smoke's manifest, then
+        ``get`` until every Agent is Ready: ms."""
+        from agentcontrolplane_tpu_torch.api.yamlsubset import load_all
+
+        t0 = time.monotonic()
+        for path, n in ((QUICKSTART_EXAMPLE, 6), (manifest, 9)):
+            rc, text, err = self.cli("apply", "-f", str(path))
+            if rc != 0 or text.count(" created") != n:
+                self.failed(f"apply -f {path.name}: rc {rc}, {text!r} {err!r}")
+
+        def agents_ready():
+            rc, table, err = self.cli("get", "Agent")
+            rows = {ln.split()[0]: ln.split()[1:2] for ln in table.splitlines()[1:] if ln}
+            return rc == 0 and all(rows.get(a) == ["Ready"] for a in QUICKSTART_AGENTS)
+        self.wait(agents_ready, "the three Agents Ready", poll=0.1)
+        apply_ready_ms = (time.monotonic() - t0) * 1e3
+        rc, text, err = self.cli("get", "LLM", "llama3-tpu", "-o", "yaml")
+        docs = load_all(text) if rc == 0 else []
+        if not docs or not (docs[0].get("status") or {}).get("ready"):
+            self.failed(f"get LLM llama3-tpu -o yaml: rc {rc}, {text[:400]!r} {err!r}")
+        return apply_ready_ms
+
+    def tasks(self) -> dict:
+        """Tasks to FinalAnswer through ``task create --follow``, the
+        README's (up to 256 tokens) and the smoke's plain Agent's (16), each
+        then shown: ms per Agent."""
+        final_ms = {}
+        for agent, message in (("gpu-assistant", "What's the capital of France?"),
+                               ("my-assistant", "Say hello in one line.")):
+            t0 = time.monotonic()
+            rc, text, err = self.cli("task", "create", agent, message, "--follow")
+            final_ms[agent] = (time.monotonic() - t0) * 1e3
+            if rc != 0 or "phase: FinalAnswer" not in text:
+                self.failed(f"task create {agent} --follow: rc {rc}, {text!r} {err!r}")
+            task_name = text.split()[0].split("/", 1)[1]
+            rc, shown, err = self.cli("task", "show", task_name)
+            if rc != 0 or "[SYSTEM]" not in shown or "[USER]" not in shown \
+                    or "[ASSISTANT]" not in shown:
+                self.failed(f"task show {task_name}: rc {rc}, {shown!r} {err!r}")
+        return final_ms
+
+    def chat(self) -> None:
+        rc, chat_out, chat_err = self.cli("chat", "--max-tokens", "8", "--temperature", "0",
+                                          stdin="Hello there.\n")
+        if rc != 0 or chat_err or not chat_out.startswith("chatting with the engine"):
+            self.failed(f"chat: rc {rc}, {chat_out!r} {chat_err!r}")
+
+    def stop(self) -> float:
+        """SIGTERM, then exit code 0: seconds."""
+        import signal
+
+        t0 = time.monotonic()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(90)
+        except subprocess.TimeoutExpired:
+            self.failed("the operator did not exit within 90 s of SIGTERM")
+        if rc != 0:
+            self.failed(f"the operator exited with {rc} after SIGTERM")
+        return time.monotonic() - t0
+
+
 def quickstart_phase(card: str) -> dict:
     """The README's quick start through the port's own entry points: ``python
     -m agentcontrolplane_tpu_torch run --tpu-preset llama3-8b`` as a
-    subprocess (its own bf16 engine), driven by the port's CLI in this
-    process (``main([...])`` with ``--server`` and ``--token``): ``apply -f``
-    of a YAML manifest, ``get``, ``task create --follow`` to FinalAnswer,
-    ``task show``, an approval and a human contact answered through
-    ``approvals approve`` and ``contacts respond``, ``delete`` of the forced
-    Tasks, ``events``, ``chat``, the REST routes (``/v1/models``,
-    ``/metrics``, ``/v1/engine``, a 401), then SIGTERM and exit code 0. The
-    subprocess's decode steps and walk launches are read from its
-    ``/v1/engine`` before and after the drive."""
-    import contextlib
-    import io
+    subprocess on ``run``'s default slot layout, driven by the port's CLI in
+    this process: ``apply -f`` of a YAML manifest, ``get``, ``task create
+    --follow`` to FinalAnswer, ``task show``, an approval and a human contact
+    answered through ``approvals approve`` and ``contacts respond``,
+    ``delete`` of the forced Tasks, ``events``, ``chat``, the REST routes
+    (``/v1/models``, ``/metrics``, ``/v1/engine``, a 401), then SIGTERM and
+    exit code 0; its walk launches must stay 0. Beside it, started at the
+    same time, ``run --tpu-kv-layout paged`` serves the same manifests, both
+    Tasks to FinalAnswer and a chat, and every decode step of that process
+    must go through the bf16 walk (launches = n_layers x decode steps, int8
+    0). Each subprocess's decode steps and walk launches are read from its
+    ``/v1/engine`` before and after its drive."""
     import os
-    import signal
     import tempfile
 
     import torch
 
     from agentcontrolplane_tpu_torch.api.yamlsubset import load_all
-    from agentcontrolplane_tpu_torch.cli import main as cli_main
 
     gc.collect()
     torch.cuda.empty_cache()
     free0, total = torch.cuda.mem_get_info()
     parent_reserved = torch.cuda.memory_reserved()
-    say(f"quick start: before the subprocess, {free0 / 1e9:.2f} of {total / 1e9:.2f} GB free on "
-        f"the card, this process holds {parent_reserved / 1e9:.3f} GB reserved by torch "
+    say(f"quick start: before the subprocesses, {free0 / 1e9:.2f} of {total / 1e9:.2f} GB free "
+        f"on the card, this process holds {parent_reserved / 1e9:.3f} GB reserved by torch "
         f"(plus its CUDA context)  [{card}]")
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     token = "quickstart-" + os.urandom(8).hex()
     port = _free_port()
-    base = f"http://127.0.0.1:{port}"
+    port_paged = _free_port()
+    while port_paged == port:
+        port_paged = _free_port()
     t_phase = time.monotonic()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        log_path = out_dir / "quickstart_run.log"
-        log = open(log_path, "w")
-        env = dict(os.environ, ACP_TPU_LOG_LEVEL="WARNING", PYTHONUNBUFFERED="1")
-        env.pop("ACP_API_TOKEN", None)
-        t_start = time.monotonic()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "agentcontrolplane_tpu_torch", "run",
-             "--tpu-preset", "llama3-8b", "--tpu-slots", "8", "--tpu-ctx", "2048",
-             "--db", str(Path(tmp) / "acp.db"), "--port", str(port), "--api-token", token],
-            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)
-
-        def stop_failed(msg: str):
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(30)
-            log.flush()
-            tail = log_path.read_text()[-3000:]
-            fail(f"quick start: {msg}; the operator's log ends:\n{tail}")
-
-        def cli(*argv, stdin: str | None = None) -> tuple[int, str, str]:
-            out, err = io.StringIO(), io.StringIO()
-            saved = sys.stdin
-            if stdin is not None:
-                sys.stdin = io.StringIO(stdin)
-            try:
-                with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-                    rc = cli_main(["--server", base, "--token", token, *argv])
-            except SystemExit as e:
-                rc = e.code
-            finally:
-                sys.stdin = saved
-            return rc, out.getvalue(), err.getvalue()
-
-        def api(path: str):
-            return _get(base, path, token)
-
-        def wait(pred, what: str, timeout: float = 120.0, poll: float = 0.02):
-            deadline = time.monotonic() + timeout
-            while True:
-                got = pred()
-                if got:
-                    return got
-                if proc.poll() is not None:
-                    stop_failed(f"the operator exited with {proc.returncode} waiting for {what}")
-                if time.monotonic() > deadline:
-                    stop_failed(f"timed out waiting for {what}")
-                time.sleep(poll)
-
+        manifest = Path(tmp) / "quickstart.yaml"
+        manifest.write_text(QUICKSTART_YAML.format(python=sys.executable,
+                                                   echo_server=ECHO_SERVER))
+        op = _Operator("slot", [], Path(tmp), token, port)
+        paged = _Operator("paged", ["--tpu-kv-layout", "paged"], Path(tmp), token, port_paged)
         try:
-            # 1. start: the subprocess builds its own engine, then serves REST
-            def ready():
-                try:
-                    return _get(base, "/readyz")[0] == 200
-                except OSError:
-                    return False
-            wait(ready, "/readyz", timeout=600, poll=0.2)
-            ready_s = time.monotonic() - t_start
+            # 1. start: each subprocess builds its own engine, then serves REST
+            ready_s, eng0 = op.wait_ready()
+            paged_ready_s, paged_eng0 = paged.wait_ready()
             free1, _ = torch.cuda.mem_get_info()
-            st, eng0 = api("/v1/engine")
-            if st != 200 or not eng0.get("configured"):
-                stop_failed(f"/v1/engine before the drive: {st} {eng0}")
-            say(f"quick start: `run --tpu-preset llama3-8b` -> /readyz in {ready_s:.2f} s; the "
-                f"operator process holds {(free0 - free1) / 1e9:.2f} GB of the card "
-                f"({eng0['model']['weight_bytes'] / 1e9:.3f} GB of bf16 weights, "
-                f"{eng0['rank']['pool_bytes'] / 1e9:.3f} GB of KV pool); "
+            say(f"quick start: `run --tpu-preset llama3-8b` -> /readyz in {ready_s:.2f} s "
+                f"({eng0['kv_layout']}), with `--tpu-kv-layout paged` beside it in "
+                f"{paged_ready_s:.2f} s ({paged_eng0['kv_layout']}); the two operator processes "
+                f"hold {(free0 - free1) / 1e9:.2f} GB of the card "
+                f"({eng0['model']['weight_bytes'] / 1e9:.3f} GB of bf16 weights each, "
+                f"{eng0['rank']['pool_bytes'] / 1e9:.3f} GB of slot KV cache, "
+                f"{paged_eng0['rank']['pool_bytes'] / 1e9:.3f} GB of KV pool); "
                 f"{free1 / 1e9:.2f} GB left free  [{card}]")
 
             # 2. apply the README's example and a YAML manifest of the
             # smoke's, then get until the Agents are Ready
-            manifest = Path(tmp) / "quickstart.yaml"
-            manifest.write_text(QUICKSTART_YAML.format(python=sys.executable,
-                                                       echo_server=ECHO_SERVER))
-            t0 = time.monotonic()
-            for path, n in ((QUICKSTART_EXAMPLE, 6), (manifest, 9)):
-                rc, text, err = cli("apply", "-f", str(path))
-                if rc != 0 or text.count(" created") != n:
-                    stop_failed(f"apply -f {path.name}: rc {rc}, {text!r} {err!r}")
-
-            def agents_ready():
-                rc, table, err = cli("get", "Agent")
-                rows = {ln.split()[0]: ln.split()[1:2] for ln in table.splitlines()[1:] if ln}
-                return rc == 0 and all(rows.get(a) == ["Ready"] for a in QUICKSTART_AGENTS)
-            wait(agents_ready, "the three Agents Ready", poll=0.1)
-            apply_ready_ms = (time.monotonic() - t0) * 1e3
-            rc, text, err = cli("get", "LLM", "llama3-tpu", "-o", "yaml")
-            docs = load_all(text) if rc == 0 else []
-            if not docs or not (docs[0].get("status") or {}).get("ready"):
-                stop_failed(f"get LLM llama3-tpu -o yaml: rc {rc}, {text[:400]!r} {err!r}")
+            apply_ready_ms = op.apply(manifest)
             n_docs = len(load_all(QUICKSTART_EXAMPLE.read_text())) + len(
                 load_all(manifest.read_text()))
             say(f"quick start: apply -f examples/{QUICKSTART_EXAMPLE.name} and the smoke's "
                 f"manifest ({n_docs} YAML documents) -> every Agent Ready in "
                 f"{apply_ready_ms:.1f} ms (get Agent polled)  [{card}]")
 
-            # 3. Tasks to FinalAnswer through task create --follow: the
-            # README's (up to 256 tokens) and the smoke's plain Agent's (16)
-            final_ms = {}
-            for agent, message in (("gpu-assistant", "What's the capital of France?"),
-                                   ("my-assistant", "Say hello in one line.")):
-                t0 = time.monotonic()
-                rc, text, err = cli("task", "create", agent, message, "--follow")
-                final_ms[agent] = (time.monotonic() - t0) * 1e3
-                if rc != 0 or "phase: FinalAnswer" not in text:
-                    stop_failed(f"task create {agent} --follow: rc {rc}, {text!r} {err!r}")
-                task_name = text.split()[0].split("/", 1)[1]
-                rc, shown, err = cli("task", "show", task_name)
-                if rc != 0 or "[SYSTEM]" not in shown or "[USER]" not in shown \
-                        or "[ASSISTANT]" not in shown:
-                    stop_failed(f"task show {task_name}: rc {rc}, {shown!r} {err!r}")
+            # 3. Tasks to FinalAnswer through task create --follow
+            final_ms = op.tasks()
             say("quick start: task create --follow -> FinalAnswer in "
                 + ", ".join(f"{v:.1f} ms ({k})" for k, v in final_ms.items())
                 + f" (0.5 s polls); task show OK  [{card}]")
 
             def toolcalls(task: str) -> list:
-                st, docs = api(f"/v1/resources/ToolCall?labelSelector=acp.tpu/task={task}")
+                st, docs = op.api(f"/v1/resources/ToolCall?labelSelector=acp.tpu/task={task}")
                 return docs if st == 200 else []
 
             # 4a. the approval: echo__echo behind the approvals channel
-            rc, text, err = cli("task", "create", "echoer", "Echo the word hello.")
+            rc, text, err = op.cli("task", "create", "echoer", "Echo the word hello.")
             if rc != 0:
-                stop_failed(f"task create echoer: rc {rc} {err!r}")
+                op.failed(f"task create echoer: rc {rc} {err!r}")
             echo_task = text.split()[0].split("/", 1)[1]
 
             def pending(route: str, command: str):
                 """The first pending call id that ``command`` lists (its
                 table runs a long id into the next column, so the id is
                 read from the route)."""
-                st, rows = api(route)
+                st, rows = op.api(route)
                 if st != 200 or not rows:
                     return None
-                rc, table, err = cli(command)
+                rc, table, err = op.cli(command)
                 return rows[0]["callId"] if rc == 0 and rows[0]["callId"] in table else None
-            call_id = wait(lambda: pending("/v1/approvals", "approvals"), "a pending approval",
-                           poll=0.1)
+            call_id = op.wait(lambda: pending("/v1/approvals", "approvals"), "a pending approval",
+                              poll=0.1)
             tcs = toolcalls(echo_task)
             if not any((tc.get("status") or {}).get("phase") == "AwaitingHumanApproval"
                        for tc in tcs):
-                stop_failed(f"no ToolCall of {echo_task} AwaitingHumanApproval: {tcs}")
+                op.failed(f"no ToolCall of {echo_task} AwaitingHumanApproval: {tcs}")
             t0 = time.monotonic()
-            rc, text, err = cli("approvals", "approve", call_id, "--comment", "ok")
+            rc, text, err = op.cli("approvals", "approve", call_id, "--comment", "ok")
             if rc != 0:
-                stop_failed(f"approvals approve {call_id}: rc {rc}, {text!r} {err!r}")
-            succeeded = wait(lambda: [tc for tc in toolcalls(echo_task)
-                                      if (tc.get("status") or {}).get("phase") == "Succeeded"],
-                             "the approved ToolCall Succeeded")
+                op.failed(f"approvals approve {call_id}: rc {rc}, {text!r} {err!r}")
+            succeeded = op.wait(lambda: [tc for tc in toolcalls(echo_task)
+                                         if (tc.get("status") or {}).get("phase") == "Succeeded"],
+                                "the approved ToolCall Succeeded")
             approve_ms = (time.monotonic() - t0) * 1e3
             echo_result = succeeded[0]["status"].get("result", "")
             if not echo_result.startswith("echo: "):
-                stop_failed(f"the approved echo ToolCall's result: {echo_result!r}")
+                op.failed(f"the approved echo ToolCall's result: {echo_result!r}")
 
             # 4b. the human contact, answered through contacts respond
-            rc, text, err = cli("task", "create", "asker", "Check the deploy with a human.")
+            rc, text, err = op.cli("task", "create", "asker", "Check the deploy with a human.")
             if rc != 0:
-                stop_failed(f"task create asker: rc {rc} {err!r}")
+                op.failed(f"task create asker: rc {rc} {err!r}")
             ask_task = text.split()[0].split("/", 1)[1]
 
-            contact_id = wait(lambda: pending("/v1/contacts", "contacts"),
-                              "a pending human contact", poll=0.1)
+            contact_id = op.wait(lambda: pending("/v1/contacts", "contacts"),
+                                 "a pending human contact", poll=0.1)
             if not any((tc.get("status") or {}).get("phase") == "AwaitingHumanInput"
                        for tc in toolcalls(ask_task)):
-                stop_failed(f"no ToolCall of {ask_task} AwaitingHumanInput")
+                op.failed(f"no ToolCall of {ask_task} AwaitingHumanInput")
             t0 = time.monotonic()
-            rc, text, err = cli("contacts", "respond", contact_id, QUICKSTART_ANSWER)
+            rc, text, err = op.cli("contacts", "respond", contact_id, QUICKSTART_ANSWER)
             if rc != 0:
-                stop_failed(f"contacts respond {contact_id}: rc {rc}, {text!r} {err!r}")
+                op.failed(f"contacts respond {contact_id}: rc {rc}, {text!r} {err!r}")
 
             def answer_joined():
-                st, t = api(f"/v1/tasks/{ask_task}")
+                st, t = op.api(f"/v1/tasks/{ask_task}")
                 return st == 200 and any(m.get("role") == "tool"
                                          and m.get("content") == QUICKSTART_ANSWER
                                          for m in t["contextWindow"])
-            wait(answer_joined, "the human's answer in the Task's window")
+            op.wait(answer_joined, "the human's answer in the Task's window")
             respond_ms = (time.monotonic() - t0) * 1e3
             # forced Tasks never end with random weights: take them away
             for name in (echo_task, ask_task):
-                rc, text, err = cli("delete", "Task", name)
+                rc, text, err = op.cli("delete", "Task", name)
                 if rc != 0:
-                    stop_failed(f"delete Task {name}: rc {rc}, {text!r} {err!r}")
+                    op.failed(f"delete Task {name}: rc {rc}, {text!r} {err!r}")
             say(f"quick start: approvals approve -> echo ToolCall Succeeded in {approve_ms:.1f} "
                 f"ms; contacts respond -> answer in the Task's window in {respond_ms:.1f} ms; "
                 f"both forced Tasks deleted  [{card}]")
 
             # 5. the other routes
-            rc, events, err = cli("events")
+            rc, events, err = op.cli("events")
             if rc != 0 or not events.strip():
-                stop_failed(f"events: rc {rc} {err!r}")
-            st, models = api("/v1/models")
+                op.failed(f"events: rc {rc} {err!r}")
+            st, models = op.api("/v1/models")
             ids = {m["id"]: m for m in models["data"]} if st == 200 else {}
             if "tpu" not in ids or not all(ids.get(n, {}).get("ready") for n in (
                     "llama3-tpu", "llama3-tpu-echo", "llama3-tpu-ask")):
-                stop_failed(f"/v1/models: {st} {models}")
-            st, metrics = api("/metrics")
+                op.failed(f"/v1/models: {st} {models}")
+            st, metrics = op.api("/metrics")
             if st != 200 or 'acp_objects{kind="Task",phase="' not in metrics \
                     or "acp_engine_active_slots" not in metrics:
-                stop_failed(f"/metrics lacks the Task phase gauges or the engine's: {st}")
+                op.failed(f"/metrics lacks the Task phase gauges or the engine's: {st}")
             task_gauges = [ln for ln in metrics.splitlines()
                            if ln.startswith('acp_objects{kind="Task"')]
-            st, anon = _get(base, "/v1/tasks")
+            st, anon = _get(op.base, "/v1/tasks")
             if st != 401:
-                stop_failed(f"/v1/tasks without the token answered {st}, not 401")
-            rc, chat_out, chat_err = cli("chat", "--max-tokens", "8", "--temperature", "0",
-                                         stdin="Hello there.\n")
-            if rc != 0 or chat_err or not chat_out.startswith("chatting with the engine"):
-                stop_failed(f"chat: rc {rc}, {chat_out!r} {chat_err!r}")
-            st, eng1 = api("/v1/engine")
+                op.failed(f"/v1/tasks without the token answered {st}, not 401")
+            op.chat()
+            st, eng1 = op.api("/v1/engine")
             if st != 200:
-                stop_failed(f"/v1/engine after the drive: {st}")
+                op.failed(f"/v1/engine after the drive: {st}")
             steps = eng1["decode_steps"] - eng0["decode_steps"]
             launches = eng1["walk_launches"]["total"] - eng0["walk_launches"]["total"]
-            int8 = eng1["walk_launches"]["int8"] - eng0["walk_launches"]["int8"]
             n_layers = eng1["model"]["layers"]
-            if steps <= 0 or launches != n_layers * steps or int8 != 0:
-                stop_failed(f"walk launches {launches} (int8 {int8}) != {n_layers} x {steps} "
-                            f"decode steps")
+            # the quick start serves run's default layout, the reference's
+            # slot rows: plain torch attention, so the walk never launches
+            if eng1.get("kv_layout") != "slot" or steps <= 0 \
+                    or eng1["walk_launches"]["total"] != 0:
+                op.failed(f"layout {eng1.get('kv_layout')}, {steps} decode steps, walk "
+                          f"launches {eng1['walk_launches']['total']} since the start (want "
+                          f"slot, > 0 steps, 0 launches)")
             overlap = eng1.get("tool_overlap", {})
             say(f"quick start: the operator process's engine parked {overlap.get('parks')} "
                 f"slots, {overlap.get('park_adoptions')} adopted by a next turn  [{card}]")
             say(f"quick start: events {len(events.splitlines())} lines; /v1/models "
                 f"{sorted(ids)}; /metrics {task_gauges}; no token -> 401; chat OK; the operator "
-                f"process ran {steps} decode steps and {launches} walk launches "
-                f"(= {n_layers} x {steps}, bf16 walk) during the drive, "
+                f"process served the {eng1['kv_layout']} layout ({n_layers} layers): "
+                f"{steps} decode steps during the drive and {launches} walk launches, "
                 f"{eng1['walk_launches']['total']} since it started  [{card}]")
 
             # 6. stop: SIGTERM, exit code 0
-            t0 = time.monotonic()
-            proc.send_signal(signal.SIGTERM)
-            try:
-                rc = proc.wait(90)
-            except subprocess.TimeoutExpired:
-                stop_failed("the operator did not exit within 90 s of SIGTERM")
-            if rc != 0:
-                stop_failed(f"the operator exited with {rc} after SIGTERM")
-            stop_s = time.monotonic() - t0
+            stop_s = op.stop()
+
+            # 7. run --tpu-kv-layout paged: the same manifests, both Tasks
+            # to FinalAnswer and a chat, every decode step on the bf16 walk
+            paged_apply_ms = paged.apply(manifest)
+            paged_final_ms = paged.tasks()
+            paged.chat()
+            st, paged_eng1 = paged.api("/v1/engine")
+            if st != 200:
+                paged.failed(f"/v1/engine after the drive: {st}")
+            paged_steps = paged_eng1["decode_steps"] - paged_eng0["decode_steps"]
+            paged_launches = (paged_eng1["walk_launches"]["total"]
+                              - paged_eng0["walk_launches"]["total"])
+            paged_int8 = (paged_eng1["walk_launches"]["int8"]
+                          - paged_eng0["walk_launches"]["int8"])
+            if paged_eng1.get("kv_layout") != "paged" or paged_steps <= 0 \
+                    or paged_launches != n_layers * paged_steps or paged_int8 != 0:
+                paged.failed(f"layout {paged_eng1.get('kv_layout')}, walk launches "
+                             f"{paged_launches} (int8 {paged_int8}) != {n_layers} x "
+                             f"{paged_steps} decode steps")
+            paged_stop_s = paged.stop()
+            say(f"quick start: `run --tpu-kv-layout paged`: every Agent Ready in "
+                f"{paged_apply_ms:.1f} ms, FinalAnswer in "
+                + ", ".join(f"{v:.1f} ms ({k})" for k, v in paged_final_ms.items())
+                + f", chat OK; {paged_steps} decode steps and {paged_launches} walk launches "
+                f"(= {n_layers} x {paged_steps}, bf16 walk) during the drive; SIGTERM -> exit 0 "
+                f"in {paged_stop_s:.2f} s  [{card}]")
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(30)
-            log.close()
+            op.close()
+            paged.close()
     phase_s = time.monotonic() - t_phase
     say(f"quick start: SIGTERM -> exit 0 in {stop_s:.2f} s; phase {phase_s:.1f} s  [{card}]")
     return {"card": card, "ready_s": ready_s, "apply_ready_ms": apply_ready_ms,
@@ -4525,6 +4961,9 @@ def quickstart_phase(card: str) -> dict:
             "walk_launches_since_start": eng1["walk_launches"]["total"],
             "parks": eng1.get("tool_overlap", {}).get("parks"),
             "park_adoptions": eng1.get("tool_overlap", {}).get("park_adoptions"),
+            "paged": {"ready_s": paged_ready_s, "apply_ready_ms": paged_apply_ms,
+                      "final_answer_ms": paged_final_ms, "decode_steps": paged_steps,
+                      "walk_launches": paged_launches, "stop_s": paged_stop_s},
             "card_bytes_free_before": free0, "card_bytes_free_after_start": free1,
             "parent_reserved_bytes": parent_reserved, "task_gauges": task_gauges,
             "stop_s": stop_s, "phase_s": phase_s}
@@ -4644,24 +5083,28 @@ def main() -> int:
     walls["control_plane_bf16"] = perf["control_plane"]["phase_s"]
     walls["operator_bf16"] = perf["operator"]["phase_s"]
     walls["observability_bf16"] = perf["observability"]["phase_s"]
+    walls["slot_bf16"] = perf["slot"]["phase_s"]
     walls["serving_bf16"] -= (walls["constrained"] + walls["kv_reuse_bf16"]
                               + walls["host_kv_bf16"] + walls["chunked_bf16"] + walls["spec_bf16"]
                               + walls["control_plane_bf16"] + walls["operator_bf16"]
-                              + walls["observability_bf16"])
+                              + walls["observability_bf16"] + walls["slot_bf16"])
+    slot_first = perf["slot"].pop("first")
     gc.collect()
     torch.cuda.empty_cache()
-    perf_int8 = timed("serving_int8", serving_phase, card, "int8", quantize_weights=True,
-                      quantize_kv=True)
+    perf_int8 = timed("serving_int8", serving_phase, card, "int8", slot_ref=slot_first,
+                      quantize_weights=True, quantize_kv=True)
     walls["kv_reuse_int8"] = perf_int8["kv_reuse"]["phase_s"]
     walls["host_kv_int8"] = perf_int8["host_kv"]["phase_s"]
     walls["chunked_int8"] = perf_int8["chunked"]["phase_s"]
     walls["spec_int8"] = perf_int8["spec"]["phase_s"]
     walls["control_plane_int8"] = perf_int8["control_plane"]["phase_s"]
     walls["operator_int8"] = perf_int8["operator"]["phase_s"]
+    walls["slot_int8"] = perf_int8["slot"]["phase_s"]
     walls["serving_int8"] -= (walls["kv_reuse_int8"] + walls["host_kv_int8"]
                               + walls["chunked_int8"]
                               + walls["spec_int8"] + walls["control_plane_int8"]
-                              + walls["operator_int8"])
+                              + walls["operator_int8"] + walls["slot_int8"])
+    perf_int8["slot"].pop("first", None)
     say(f"serving int8 vs bf16: weights {perf_int8['weight_bytes'] / 1e9:.3f} / "
         f"{perf['weight_bytes'] / 1e9:.3f} GB, KV pool {perf_int8['pool_bytes'] / 1e9:.3f} / "
         f"{perf['pool_bytes'] / 1e9:.3f} GB for {perf['num_pages']} pages  [{card}]")
@@ -4737,7 +5180,7 @@ def main() -> int:
         default=str))
     say("phase walls: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + " s (serving phases without the constrained, kv-reuse, host-kv, chunked, spec, "
-          "control-plane, operator and observability phases)")
+          "control-plane, operator, observability and slot phases)")
     say(f"total {time.monotonic() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": docs}))

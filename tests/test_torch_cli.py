@@ -378,3 +378,46 @@ def test_run_autopilot_flag_parses_and_reaches_the_engine(tmp_path, monkeypatch)
     assert built["autopilot"] is False
     port_cli.cmd_run(port_cli.build_parser().parse_args(base + ["--tpu-autopilot", "1"]))
     assert built["autopilot"] is True
+
+
+def test_run_kv_layout_flag_parses_and_reaches_the_engine(tmp_path, monkeypatch):
+    """``run --tpu-kv-layout`` carries the reference's choices, default
+    (``slot``) and help, and reaches ``Engine(kv_layout=)``."""
+    import argparse
+
+    import agentcontrolplane_tpu_torch.operator as port_operator
+    from agentcontrolplane_tpu.cli import build_parser as ref_parser
+    from agentcontrolplane_tpu_torch import cli as port_cli
+    from agentcontrolplane_tpu_torch.engine import engine as port_engine_mod
+
+    def run_flag(parser):
+        run = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction)).choices["run"]
+        return [(a.default, a.help, a.choices) for a in run._actions
+                if a.dest == "tpu_kv_layout"]
+
+    assert run_flag(port_cli.build_parser()) == run_flag(ref_parser()) != []
+    assert run_flag(port_cli.build_parser())[0][0] == "slot"
+    built = {}
+
+    class FakeEngine:
+        def __init__(self, *args, **kw):
+            built.update(kw)
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+    async def no_serve():
+        return None
+
+    monkeypatch.setattr(port_engine_mod, "Engine", FakeEngine)
+    monkeypatch.setattr(port_operator, "serve_until_signalled", no_serve)
+    base = ["run", "--db", str(tmp_path / "acp.db"), "--tpu-preset", "tiny", "--device", "cpu",
+            "--port", "0"]
+    port_cli.cmd_run(port_cli.build_parser().parse_args(base))
+    assert built["kv_layout"] == "slot"
+    port_cli.cmd_run(port_cli.build_parser().parse_args(base + ["--tpu-kv-layout", "paged"]))
+    assert built["kv_layout"] == "paged"

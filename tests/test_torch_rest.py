@@ -423,6 +423,10 @@ def case_secret_data_redacted_on_resource_endpoints(h):
 
 
 def case_list_models_endpoint(h):
+    # the LLM controller frozen before either LLM exists: with llm_probe off
+    # it marks a mock LLM Ready, so whether "other" is reported ready would
+    # depend on which ran first on each operator
+    h.freeze("llm")
     h.setup()
     h.on_loop(make_llm, h.ns, h.store, name="other", ready=False)
     return [h.call("GET", "/v1/models")]
